@@ -1,0 +1,24 @@
+"""superman_tpu_torch — the matrix permanent engine in PyTorch and CUDA.
+
+The port of ``superman_tpu`` (JAX/Pallas on a TPU) to PyTorch on an
+NVIDIA H100.  It imports neither jax nor superman_tpu, and importing it
+changes no global configuration.  So far it carries the dense exact
+engine: the Gray-code Ryser walk in the df64 tier as a hand-written CUDA
+kernel (csrc/ryser_walk.cu), and the float64 walk.
+
+    import superman_tpu_torch as spt
+    spt.permanent(a)                  # on cuda:0
+    spt.permanent(a, device="cpu")    # the kernels' plain versions
+"""
+
+from .core.flags import Flags
+from .core.result import Result
+from .core.matrix import DenseMatrix
+from .io.triplet import read_triplet
+from .io.matrixmarket import read_any
+from .api import permanent
+
+__version__ = "0.1.0"
+
+__all__ = ["Flags", "Result", "DenseMatrix", "read_triplet", "read_any",
+           "permanent"]

@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in this directory are compiled by nvcc for sm_90a into one
+shared library with a plain C interface, loaded with ctypes.  The build
+runs at first use, goes to ``build/superman_tpu_torch/<hash>/`` at the
+root of the checkout, and is keyed by a hash of the sources and the flags,
+so an edited source rebuilds.  A failed build or load raises; nothing
+falls back to the plain versions.
+
+Usage: python -m superman_tpu_torch.csrc.build   (prints the library path
+and the compiler's register/shared-memory report)
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+SOURCES = (HERE / "ryser_walk.cu",)
+BUILD_ROOT = HERE.parents[1] / "build" / "superman_tpu_torch"
+LIB_NAME = "libsuperman_tpu_torch.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get(
+        "CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return path
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple:
+    """Compile the library unless this source hash is already built.
+    Returns (path, compiler report); the report is empty on a cache hit."""
+    out_dir = BUILD_ROOT / _key()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return str(lib), ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent builder never
+    # sees a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return str(lib), proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare the C signatures."""
+    path, _ = build()
+    lib = ctypes.CDLL(path)
+    fn = lib.ryser_walk_df64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+if __name__ == "__main__":
+    path, report = build()
+    print(report, end="")
+    print(path)

@@ -1,0 +1,136 @@
+"""Gray-code range decomposition and x-vector initialization.
+
+Port of ``superman_tpu/ops/gray.py``.  The Ryser index space
+i in [0, 2^(n-1)) is cut into aligned chunks of 2**r indices, chunk ids
+0..2^(n-1-r)-1.  Inside an aligned chunk the flipped column at inner step
+m is k = ctz(m) for every chunk alike, and the only chunk-dependent sign
+is that of the single mid step m = 2**(r-1), which equals the chunk-index
+parity.  The CUDA kernel walks one chunk per thread; this module keeps the
+decomposition, the chunk ids and the parity rule of the reference, so
+per-chunk partials of the two packages compare one to one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .df64 import join_f64
+
+#: streaming multiprocessors of an H100 SXM; the planner's default when it
+#: is not handed a card (the CPU runs plan exactly as that card would)
+DEFAULT_SMS = 132
+#: chunks (threads) to plan per SM.  At n_pad=32 the walk takes 94
+#: registers, so 5 blocks of 128 threads reside on an SM; a target of 512
+#: gives 2^17 chunks at n=32 on 132 SMs, where the kernel runs within 8%
+#: of its best over 2^13..2^20 chunks (2^16 and fewer leave SMs idle)
+#: while the per-chunk output stays 2 MB (NVIDIA H100 80GB HBM3, 700 W)
+RESIDENT_CHUNKS_PER_SM = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class RyserPlan:
+    n: int           # matrix order
+    n_pad: int       # padded x length (multiple of 8)
+    r: int           # log2 chunk length
+    lanes: int       # chunk ids per id block (padding granularity)
+    num_chunks: int  # total chunks = 2^(n-1-r)
+
+
+def pad_n(n: int) -> int:
+    """Smallest multiple of 8 >= max(n, 8): the kernel's row count."""
+    return max(8, -(-n // 8) * 8)
+
+
+def make_plan(n: int, lanes: int = 1024, chunk_log2=None, *,
+              sms: int = DEFAULT_SMS, grid_multip: int = 1) -> RyserPlan:
+    """Chunk-decomposition planner for the one-thread-per-chunk kernel.
+
+    With chunk_log2 given, r and lanes follow the reference planner
+    exactly (``superman_tpu.ops.gray.make_plan``), so both packages can
+    walk the same plan.  Otherwise r is chosen so that the chunk count is
+    the smallest power of two that gives every SM RESIDENT_CHUNKS_PER_SM
+    threads (times grid_multip, the reference's -e over-decomposition):
+    at n=32 on 132 SMs that is 2^17 chunks of 2^14 steps.  Every chunk
+    costs the same, so more chunks only shorten the last wave.
+    """
+    total = n - 1
+    if chunk_log2 is None:
+        want = max(1, sms * RESIDENT_CHUNKS_PER_SM * max(1, grid_multip))
+        r = total - (want - 1).bit_length()
+    else:
+        r = chunk_log2
+    r = max(1, min(r, n - 2)) if n > 2 else 1
+    num_chunks = 1 << max(0, total - r)
+    lanes = min(lanes, num_chunks)
+    return RyserPlan(n=n, n_pad=pad_n(n), r=r, lanes=lanes,
+                     num_chunks=num_chunks)
+
+
+def chunk_gray_bits(chunk_ids: torch.Tensor, n: int, r: int) -> torch.Tensor:
+    """Gray-code bits of base = chunk_id * 2^r as a (..., n-1) 0/1 int64
+    tensor: bit b = gray(chunk)>>(b-r) for b >= r, chunk&1 for b == r-1,
+    else 0."""
+    l = chunk_ids.to(torch.int64)
+    gray_l = l ^ (l >> 1)
+    b = torch.arange(n - 1, dtype=torch.int64, device=l.device)
+    hi = (gray_l[..., None] >> (b - r).clamp(min=0)) & 1
+    hi = torch.where(b >= r, hi, 0)
+    mid = torch.where(b == r - 1, l[..., None] & 1, 0)
+    return hi | mid
+
+
+def x0_f64(a: np.ndarray) -> np.ndarray:
+    """Nijenhuis–Wilf initial x vector (host, float64):
+    x0[j] = a[j, n-1] - rowsum(j)/2  (reference algo.h:1044-1049)."""
+    a = np.asarray(a, dtype=np.float64)
+    return a[:, -1] - a.sum(axis=1) / 2
+
+
+def chunk_init(chunk_ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
+               n: int, r: int):
+    """x-vectors and mid-step signs of chunks, in float64.
+
+    chunk_ids: (C,) int64 (sentinel ids < 0 give x = 0, a dead chunk).
+    x0:        (n_pad,) float64, padding rows 1.
+    cols:      (n-1, n_pad) float64, column k of the matrix in row k.
+    Returns (x, sign_mid): x (C, n_pad) float64, sign_mid (C,) float64.
+
+    The columns are added in order k = 0..n-2, as the kernel's prologue
+    adds them (csrc/ryser_walk.cu), so both give the same bits.
+    """
+    dead = chunk_ids < 0
+    ids = torch.where(dead, 0, chunk_ids)
+    bits = chunk_gray_bits(ids, n, r).to(x0.dtype)          # (C, n-1)
+    x = x0.expand(ids.shape[0], x0.shape[0])
+    for k in range(n - 1):
+        x = x + bits[:, k:k + 1] * cols[k]
+    sign_mid = (1 - 2 * (ids & 1)).to(x0.dtype)
+    x = torch.where(dead[:, None], 0.0, x)
+    return x, sign_mid
+
+
+def pack_matrix(a: np.ndarray, n_pad: int):
+    """Host-side packing: (x0, cols) float64 with padding rows that are
+    multiplicative identities (x0 pad = 1, column pad = 0).
+    x0 is (n_pad,), cols is (n-1, n_pad)."""
+    a = np.asarray(a, dtype=np.float64)
+    rows, n = a.shape
+    x0 = np.ones(n_pad, dtype=np.float64)
+    x0[:rows] = x0_f64(a)
+    cols = np.zeros((n - 1, n_pad), dtype=np.float64)
+    cols[:, :rows] = a[:, : n - 1].T
+    return x0, cols
+
+
+def from_jax_pack(x0_pair, cols_pair):
+    """The JAX package's f32-pair pack (``superman_tpu.ops.gray.
+    pack_matrix``) as this package's float64 pack: hi + lo, exact.
+    A permanent engine has no weights; this is the one input format the
+    two packages must agree on, so both walk identical inputs."""
+    x0_pair = np.asarray(x0_pair)
+    cols_pair = np.asarray(cols_pair)
+    return (join_f64(x0_pair[0], x0_pair[1]),
+            join_f64(cols_pair[0], cols_pair[1]))

@@ -1,0 +1,42 @@
+"""Chunk-id layout and the single-device partial-sum launch.
+
+Port of the single-device branch of ``superman_tpu/parallel/sharding.py``.
+Every chunk costs exactly 2^r Gray steps, so an equal split is balanced by
+construction; the final, exactness-critical reduction happens on the host
+in float64.  Multi-device runs come with the rest of the parallel layer.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import gray
+from ..ops.ryser_cuda import ryser_partials
+
+
+def pad_ids(ids: np.ndarray, lanes: int) -> np.ndarray:
+    """Pad a 1-D chunk-id list with -1 sentinels (dead chunks) so it
+    reshapes to (B, lanes)."""
+    blocks = -(-len(ids) // lanes)
+    padded = np.full(blocks * lanes, -1, dtype=np.int64)
+    padded[: len(ids)] = ids
+    return padded.reshape(blocks, lanes)
+
+
+def compute_partials(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
+                     plan: gray.RyserPlan,
+                     device: torch.device) -> np.ndarray:
+    """Walk the (B, L) chunk ids on `device` and return the per-chunk
+    partial sums hi + lo as a (B, L) float64 host array (0 for sentinel
+    ids); its .sum() is the scaled total.
+
+    x0 (n_pad,) and cols (n-1, n_pad) are the float64 pack
+    (gray.pack_matrix)."""
+    ids = torch.as_tensor(ids_blocks.reshape(-1), dtype=torch.int64)
+    out = ryser_partials(ids.to(device),
+                         torch.as_tensor(x0, dtype=torch.float64).to(device),
+                         torch.as_tensor(cols, dtype=torch.float64).to(device),
+                         n=plan.n, r=plan.r)
+    out = out.cpu().numpy()
+    return (out[:, 0] + out[:, 1]).reshape(ids_blocks.shape)

@@ -1,0 +1,223 @@
+"""The port's whole slice against the JAX package: permanent(), its
+small-n route, what it refuses, its imports and its CLI.
+
+Inputs come from seeded numpy generators; the port runs on the CPU
+(device="cpu", the kernels' plain versions), the JAX package as its own
+tests run it (Pallas in interpret mode).
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import superman_tpu as sp
+import superman_tpu_torch as spt
+from superman_tpu.ops.oracle import perman64, perman_brute
+from superman_tpu.ops.ryser_xla import ryser_xla
+from tests.conftest import random_float_matrix, random_int_matrix
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # the suite runs several worker processes; torch's own thread pool on
+    # top of them oversubscribes the cores and slows the walks tenfold
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.mark.parametrize("kind", ["int", "real"])
+def test_slice_matches_jax_n21(kind):
+    """The reference's Pallas path at n=21 (as test_exact_dense.py drives
+    it) and the port's chunked walk on the same plan.  Both lie within
+    1e-10 of perman64 (the df64 tier's contract); they agree with each
+    other to 1e-11, the JAX tier's own per-term error (~2^-44) summed."""
+    rng = np.random.default_rng(21)
+    a = (random_int_matrix(rng, 21, 0.5, vmax=2) if kind == "int"
+         else random_float_matrix(rng, 21, 0.5))
+    want = perman64(a)
+    ref = sp.permanent(a, calc="df64", chunk_log2=6, lanes=256)
+    got = spt.permanent(a, calc="df64", chunk_log2=6, lanes=256,
+                        device="cpu")
+    assert "pallas" in ref.algo_name
+    assert got.algo_name == "ryser_plain_df64"
+    assert got.permanent == pytest.approx(want, rel=1e-10)
+    assert ref.permanent == pytest.approx(want, rel=1e-10)
+    assert got.permanent == pytest.approx(ref.permanent, rel=1e-11)
+    for key in ("calc", "chunks", "r", "lanes", "scale_log2"):
+        assert got.meta[key] == ref.meta[key], key
+    assert got.iterations == ref.iterations == 1 << 20
+
+
+def test_default_plan_on_cpu_matches_oracle():
+    """No chunk_log2: the plan the card would get (2^17 chunks at most)."""
+    a = random_int_matrix(np.random.default_rng(19), 19, 0.5)
+    got = spt.permanent(a, device="cpu")
+    assert got.meta["calc"] == "df64" and got.meta["r"] == 1
+    assert got.permanent == pytest.approx(perman64(a), rel=1e-12)
+
+
+def test_underflow_retry_matches_jax():
+    """A permanent far below its row-scale bound (a near-permutation
+    matrix with tiny off-diagonal mass) exercises the scale and retry
+    logic; both packages land on the same scale_log2 and value."""
+    rng = np.random.default_rng(5)
+    n = 20
+    a = np.eye(n)[rng.permutation(n)] + 1e-9 * random_float_matrix(rng, n, 0.2)
+    ref = sp.permanent(a, calc="df64", chunk_log2=5, lanes=256)
+    got = spt.permanent(a, calc="df64", chunk_log2=5, lanes=256,
+                        device="cpu")
+    assert got.meta["scale_log2"] == ref.meta["scale_log2"]
+    assert got.permanent == pytest.approx(ref.permanent, rel=1e-10)
+    assert got.permanent == pytest.approx(perman64(a), rel=1e-10)
+
+
+@pytest.mark.parametrize("n,density,seed", [(3, 0.8, 3), (8, 0.6, 8),
+                                            (12, 0.45, 12), (16, 0.3, 16)])
+def test_small_n_rounds_to_brute(n, density, seed):
+    a = random_int_matrix(np.random.default_rng(seed), n, density, vmax=2)
+    got = spt.permanent(a, device="cpu")
+    want = perman_brute(a)
+    assert want != 0
+    assert round(got.permanent) == want
+
+
+@pytest.mark.parametrize("n,calc", [(12, "df64"), (18, "df64"), (20, "f64")])
+def test_walk_route_matches_ryser_xla(n, calc):
+    """n < 19 (and calc="f64" at any n) take the float64 walk, as the
+    reference takes ryser_xla: rel 1e-12 (same lanes and steps, only the
+    product order inside torch.prod / jnp.prod differs)."""
+    a = random_float_matrix(np.random.default_rng(n), n, 0.6)
+    got = spt.permanent(a, calc=calc, device="cpu")
+    assert got.algo_name == f"ryser_walk_{calc}"
+    assert got.permanent == pytest.approx(ryser_xla(a), rel=1e-12)
+
+
+def test_empty_row_is_zero():
+    a = random_int_matrix(np.random.default_rng(4), 20, 0.6)
+    a[3] = 0
+    res = spt.permanent(a, device="cpu")
+    assert res.permanent == 0.0 and res.meta["reason"] == "empty row/col"
+
+
+def test_auto_sparse_walks_dense_and_says_so(monkeypatch):
+    """Where the reference engages its pruned walk by itself (n >= 28,
+    density < 0.30) the port walks dense and sets meta["sparse_pending"].
+    The walk is stubbed: 2^27 steps are too many for the plain version on
+    the CPU, and only the engine's decision is under test."""
+    from superman_tpu_torch.parallel import sharding
+
+    def half(ids_blocks, x0, cols, plan, device):
+        return np.full(ids_blocks.shape, 0.5 / ids_blocks.size)
+
+    monkeypatch.setattr(sharding, "compute_partials", half)
+    sparse = random_int_matrix(np.random.default_rng(28), 28, 0.2) + \
+        np.eye(28, dtype=np.int64)
+    dense = random_int_matrix(np.random.default_rng(29), 28, 0.5)
+    assert spt.permanent(sparse, device="cpu").meta["sparse_pending"]
+    assert "sparse_pending" not in spt.permanent(dense, device="cpu").meta
+    assert "sparse_pending" not in spt.permanent(
+        sparse, device="cpu", skip_pruning=False).meta
+
+
+def test_device_none_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = random_int_matrix(np.random.default_rng(1), 20, 0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spt.permanent(a)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spt.permanent(a, device="cuda")
+
+
+@pytest.mark.parametrize("flags", [
+    {"sparse": True}, {"calc": "tf96"}, {"approximation": True},
+    {"calc": "f32"}, {"calc": "f32k"}, {"calc": "auto"}, {"calc": "exact"},
+    {"calc": "quad"}, {"perman_algo": "glynn"}, {"perman_algo": "14"},
+    {"perman_algo": "5"}, {"mesh_shape": (2,)}, {"hybrid": True},
+    {"checkpoint_path": "journal"}, {"compression": True},
+    {"scaling_threshold": 1.0}, {"cpu": True, "gpu": False},
+    {"dm_prune": True}, {"rectangular": True},
+])
+def test_unported_features_raise(flags):
+    a = random_int_matrix(np.random.default_rng(2), 20, 0.5)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        spt.permanent(a, device="cpu", **flags)
+
+
+def test_bad_input_raises():
+    with pytest.raises(ValueError, match="square"):
+        spt.permanent(np.ones((3, 4)), device="cpu")
+    with pytest.raises(TypeError, match="unknown flags"):
+        spt.permanent(np.ones((3, 3)), device="cpu", no_such_flag=1)
+
+
+def test_import_pulls_in_no_jax():
+    """Every module of the port imports without jax or superman_tpu."""
+    code = ("import importlib, pkgutil, sys, superman_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'superman_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cli_prints_reference_value(tmp_path):
+    """python -m superman_tpu_torch -f <triplet> -p4 --device cpu prints
+    the reference's Result line with the JAX package's value."""
+    a = random_int_matrix(np.random.default_rng(11), 11, 0.5)
+    path = tmp_path / "m11.txt"
+    from superman_tpu.io.triplet import write_triplet
+    from superman_tpu.core.matrix import DenseMatrix
+    write_triplet(str(path), DenseMatrix(a, "int"))
+    want = sp.permanent(str(path), perman_algo="4").permanent
+    proc = subprocess.run(
+        [sys.executable, "-m", "superman_tpu_torch", "-f", str(path), "-p4",
+         "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    line = proc.stdout.strip().splitlines()[-1]
+    assert line.startswith("Result || ryser_walk_df64 | ")
+    got = float(line.split("|")[-1].split(" in ")[0])
+    assert got == want == perman_brute(a)
+
+
+@pytest.mark.parametrize("fmt", ["triplet", "mtx"])
+def test_readers_match_jax(tmp_path, fmt):
+    """The copied readers give the JAX package's matrix and storage class."""
+    from superman_tpu.io.matrixmarket import read_any as jread_any
+    path = tmp_path / f"m.{fmt}"
+    if fmt == "triplet":
+        path.write_text("3 4 int\n0 0 2\n1 2 5\n2 1 -1\n2 2 3\n")
+    else:
+        path.write_text("%%MatrixMarket matrix coordinate real symmetric\n"
+                        "% comment\n3 3 3\n1 1 1.5\n3 1 -2.25\n2 2 4\n")
+    got, want = spt.read_any(str(path)), jread_any(str(path))
+    assert got.type == want.type
+    assert got.mat.dtype == want.mat.dtype
+    assert np.array_equal(got.mat, want.mat)
+
+
+@pytest.mark.parametrize("n", [5, 9])
+def test_oracle_copy_matches_jax(n):
+    """perman64, perman_brute and gray_init_lanes are copied numpy code:
+    the copies give the reference's bits."""
+    from superman_tpu.ops import oracle as joracle
+    from superman_tpu_torch.ops import oracle
+    a = random_float_matrix(np.random.default_rng(n), n, 0.7)
+    assert oracle.perman64(a) == joracle.perman64(a)
+    assert oracle.perman_brute(a) == joracle.perman_brute(a)
+    ids = np.arange(1 << (n - 3))
+    for got, want in zip(oracle.gray_init_lanes(a, ids, 2),
+                         joracle.gray_init_lanes(a, ids, 2)):
+        assert np.array_equal(got, want)

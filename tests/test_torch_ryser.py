@@ -1,0 +1,227 @@
+"""The port's walk against the JAX package's, module by module.
+
+Inputs come from seeded numpy generators and go through both packages:
+the JAX side runs its Pallas kernel in interpret mode on the CPU, the
+port runs its kernel's plain PyTorch version (a CPU tensor).  The CUDA
+kernel itself is tested on a card by tests/test_torch_card.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from superman_tpu.ops import gray as jgray
+from superman_tpu.ops import ryser as jryser
+from superman_tpu.ops.oracle import perman_brute
+from superman_tpu.ops.ryser_pallas import ryser_partials as jax_partials
+from superman_tpu_torch.ops import gray, ryser, ryser_cuda
+from tests.conftest import random_float_matrix, random_int_matrix
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # the suite runs several worker processes; torch's own thread pool on
+    # top of them oversubscribes the cores and slows the walks tenfold
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+def _jax_walk(a, n_pad, ids, r, exact_storage):
+    """Per-chunk partials hi + lo of the JAX df64 tier (interpret mode),
+    as superman_tpu.parallel.sharding.compute_partials runs it."""
+    x0_pair, cols_pair = jgray.pack_matrix(a, n_pad)
+    cth, ctl = jryser.colst_pack(a, n_pad)
+    n = a.shape[0]
+    xhi, xlo, smid = jgray.chunk_init(
+        jnp.asarray(ids.astype(np.int32)), x0_pair, cols_pair, n=n,
+        n_pad=n_pad, r=r, df=not exact_storage)
+    out = np.asarray(jax_partials(xhi, xlo, smid, cth, ctl, r=r, df=True,
+                                  exact_storage=exact_storage,
+                                  interpret=True), dtype=np.float64)
+    return (out[:, 0] + out[:, 1]).reshape(-1), x0_pair, cols_pair
+
+
+def _port_walk(ids, x0, cols, n, r):
+    out = ryser_cuda.ryser_partials(
+        torch.as_tensor(ids.reshape(-1), dtype=torch.int64),
+        torch.as_tensor(x0), torch.as_tensor(cols), n=n, r=r).numpy()
+    return out[:, 0] + out[:, 1]
+
+
+@pytest.mark.parametrize("n,r,vmax", [(10, 4, 1), (21, 6, 3)])
+def test_chunk_init_matches_jax(n, r, vmax):
+    """x of every chunk equals the JAX df64 init's hi + lo exactly on
+    integer matrices; sentinel ids give x = 0 in both."""
+    a = random_int_matrix(np.random.default_rng(100 + n), n, 0.5, vmax)
+    n_pad = gray.pad_n(n)
+    nchunks = 1 << (n - 1 - r)
+    ids = np.concatenate([np.arange(min(nchunks, 96)),
+                          np.arange(nchunks - 30, nchunks), [-1, -1]])
+    x0_pair, cols_pair = jgray.pack_matrix(a, n_pad)
+    xhi, xlo, smid = jgray.chunk_init(
+        jnp.asarray(ids.astype(np.int32)[None]), x0_pair, cols_pair, n=n,
+        n_pad=n_pad, r=r, df=True)
+    want_x = (np.asarray(xhi, np.float64) + np.asarray(xlo, np.float64))[0].T
+    x0, cols = gray.from_jax_pack(x0_pair, cols_pair)
+    x, sign_mid = gray.chunk_init(torch.as_tensor(ids), torch.as_tensor(x0),
+                                  torch.as_tensor(cols), n, r)
+    assert np.array_equal(x.numpy(), want_x)
+    assert np.array_equal(sign_mid.numpy(), np.asarray(smid)[0, 0])
+
+
+def test_partials_bitwise_vs_jax_n10():
+    """0/1 matrix, unscaled, n=10, r=4: every x is k/2 with |k| <= 10,
+    so every term is a multiple of 2^-10 and every chunk's partial has
+    fewer than 46 significant bits — exact in both packages.  The
+    partials must then match bitwise, and sum to perman_brute."""
+    n, r = 10, 4
+    a = (np.random.default_rng(10).random((n, n)) < 0.5).astype(np.int64)
+    rowsum = int(a.sum(axis=1).max())
+    # |prod_j 2 x_j| <= rowsum^n per term, 2^r terms per chunk
+    assert rowsum ** n * (1 << r) < 2 ** 46
+    n_pad = gray.pad_n(n)
+    ids = np.arange(1 << (n - 1 - r)).reshape(2, -1)
+    want, x0_pair, cols_pair = _jax_walk(a, n_pad, ids, r,
+                                         exact_storage=True)
+    x0, cols = gray.from_jax_pack(x0_pair, cols_pair)
+    got = _port_walk(ids, x0, cols, n, r)
+    assert np.array_equal(got, want)
+    assert (4 * (n & 1) - 2) * got.sum() == perman_brute(a) != 0
+
+
+@pytest.mark.parametrize("kind,n,r", [("int", 21, 6), ("int", 20, 5),
+                                      ("real", 20, 5)])
+def test_partials_match_jax_large(kind, n, r):
+    """n=20-21, row-scaled as the engine scales: integer vmax=3 (JAX
+    exact_storage path) and real-valued (JAX full-pair path).  The JAX
+    tier carries each term to ~2^-44 in f32 pairs, the port to ~2^-50 in
+    float64, so the partials agree within 1e-11 of the largest one."""
+    rng = np.random.default_rng(200 + n)
+    a = (random_int_matrix(rng, n, 0.5, vmax=3) if kind == "int"
+         else random_float_matrix(rng, n, 0.5))
+    a_s = np.ldexp(a.astype(np.float64), -ryser._row_scales(a)[:, None])
+    nchunks = 1 << (n - 1 - r)
+    ids = np.concatenate([np.arange(256),
+                          np.arange(nchunks - 256, nchunks)]).reshape(2, -1)
+    want, x0_pair, cols_pair = _jax_walk(a_s, gray.pad_n(n), ids, r,
+                                         exact_storage=(kind == "int"))
+    x0, cols = gray.from_jax_pack(x0_pair, cols_pair)
+    got = _port_walk(ids, x0, cols, n, r)
+    scale = np.abs(want).max()
+    assert scale > 0
+    assert np.abs(got - want).max() <= 1e-11 * scale
+
+
+def test_sentinel_ids_give_zero():
+    """ids < 0 give an exact (0, 0) and leave the live chunks as they
+    are without sentinels."""
+    a = random_int_matrix(np.random.default_rng(7), 12, 0.6)
+    n, r = 12, 3
+    x0, cols = (torch.as_tensor(v) for v in gray.pack_matrix(
+        a, gray.pad_n(n)))
+    live = torch.arange(1 << (n - 1 - r))
+    mixed = torch.cat([live[:5], torch.full((7,), -1), live[5:]])
+    out_live = ryser_cuda.ryser_partials(live, x0, cols, n=n, r=r)
+    out = ryser_cuda.ryser_partials(mixed, x0, cols, n=n, r=r)
+    assert torch.equal(out[5:12], torch.zeros(7, 2, dtype=torch.float64))
+    assert torch.equal(torch.cat([out[:5], out[12:]]), out_live)
+
+
+def test_accumulator_is_double_double():
+    """Each chunk's (hi, lo) is the exact sum of its float64 terms to
+    ~2^-100 of their magnitude, far past a plain float64 sum (~2^-53).
+    The terms are rebuilt step by step in numpy with the same IEEE
+    operations and summed exactly as fractions."""
+    from fractions import Fraction
+    n, r = 10, 8
+    a = random_float_matrix(np.random.default_rng(3), n, 0.8)
+    x0, cols = gray.pack_matrix(a, gray.pad_n(n))
+    ids = np.array([0, 1], dtype=np.int64)
+    out = ryser_cuda.ryser_partials(torch.as_tensor(ids), torch.as_tensor(x0),
+                                    torch.as_tensor(cols), n=n, r=r).numpy()
+    x, sign_mid = (t.numpy() for t in gray.chunk_init(
+        torch.as_tensor(ids), torch.as_tensor(x0), torch.as_tensor(cols),
+        n, r))
+    def prod(v):
+        return ryser_cuda.tree_prod(torch.as_tensor(v)).numpy()
+
+    terms = [prod(x)]
+    for m in range(1, 1 << r):
+        k = (m & -m).bit_length() - 1
+        s = (sign_mid[:, None] if k == r - 1
+             else (-1.0 if (m >> (k + 1)) & 1 else 1.0))
+        x = x + s * cols[k]
+        terms.append(-prod(x) if m & 1 else prod(x))
+    for c in range(len(ids)):
+        exact = sum(Fraction(float(t[c])) for t in terms)
+        got = Fraction(float(out[c, 0])) + Fraction(float(out[c, 1]))
+        mag = sum(abs(Fraction(float(t[c]))) for t in terms)
+        assert abs(got - exact) <= mag * Fraction(1, 2 ** 100)
+        assert out[c, 1] != 0.0          # the low word carries bits
+
+
+@pytest.mark.parametrize("bad,exc", [
+    ({"ids": torch.arange(4, dtype=torch.int32)}, TypeError),
+    ({"x0": torch.ones(16, dtype=torch.float32)}, TypeError),
+    ({"cols": torch.zeros(9, 32, dtype=torch.float64)}, ValueError),
+    ({"r": 9}, ValueError),
+    ({"x0": torch.ones(72, dtype=torch.float64),
+      "cols": torch.zeros(9, 72, dtype=torch.float64)}, ValueError),
+])
+def test_wrapper_rejects_bad_inputs(bad, exc):
+    args = {"ids": torch.arange(4), "x0": torch.ones(16, dtype=torch.float64),
+            "cols": torch.zeros(9, 16, dtype=torch.float64), "r": 3}
+    args.update(bad)
+    with pytest.raises(exc):
+        ryser_cuda.ryser_partials(args["ids"], args["x0"], args["cols"],
+                                  n=10, r=args["r"])
+
+
+@pytest.mark.parametrize("n,lanes,chunk_log2", [
+    (21, 256, 6), (20, 1024, 5), (24, 512, 30), (19, 64, 1), (32, 1024, 14)])
+def test_make_plan_matches_jax_when_given(n, lanes, chunk_log2):
+    assert gray.make_plan(n, lanes, chunk_log2).__dict__ == \
+        jgray.make_plan(n, lanes, chunk_log2, df=True).__dict__
+
+
+def test_default_plan_fills_the_card():
+    """No chunk_log2: the smallest power-of-two chunk count that gives
+    132 SMs 512 threads each (2^17 at n=32), never below r=1."""
+    plan = gray.make_plan(32)
+    assert (plan.r, plan.num_chunks, plan.n_pad) == (14, 1 << 17, 32)
+    assert gray.make_plan(32, sms=66).num_chunks == 1 << 16
+    assert gray.make_plan(19).r == 1
+
+
+@pytest.mark.parametrize("kind", ["int", "real", "sparse"])
+def test_host_helpers_match_jax(kind):
+    """Row scales, centring, pack and the exact-storage decision equal the
+    reference's outputs."""
+    rng = np.random.default_rng({"int": 1, "real": 2, "sparse": 3}[kind])
+    a = {"int": lambda: random_int_matrix(rng, 22, 0.5),
+         "real": lambda: random_float_matrix(rng, 22, 0.5),
+         "sparse": lambda: random_int_matrix(rng, 30, 0.15)}[kind]()
+    from superman_tpu.core.matrix import DenseMatrix as JDense
+    from superman_tpu_torch.core.matrix import DenseMatrix
+    tname = "int" if kind != "real" else "double"
+    s = ryser._row_scales(a)
+    assert np.array_equal(s, jryser._row_scales(a))
+    assert np.array_equal(ryser._center_scales(a, s),
+                          jryser._center_scales(a, s))
+    assert ryser._log2_perm_estimate(a) == jryser._log2_perm_estimate(a)
+    assert ryser._exact_storage(DenseMatrix(a, tname)) == \
+        jryser._exact_storage(JDense(a, tname))
+    a_s = np.ldexp(a.astype(np.float64), -s[:, None])
+    n_pad = gray.pad_n(a.shape[0])
+    x0, cols = gray.pack_matrix(a_s, n_pad)
+    jx0, jcols = gray.from_jax_pack(*jgray.pack_matrix(a_s, n_pad))
+    if kind == "real":
+        # the JAX pack keeps ~48 bits in its f32 pair
+        assert np.allclose(x0, jx0, rtol=2.0 ** -46, atol=0)
+        assert np.allclose(cols, jcols, rtol=2.0 ** -46, atol=0)
+    else:
+        assert np.array_equal(x0, jx0) and np.array_equal(cols, jcols)
