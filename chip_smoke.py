@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from this checkout, holds it against its
-plain PyTorch version on the card at the main path's shapes, drives the
-main path (superman_tpu_torch.permanent, calc="df64", n=32) and checks
-its value, times kernel and plain version, and prints:
+Builds the port's CUDA kernels from this checkout, holds each against
+its plain PyTorch version on the card at its path's shapes, drives the
+two paths through superman_tpu_torch.permanent at n=32 -- calc="df64"
+(the Ryser walk, csrc/ryser_walk.cu) and calc="exact" (the Z_p walk,
+csrc/modp_walk.cu, under the modular CRT engine) -- and checks their
+values, times kernels and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
-  * one JSON line {"kernels": [...]} with each kernel's launches on the
-    main path, its largest difference from the plain version and both
-    times;
+  * one JSON line {"kernels": [...]} with each kernel's launches on its
+    path, its largest difference from the plain version and both times;
   * last, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no last line is
@@ -42,6 +43,12 @@ EXACT_N32 = 106727175240173945355163340903491553305
 KERNEL_TOL = 2.0 ** -45
 MAIN_TOL = 1e-9          # n=32 df64 vs the pinned value
 SMALL_TOL = 1e-10        # n=20, 24 vs the long-double oracle
+#: the Z_p kernel is checked at the largest prime the TPU kernel took and
+#: at the largest the card's takes; residues must agree exactly
+MOD_PRIMES = (2039, (1 << 31) - 1)
+#: a 31-bit prime outside the CRT pool of the n=32 run (which descends
+#: from 2^31 - 1), for the Glynn vs Nijenhuis-Wilf cross-check
+GLYNN_PRIME = 1073741789
 
 
 def random_int_matrix(rng, n, density, vmax=4):
@@ -91,6 +98,21 @@ def compare(kern, plain, ids) -> float:
     return err
 
 
+def compare_mod(kern, plain, ids, p) -> int:
+    """Largest |kernel - plain| residue difference; raises unless the two
+    are equal on every chunk, canonical, and 0 on the sentinels."""
+    import torch
+    if not bool(((kern >= 0) & (kern < p)).all()):
+        raise AssertionError(f"p={p}: a residue outside [0, p)")
+    if bool((kern[ids < 0] != 0).any()):
+        raise AssertionError(f"p={p}: a sentinel chunk wrote a nonzero sum")
+    err = int((kern - plain).abs().max())
+    print(f"  p={p}: {ids.numel()} chunks, max residue difference {err}")
+    if not torch.equal(kern, plain):
+        raise AssertionError(f"p={p}: kernel and plain residues differ")
+    return err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -98,7 +120,8 @@ def main() -> int:
         return 2
     import superman_tpu_torch as spt
     from superman_tpu_torch.csrc import build
-    from superman_tpu_torch.ops import gray, oracle, ryser_cuda
+    from superman_tpu_torch.ops import (exact, gray, modp, modp_cuda, oracle,
+                                        ryser_cuda)
     from superman_tpu_torch.ops.ryser import _center_scales, _row_scales
 
     # ---- 1. probe and build
@@ -132,12 +155,27 @@ def main() -> int:
     print(f"kernel vs plain, {ids.numel()} chunk ids (start, sentinels, end):")
     max_err = compare(kern, plain, ids)
 
-    # ---- 3. the main path
+    # ---- 2b. the Z_p kernel vs its plain version, same plan and ids
+    core, mult = exact._fold_lines(exact.dyadic_int_matrix(a32)[0])
+    if mult != 1 or len(core) != 32:
+        raise AssertionError(f"n=32 matrix folded: mult {mult}, "
+                             f"core n={len(core)}")
+    mod_err = 0
+    for p in MOD_PRIMES:
+        mx0, mcols = (t.to(dev) for t in modp.pack_mod(
+            modp.reduce_core_mod(core, p), p, plan.n_pad))
+        kern = modp_cuda.mod_partials(ids, mx0, mcols, p, n=32, r=plan.r)
+        torch.cuda.synchronize()
+        plain = modp_cuda.mod_partials_ref(ids, mx0, mcols, p, n=32,
+                                           r=plan.r)
+        mod_err = max(mod_err, compare_mod(kern, plain, ids, p))
+
+    # ---- 3. the df64 path
     small = []
     for n in (20, 24):
         a = random_int_matrix(np.random.default_rng(n), n, 0.5)
         small.append((n, a, float(oracle.perman64(a, dtype=np.longdouble))))
-    ryser_cuda.LAUNCHES = 0
+    ryser_cuda.LAUNCHES = modp_cuda.LAUNCHES = 0
     spt.permanent(a32, calc="df64")                       # warm-up
     best = min((spt.permanent(a32, calc="df64") for _ in range(3)),
                key=lambda res: res.time)
@@ -158,9 +196,40 @@ def main() -> int:
         if res.algo_name != "ryser_cuda_df64" or not rel_n <= SMALL_TOL:
             raise AssertionError(f"n={n}: {res.algo_name} rel {rel_n:.3e}")
     launches = ryser_cuda.LAUNCHES
-    print(f"ryser_walk_df64 launches on the main path: {launches}")
+    print(f"ryser_walk_df64 launches on the df64 path: {launches}")
     if launches <= 0:
-        raise AssertionError("the main path did not launch the kernel")
+        raise AssertionError("the df64 path did not launch the kernel")
+
+    # ---- 3b. the exact path
+    ryser_cuda.LAUNCHES = modp_cuda.LAUNCHES = 0
+    ex = []
+    for _ in range(3):
+        t = time.perf_counter()
+        res = spt.permanent(a32, calc="exact")
+        ex.append((time.perf_counter() - t, res))
+    mod_launches = modp_cuda.LAUNCHES
+    exact_s, res = min(ex, key=lambda e: e[0])
+    meta = res.meta["exact"]
+    print(f"exact path n=32: {res.meta['exact_fraction']} in {exact_s:.4f} s "
+          f"(best of 3: {', '.join(f'{e[0]:.4f}' for e in ex)}); {meta}; "
+          f"modp_walk launches {mod_launches}")
+    for _, r_ in ex:
+        if r_.meta["exact_fraction"] != EXACT_N32:
+            raise AssertionError(f"exact path: {r_.meta['exact_fraction']} "
+                                 f"!= {EXACT_N32}")
+    if meta["engine"] != "cuda_mod" or mod_launches <= 0:
+        raise AssertionError(f"exact path: engine {meta['engine']}, "
+                             f"{mod_launches} modp_walk launches")
+    rel_df = abs(best.permanent - EXACT_N32) / EXACT_N32
+    print(f"df64 n=32 vs the exact path's integer: rel err {rel_df:.3e}")
+    if not rel_df <= MAIN_TOL:
+        raise AssertionError(f"df64 vs exact: rel {rel_df:.3e}")
+    nw = modp.perman_core_mod(core, GLYNN_PRIME, dev)
+    gl = modp.perman_core_glynn_mod(core, GLYNN_PRIME, dev)
+    print(f"p={GLYNN_PRIME}: Nijenhuis-Wilf {nw}, Glynn {gl}, exact "
+          f"integer mod p {EXACT_N32 % GLYNN_PRIME}")
+    if not nw == gl == EXACT_N32 % GLYNN_PRIME:
+        raise AssertionError("Glynn and Nijenhuis-Wilf residues disagree")
 
     # ---- 4. times at the full n=32 main-path plan
     ids = torch.arange(plan.num_chunks, device=dev)
@@ -176,13 +245,34 @@ def main() -> int:
           f"2^{plan.r}): kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms")
     max_err = max(max_err, compare(kern, plain, ids))
 
+    p = MOD_PRIMES[-1]
+    mx0, mcols = (t.to(dev) for t in modp.pack_mod(
+        modp.reduce_core_mod(core, p), p, plan.n_pad))
+
+    def run_mod():
+        return modp_cuda.mod_partials(ids, mx0, mcols, p, n=32, r=plan.r)
+
+    run_mod()                                             # warm-up
+    mod_ms, kern = cuda_ms(run_mod, 5)
+    mod_plain_ms, plain = cuda_ms(lambda: modp_cuda.mod_partials_ref(
+        ids, mx0, mcols, p, n=32, r=plan.r), 1)
+    print(f"modp_walk vs plain, full plan, p={p}: kernel {mod_ms:.3f} ms "
+          f"({(1 << 31) / mod_ms / 1e6:.2f} G steps/s), plain "
+          f"{mod_plain_ms:.1f} ms")
+    mod_err = max(mod_err, compare_mod(kern, plain, ids, p))
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "ryser_walk_df64", "route": "cuda",
         "source": "superman_tpu_torch/csrc/ryser_walk.cu",
         "replaces": "superman_tpu/ops/ryser_pallas.py:541",
         "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "name": "modp_walk", "route": "cuda",
+        "source": "superman_tpu_torch/csrc/modp_walk.cu",
+        "replaces": "superman_tpu/ops/modp.py:413",
+        "launches": mod_launches, "max_abs_err": mod_err,
+        "ms": mod_ms, "plain_ms": mod_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,9 @@ The port of ``superman_tpu`` (JAX/Pallas on a TPU) to PyTorch on an
 NVIDIA H100.  It imports neither jax nor superman_tpu, and importing it
 changes no global configuration.  So far it carries the dense exact
 engine: the Gray-code Ryser walk in the df64 tier as a hand-written CUDA
-kernel (csrc/ryser_walk.cu), and the float64 walk.
+kernel (csrc/ryser_walk.cu), and the float64 walk; and calc="exact", the
+modular CRT engine over a hand-written Z_p walk kernel
+(csrc/modp_walk.cu).
 
     import superman_tpu_torch as spt
     spt.permanent(a)                  # on cuda:0

@@ -23,7 +23,7 @@ import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-SOURCES = (HERE / "ryser_walk.cu",)
+SOURCES = (HERE / "ryser_walk.cu", HERE / "modp_walk.cu")
 BUILD_ROOT = HERE.parents[1] / "build" / "superman_tpu_torch"
 LIB_NAME = "libsuperman_tpu_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -80,6 +80,12 @@ def load() -> ctypes.CDLL:
     fn = lib.ryser_walk_df64
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.modp_walk
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

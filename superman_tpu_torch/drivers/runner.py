@@ -1,7 +1,8 @@
 """Orchestration: dispatch a (matrix, flags) pair to an engine.
 
 Port of ``superman_tpu/drivers/runner.py`` for what the port carries so
-far: the dense exact engine (ops/ryser.py) in the df64 and f64 tiers.
+far: the dense exact engine (ops/ryser.py) in the df64 and f64 tiers and
+the modular CRT exact engine (ops/exact.py, calc="exact").
 Every other feature the flags can ask for raises NotImplementedError
 naming the ROADMAP item that brings it; none is ignored, so no result
 differs quietly from what the JAX package would return.
@@ -21,7 +22,6 @@ ROADMAP_ITEMS = {
     4: "the other walk tiers and Glynn",
     5: "sparse engine",
     6: 'calc="auto" ladder',
-    7: "exact engine",
     9: "estimators",
     10: "drivers, prep and rectangular",
     11: "multi-GPU and scheduling",
@@ -39,6 +39,13 @@ def run(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     # resolve the reference algorithm id up front (the same table as the
     # CLI); unknown ids raise here
     beh = id_behavior(flags.perman_algo, flags.sparse, flags.approximation)
+    # calc="exact": modular-CRT integer permanent (ops/exact.py).  It
+    # folds degree-1/2 lines in exact bigint arithmetic itself and must
+    # not run under the sparse, scaling or compression drivers (those
+    # round in f64), so it is routed before their guards.
+    if flags.resolved_calc() == "exact" and not flags.approximation:
+        from ..ops.exact import perman_exact
+        return perman_exact(dense, flags, device)
     if flags.approximation:
         raise unported("approximation", 9)
     if beh["sparse"]:
@@ -48,8 +55,6 @@ def run(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     if beh["multi"] or (flags.mesh_shape is not None
                         and int(np.prod(flags.mesh_shape)) > 1):
         raise unported("multi-device runs", 11)
-    if flags.resolved_calc() == "exact":
-        raise unported('calc="exact"', 7)
     if flags.scaling_threshold != -1.0:
         raise unported("Sinkhorn scaling", 10)
     if flags.compression:

@@ -1,0 +1,329 @@
+"""Exact permanent via modular CRT -- the arbiter of last resort.
+
+Port of ``superman_tpu/ops/exact.py``.  Every fixed-precision engine
+computes the Ryser sum with an error of ~``amp * 2^-mantissa`` where
+``amp`` is the cancellation amplitude ``sum_m |term_m| / |per|``.  Real
+matrices can push ``amp`` past 2^280, where every such engine returns
+noise.
+
+This engine is immune by construction: an f64 matrix is exactly
+``M / 2^k`` for an integer matrix M (dyadic rationals), and ``per(M)``
+is computed EXACTLY as an integer via the Nijenhuis-Wilf walk in Z_p
+over enough primes plus Chinese remaindering.  One extra held-out prime
+verifies the reconstruction end to end, so a kernel bug cannot produce
+a silently wrong value.  The walks run on the card through the Z_p
+kernel (ops/modp.py, csrc/modp_walk.cu) at 31-bit primes; the CPU runs
+the kernel's plain version.
+
+Degree-1 and degree-2 lines are folded exactly in bigint arithmetic
+first.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from fractions import Fraction
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+#: the host walk's primes live just under 2^61: sums x + c < 2^62 stay
+#: clear of u64, and ~61 bits/prime keeps the CRT prime count minimal
+_PRIME_CEIL = (1 << 61) - 1
+
+_SMALL_PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37)
+
+
+def _is_prime_u64(n: int) -> bool:
+    """Deterministic Miller-Rabin for n < 2^64 (fixed witness set)."""
+    if n < 2:
+        return False
+    for p in _SMALL_PRIMES:
+        if n % p == 0:
+            return n == p
+    d, r = n - 1, 0
+    while d % 2 == 0:
+        d //= 2
+        r += 1
+    for a in _SMALL_PRIMES:
+        x = pow(a, d, n)
+        if x in (1, n - 1):
+            continue
+        for _ in range(r - 1):
+            x = x * x % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
+
+
+def primes_desc(count: int, start: int = _PRIME_CEIL) -> List[int]:
+    out, c = [], start | 1
+    while len(out) < count:
+        if _is_prime_u64(c):
+            out.append(c)
+        c -= 2
+    return out
+
+
+def dyadic_int_matrix(a: np.ndarray) -> Tuple[List[List[int]], int]:
+    """Exact (M, k) with a == M / 2^k elementwise (f64s are dyadic)."""
+    rows = []
+    k = 0
+    ratios = [[float(v).as_integer_ratio() for v in row]
+              for row in np.asarray(a, dtype=np.float64).tolist()]
+    for row in ratios:
+        for _, den in row:
+            k = max(k, den.bit_length() - 1)   # den is a power of two
+    for row in ratios:
+        rows.append([num << (k - (den.bit_length() - 1))
+                     for num, den in row])
+    return rows, k
+
+
+def _fold_lines(m: List[List[int]]) -> Tuple[List[List[int]], int]:
+    """Exactly fold degree-1 AND degree-2 lines: per(M) = mult * per(core).
+
+    d1: a single-support line contributes its entry as a factor.  d2: a
+    2-support row (entries a@j1, b@j2) folds by column multilinearity
+    into one merged column a*col_j2 + b*col_j1 -- exact here in bigints,
+    where f64 merges would round.  Columns fold by transpose symmetry.
+    Entry bit-lengths grow under d2 merges; the CRT prime count scales
+    with the bound, so exactness is never at risk.
+    """
+    mult = 1
+    while m:
+        n = len(m)
+        deg_r = [sum(1 for v in row if v) for row in m]
+        deg_c = [sum(1 for row in m if row[j]) for j in range(n)]
+        if 0 in deg_r or 0 in deg_c:
+            return [], 0                       # structural zero
+        if 1 in deg_r:
+            i = deg_r.index(1)
+            j = next(jj for jj, v in enumerate(m[i]) if v)
+        elif 1 in deg_c:
+            j = deg_c.index(1)
+            i = next(ii for ii in range(n) if m[ii][j])
+        elif 2 in deg_r:
+            i = deg_r.index(2)
+            j1, j2 = (jj for jj, v in enumerate(m[i]) if v)
+            a, b = m[i][j1], m[i][j2]
+            m = [[v for jj, v in enumerate(row) if jj not in (j1, j2)]
+                 + [a * row[j2] + b * row[j1]]
+                 for ii, row in enumerate(m) if ii != i]
+            continue
+        elif 2 in deg_c:
+            j = deg_c.index(2)
+            i1, i2 = (ii for ii in range(n) if m[ii][j])
+            a, b = m[i1][j], m[i2][j]
+            merged = [a * v2 + b * v1 for v1, v2 in zip(
+                (v for jj, v in enumerate(m[i1]) if jj != j),
+                (v for jj, v in enumerate(m[i2]) if jj != j))]
+            m = [[v for jj, v in enumerate(row) if jj != j]
+                 for ii, row in enumerate(m) if ii not in (i1, i2)]
+            m.append(merged)
+            continue
+        else:
+            break
+        mult *= m[i][j]
+        m = [[v for jj, v in enumerate(row) if jj != j]
+             for ii, row in enumerate(m) if ii != i]
+    return m, mult
+
+
+def _perman_bigint_dfs(m: List[List[int]]) -> int:
+    """Exact DFS permanent on a small bigint matrix (host fallback)."""
+    n = len(m)
+    rows = [[(j, row[j]) for j in range(n) if row[j]] for row in m]
+    order = sorted(range(n), key=lambda i: len(rows[i]))
+
+    def rec(level: int, used: int) -> int:
+        if level == n:
+            return 1
+        tot = 0
+        for j, v in rows[order[level]]:
+            if not (used >> j) & 1:
+                sub = rec(level + 1, used | (1 << j))
+                if sub:
+                    tot += v * sub
+        return tot
+
+    return rec(0, 0)
+
+
+def _perman_mod_host(m: List[List[int]], p: int) -> int:
+    """Pure-Python Z_p Nijenhuis-Wilf walk: the engine="host" walk and
+    the kernel's unit-test twin; practical to n ~ 20."""
+    n = len(m)
+    if n == 0:
+        return 1 % p
+    if n == 1:
+        return m[0][0] % p
+    inv2 = (p + 1) // 2
+    x = [(m[j][n - 1] - sum(m[j]) * inv2) % p for j in range(n)]
+    colp = [[m[j][k] % p for j in range(n)] for k in range(n - 1)]
+    colm = [[(p - v) % p for v in col] for col in colp]
+    acc = 1
+    for v in x:
+        acc = acc * v % p
+    for i in range(1, 1 << (n - 1)):
+        k = (i & -i).bit_length() - 1
+        g = i ^ (i >> 1)
+        c = colp[k] if (g >> k) & 1 else colm[k]
+        prod = 1
+        for j in range(n):
+            xv = x[j] + c[j]
+            if xv >= p:
+                xv -= p
+            x[j] = xv
+            prod = prod * xv % p
+        acc = (acc - prod if i & 1 else acc + prod) % p
+    acc = acc * 2 % p
+    if not n & 1:
+        acc = (-acc) % p
+    return acc
+
+
+def _log2_bound(m: List[List[int]]) -> float:
+    """log2 upper bound on |per(M)|.
+
+    Base: the row-sum bound prod_i sum_j |M_ij| in BOTH orientations
+    (per(M) = per(M^T)), taking the smaller.  For 0/1 matrices it is
+    tightened to Bregman-Minc  per(A) <= prod_i (r_i!)^(1/r_i), which
+    means fewer CRT primes and hence fewer walks."""
+    n = len(m)
+    rows = [sum(abs(v) for v in row) for row in m]
+    if any(s == 0 for s in rows):
+        return 0.0
+    cols = [sum(abs(m[i][j]) for i in range(n)) for j in range(n)]
+    if any(s == 0 for s in cols):
+        return 0.0
+
+    def lg(s):
+        return math.log2(s) if s.bit_length() < 900 else float(s.bit_length())
+
+    best = min(sum(map(lg, rows)), sum(map(lg, cols)))
+    if all(v == 0 or v == 1 for row in m for v in row):
+        # Bregman-Minc; lgamma is ~1e-15-relative, absolute slack well
+        # under the caller's +3-bit margin
+        def bm(degs):
+            return sum(math.lgamma(r + 1) / (math.log(2) * r) for r in degs)
+
+        best = min(best, bm(rows), bm(cols))
+    return best
+
+
+def perman_exact_fraction(a: np.ndarray, device: torch.device,
+                          threads: int = 0, log=None,
+                          engine: Optional[str] = None,
+                          checkpoint_path: Optional[str] = None,
+                          ) -> Tuple[Fraction, dict]:
+    """EXACT permanent of the f64 matrix `a`, as a Fraction.
+
+    engine: None or "device" walks every prime with the Z_p kernel on
+    `device` (its plain version on the CPU); "host" runs the pure-Python
+    walk for cores with n <= 16; "native" is the JAX package's C++
+    engine, not ported.  `threads` is that engine's thread count and is
+    accepted for the same signature.
+    """
+    from ..drivers.runner import unported
+    t0 = time.perf_counter()
+    a = np.asarray(a, dtype=np.float64)
+    n0 = a.shape[0]
+    m, k = dyadic_int_matrix(a)
+    core, mult = _fold_lines(m)
+    den = 1 << (k * n0)
+    meta = {"k": k, "core_n": len(core), "n": n0}
+    if mult == 0:
+        meta["wall_s"] = time.perf_counter() - t0
+        return Fraction(0), meta
+    if not core:                                # fully folded
+        per_core = 1
+        meta.update(nprimes=0, engine="fold_only")
+    else:
+        nc = len(core)
+        if engine is None:
+            engine = "device"
+        if engine == "native":
+            raise unported("the native CPU exact engine", 12)
+        if engine == "device":
+            from .modp import crt_perman_core
+            per_core, tmeta = crt_perman_core(
+                core, device, log=log, checkpoint_path=checkpoint_path)
+            meta.update(engine=tmeta["engine"], nprimes=tmeta["nprimes"],
+                        bound_bits=tmeta["bound_bits"],
+                        live_frac=tmeta["live_frac"])
+        elif engine == "host":
+            if nc > 16:
+                raise ValueError(f'engine="host" walks cores with n <= 16, '
+                                 f"got core n={nc}")
+            bits = _log2_bound(core) + 3            # sign + slack headroom
+            need = max(1, math.ceil(bits / 61.0))
+            prs = primes_desc(need + 1)         # +1 held-out verifier
+            residues = [_perman_mod_host(core, p) for p in prs]
+            X, P = 0, 1
+            for r, p in zip(residues[:need], prs[:need]):
+                t = (r - X) * pow(P, -1, p) % p
+                X += P * t
+                P *= p
+            if X > P // 2:
+                X -= P
+            # end-to-end certification against the held-out prime: a
+            # walk or CRT bug cannot return silently (P covers |per| by
+            # the row-sum bound, so X is forced -- the verifier must
+            # match)
+            if X % prs[need] != residues[need]:
+                raise AssertionError(
+                    "exact CRT verification prime mismatch -- modular "
+                    "walk or reconstruction is broken")
+            per_core = X
+            meta.update(engine="host_mod", nprimes=need,
+                        bound_bits=round(bits, 1))
+        else:
+            raise ValueError(f"unknown exact engine {engine!r}")
+    per_int = mult * per_core
+    frac = Fraction(per_int, den)
+    meta["wall_s"] = time.perf_counter() - t0
+    if per_int:
+        meta["log2"] = (1.0 if per_int > 0 else -1.0,
+                        log2_abs_fraction(frac))
+    if log:
+        log(f"exact CRT: core n={meta['core_n']} "
+            f"primes={meta.get('nprimes')} wall={meta['wall_s']:.1f}s")
+    return frac, meta
+
+
+def _float_of_fraction(f: Fraction) -> float:
+    try:
+        return float(f)
+    except OverflowError:
+        return math.inf if f > 0 else -math.inf
+
+
+def log2_abs_fraction(f: Fraction) -> float:
+    if f == 0:
+        return -math.inf
+    num, den = abs(f.numerator), f.denominator
+    shift = num.bit_length() - 64
+    top = num >> shift if shift > 0 else num
+    return (math.log2(top) + max(0, shift)) - (den.bit_length() - 1)
+
+
+def perman_exact(dense, flags, device: torch.device):
+    """calc="exact" engine entry (Result-producing)."""
+    from ..core.result import Result
+
+    a = np.asarray(dense.mat, dtype=np.float64)
+    frac, meta = perman_exact_fraction(a, device, threads=flags.threads)
+    val = _float_of_fraction(frac)
+    res = Result(val, meta["wall_s"], algo_name="exact_crt")
+    res.meta["exact"] = {
+        "log2": (log2_abs_fraction(frac) if frac else -math.inf),
+        "core_n": meta["core_n"], "nprimes": meta.get("nprimes"),
+        "engine": meta.get("engine"), "k": meta["k"],
+    }
+    res.meta["exact_fraction"] = frac
+    return res

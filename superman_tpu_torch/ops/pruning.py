@@ -1,0 +1,226 @@
+"""Chunk-level dead-range pruning: the planning half.
+
+Port of the parts of ``superman_tpu/ops/pruning.py`` that the exact
+engine's planner (ops/modp.core_plan) needs; ``live_chunks`` and
+``chunk_factors`` come with the sparse walk.
+
+A row z is *constant* within every aligned chunk of 2**r indices iff it
+has no nonzero among columns 0..r-1 (only those columns toggle inside a
+chunk).  A chunk is *dead* -- every one of its 2**r terms is exactly
+zero -- iff some constant row has x_z(base) == 0.  x-values are
+half-integers (or exact dyadics) so the zero test in float64 is exact.
+
+Liveness evaluation is O(C) with tiny constants, no per-chunk loop: for
+a chunk id with m = n-1-r bits, x_z(base) = x0_z + sum_b g_{b-r} *
+a[z, b] over the row's support b in [r, n-2], where g_j = gray(id) bit j
+(column r-1 pairs with id&1, but constant rows have no support there).
+So in *gray space* G = gray(id), each constant row's dead set is a union
+of subcubes over its k_z support bits: enumerate the row's 2**k_z
+reachable x values (a tiny array), find the zero patterns, and OR them
+into a (2,)*m bool tensor with one broadcast.  Live G values map back to
+chunk ids with a vectorized inverse-gray transform.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from . import gray
+
+#: largest constant-row outer support whose 2^k reachable-value pattern
+#: is materialized (8 MB f64 at 20); heavier rows are skipped by the
+#: masks (under-pruning, correct)
+_PAT_SUPPORT_CAP = 20
+
+
+def inverse_gray(g: np.ndarray, m: int) -> np.ndarray:
+    """Vectorized gray^{-1}: y such that y ^ (y >> 1) == g (g < 2**m)."""
+    y = np.asarray(g, dtype=np.uint64).copy()
+    shift = 1
+    while shift < m:
+        y ^= y >> np.uint64(shift)
+        shift <<= 1
+    return y
+
+
+def const_rows(a: np.ndarray, r: int) -> np.ndarray:
+    """Rows with no support among the within-chunk toggling columns
+    0..r-1 (their x value is constant across each aligned 2**r chunk)."""
+    nz = np.asarray(a) != 0
+    return np.nonzero(~nz[:, :r].any(axis=1))[0]
+
+
+def dead_mask_gray(a: np.ndarray, r: int):
+    """Dead flags over gray space, shape (2,)*m viewed flat (m = n-1-r).
+
+    Entry G is True iff the chunk id = gray^{-1}(G) is dead: some
+    constant row's base x value is exactly 0.  Returns None when no
+    constant row can reach zero (nothing prunable).
+    """
+    a = np.asarray(a, dtype=np.float64)
+    n = a.shape[0]
+    m = n - 1 - r
+    if m < 1:
+        return None
+    cr = const_rows(a, r)
+    if len(cr) == 0:
+        return None
+    x0 = gray.x0_f64(a)
+    dead = None
+    for z in cr:
+        cols = np.nonzero(a[z, : n - 1])[0]      # all >= r by constness
+        if len(cols) > _PAT_SUPPORT_CAP:
+            # the reachable-value pattern is 2^support entries; skipping
+            # a heavy row only UNDER-prunes (its chunks stay live) --
+            # correctness is unaffected, memory stays bounded
+            continue
+        # reachable x values of row z: flat pattern index bit q selects
+        # cols[q] (LSB-first), i.e. pat[i] = x0_z + sum_{q: bit q of i}
+        # a[z, cols[q]] -- exact in f64 (half-integer walk values)
+        pat = np.array([x0[z]])
+        for v in a[z, cols]:
+            pat = np.concatenate([pat, pat + v])
+        zpat = pat == 0.0
+        if not zpat.any():
+            continue
+        if dead is None:
+            dead = np.zeros((2,) * m, dtype=bool)
+        # OR the zero subcubes into gray space.  Gray bit of col b is
+        # j = b - r; the (2,)*m tensor's axis t holds bit m-1-t
+        # (C-order), so bit j lands at axis m-1-j.  zpat's flat C-order
+        # axes carry bits[k-1], bits[k-2], ... (descending), and their
+        # target axes m-1-bits[k-1] < m-1-bits[k-2] < ... are ascending:
+        # the relative order matches, so a plain reshape aligns them.
+        bits = cols - r
+        shape = [1] * m
+        for j in bits:
+            shape[m - 1 - j] = 2
+        dead |= zpat.reshape(shape)
+    return dead
+
+
+def _row_pat(a: np.ndarray, z: int, r: int, dtype=np.float64):
+    """(cols, pat): the reachable x values of row z over its outer
+    support; pat[i] selects cols[q] for each set bit q of i."""
+    n = a.shape[1]
+    cols = np.nonzero(a[z, : n - 1])[0]
+    pat = np.array([gray.x0_f64(a[z:z + 1])[0]], dtype=dtype)
+    for v in a[z, cols]:
+        pat = np.concatenate([pat, pat + dtype(v)])
+    return cols, pat
+
+
+@dataclasses.dataclass
+class SparsePlan:
+    col_perm: np.ndarray     # column permutation applied to the matrix
+    r: int                   # chosen chunk length log2
+    ids: np.ndarray          # live chunk ids at r (sorted)
+    alive_rows: np.ndarray   # rows the kernel walks
+    factor_rows: np.ndarray  # rows applied as per-chunk weights
+    dead_frac: float
+    est_live: float          # the planner's live-fraction estimate
+
+
+def plan_sparse(a: np.ndarray, *, giters: float, chunk_log2=None,
+                allow_factor: bool = True):
+    """Choose (column order, chunk length, live set, row split) for the
+    sparse exact walk, or None to keep the dense plan.
+
+    The candidate orderings come from prune_order; each (perm, r) pair
+    is scored with a cheap independence estimate of the live fraction
+    (product over constant rows of their nonzero-pattern fraction) and
+    a cost model: wall ~= live * (2^(n-1) * t_iter + chunks * c_chunk).
+    The exact dead mask is computed once, for the winner only.
+
+    giters: the walk's rate on the card, in G Gray steps per second.  It
+    has no default: each caller passes the rate of the kernel that will
+    walk the plan (ops/modp.py for the Z_p walk).
+    """
+    a = np.asarray(a, dtype=np.float64)
+    n = a.shape[0]
+    if n < 19:
+        return None
+    from ..prep.orderings import prune_order
+    t_iter = 1.0 / (giters * 1e9)
+    c_chunk = 80e-9          # init + residual transfer per chunk
+    c_mask = 5e-8            # host dead-mask cost per gray-space entry
+    dense_iters = float(1 << (n - 1))
+    dense_cost = dense_iters * t_iter
+    if chunk_log2 is not None:
+        r_cands = [int(chunk_log2)]
+    else:
+        # deeper r (shorter chunks) exposes more constant rows -- on very
+        # sparse structured matrices the live fraction keeps halving down
+        # to r ~ n-26.  The exact-mask host cost is 2^(n-1-r) entries, so
+        # it joins the cost model below and the gray-space tensor is
+        # capped at 2^26 entries (~64 MB).
+        r_cands = sorted({min(max(7, rr), n - 3)
+                          for rr in (n - 26, n - 24, n - 22, n - 20,
+                                     n - 18, n - 16)
+                          if n - 1 - rr <= 26})
+    best = None              # (cost, r, perm, est_live)
+    for r in r_cands:
+        for perm in prune_order(a, r):
+            ap = a[:, perm]
+            live_p = 1.0
+            for z in const_rows(ap, r):
+                cols = np.nonzero(ap[z, : n - 1])[0]
+                if len(cols) > 16:           # estimator cap; exact mask
+                    continue                 # still sees the row later
+                _, pat = _row_pat(ap, int(z), r)
+                live_p *= 1.0 - float((pat == 0.0).mean())
+            chunks = float(1 << (n - 1 - r))
+            cost = (live_p * (dense_iters * t_iter + chunks * c_chunk)
+                    + chunks * c_mask)
+            if best is None or cost < best[0]:
+                best = (cost, r, perm, live_p)
+    # an explicit chunk_log2 is a user override: prune whenever anything
+    # is prunable; the cost-vs-dense gate only arbitrates auto plans
+    if best is None or (chunk_log2 is None and best[0] > 0.9 * dense_cost):
+        return None
+    _, r, perm, est_live = best
+    ap = a[:, perm]
+    ids = _live_for(ap, r)
+    if ids is None or len(ids) == (1 << (n - 1 - r)):
+        return None
+    dead_frac = 1.0 - len(ids) / (1 << (n - 1 - r))
+    cr = const_rows(ap, r)
+    if len(cr):
+        # heavy-support rows stay in the kernel walk: factoring them
+        # would materialize a 2^support pattern each
+        sup = np.array([np.count_nonzero(ap[z, : n - 1]) for z in cr])
+        cr = cr[sup <= _PAT_SUPPORT_CAP]
+    alive = np.setdiff1d(np.arange(n), cr)
+    if allow_factor and len(alive) >= 1:
+        # pad the walked row set to a multiple of 8 (min 8) by promoting
+        # constant rows back into the kernel walk -- the kernel's x is
+        # padded to a multiple of 8 anyway, and every factor row stays a
+        # true reduction in width
+        target = max(8, -(-len(alive) // 8) * 8)
+        promote = min(len(cr), target - len(alive))
+        if promote:
+            alive = np.sort(np.concatenate([alive, cr[:promote]]))
+            cr = cr[promote:]
+        factor_rows = cr
+    else:
+        alive = np.arange(n)
+        factor_rows = np.empty(0, dtype=np.int64)
+    return SparsePlan(col_perm=perm, r=r, ids=ids, alive_rows=alive,
+                      factor_rows=factor_rows, dead_frac=dead_frac,
+                      est_live=est_live)
+
+
+def _live_for(a: np.ndarray, r: int):
+    """Live chunk ids of the (ordered) matrix at chunk length 2**r, or
+    None when nothing can be pruned (an empty array: per == 0)."""
+    n = a.shape[0]
+    m = n - 1 - r
+    dead = dead_mask_gray(a, r)
+    if dead is None:
+        return None
+    g_live = np.nonzero(~dead.ravel())[0].astype(np.uint64)
+    ids = inverse_gray(g_live, m).astype(np.int64)
+    ids.sort()
+    return ids

@@ -138,7 +138,8 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     {"sparse": True}, {"calc": "tf96"}, {"approximation": True},
-    {"calc": "f32"}, {"calc": "f32k"}, {"calc": "auto"}, {"calc": "exact"},
+    {"calc": "f32"}, {"calc": "f32k"}, {"calc": "auto"},
+    {"calc": "exact", "approximation": True},
     {"calc": "quad"}, {"perman_algo": "glynn"}, {"perman_algo": "14"},
     {"perman_algo": "5"}, {"mesh_shape": (2,)}, {"hybrid": True},
     {"checkpoint_path": "journal"}, {"compression": True},
