@@ -3,15 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each against
-its plain PyTorch version on the card at its path's shapes, drives the
-two paths through superman_tpu_torch.permanent at n=32 -- calc="df64"
-(the Ryser walk, csrc/ryser_walk.cu) and calc="exact" (the Z_p walk,
-csrc/modp_walk.cu, under the modular CRT engine) -- and checks their
-values, times kernels and plain versions, and prints:
+its plain PyTorch version on the card at its path's shapes, and drives
+the paths through the package's entry points: superman_tpu_torch.permanent
+at n=32 with calc="df64", "f32" and "f32k" (the Ryser walk,
+csrc/ryser_walk.cu) and calc="exact" (the Z_p walk, csrc/modp_walk.cu,
+under the modular CRT engine), and superman_tpu_torch.permanent_batch
+(the serving batch, csrc/ryser_batch.cu) on 256 matrices of n=24, 16 of
+n=32 and a mixed list.  It checks their values, times kernels and plain
+versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
-  * one JSON line {"kernels": [...]} with each kernel's launches on its
-    path, its largest difference from the plain version and both times;
+  * one JSON line {"kernels": [...]} with each kernel's launches on one
+    path (the counts are set to 0 before every path and read after it),
+    its largest difference from the plain version, both times, and its
+    bound: the least time the card could take for the same work, the
+    larger of bytes moved over the memory rate and operations over the
+    peak rate of their type (PEAK below);
   * last, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no last line is
@@ -43,6 +50,27 @@ EXACT_N32 = 106727175240173945355163340903491553305
 KERNEL_TOL = 2.0 ** -45
 MAIN_TOL = 1e-9          # n=32 df64 vs the pinned value
 SMALL_TOL = 1e-10        # n=20, 24 vs the long-double oracle
+#: limits of the f32 tiers against the df64 value (the reference holds
+#: its f32k batch to 1e-3 and describes f32 as 1e-3..1e-2)
+F32K_TOL = 1e-3
+F32_TOL = 5e-2
+BATCH_VS_SINGLE_TOL = 1e-12   # batched df64 vs permanent() one by one
+TIERS = ("df64", "f32", "f32k")
+#: peak rates of one H100 SXM.  Memory (3.35 TB/s) and float32 (67
+#: TFLOP/s, a fused multiply-add counted as two) are NVIDIA's data-sheet
+#: figures; float64 outside the tensor cores runs on 64 of an SM's 128
+#: lanes, half the float32 rate; int32 has 64 lanes an SM too and one
+#: operation an instruction, a quarter of it.  `bound_ms` divides by
+#: these.  No multiply or add of a Ryser walk can fuse (x += +-col is an
+#: add, the product tree is multiplies, the accumulators are adds), so
+#: its operations issue at best at half the floating-point peaks:
+#: `issue_bound_ms` of the walk kernels divides by FMA_SLOTS of them
+PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 33.5e12, "int32": 16.75e12}
+FMA_SLOTS = 0.5
+#: operations of the tier's accumulator per term, counted whole as the
+#: tier defines it (TwoSum is 6).  One add is what no accumulator could
+#: avoid: counted so, the df64 bound at n=32 would be 64/73 of this one
+ACC_OPS = {"df64": 10, "f32": 1, "f32k": 7}
 #: the Z_p kernel is checked at the largest prime the TPU kernel took and
 #: at the largest the card's takes; residues must agree exactly
 MOD_PRIMES = (2039, (1 << 31) - 1)
@@ -77,16 +105,64 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+def walk_bound(steps: int, n: int, tier: str, nbytes: int):
+    """(bound_ms, bound_by, issue_bound_ms) of a Ryser walk of `steps`
+    Gray steps of an order-n matrix: a step does n-1 multiplies, n adds
+    and the tier's accumulator; nbytes is every input read and output
+    written once.  issue_bound_ms is the same operations at the rate
+    unfusable instructions issue."""
+    ops = steps * (2 * n - 1 + ACC_OPS[tier])
+    kind = "fp64" if tier == "df64" else "fp32"
+    ms, by = bound(nbytes, ops, kind)
+    return ms, by, max(ms, ops / (PEAK[kind] * FMA_SLOTS) * 1e3)
+
+
+def bound(nbytes: int, ops: int, kind: str):
+    by_bytes = nbytes / PEAK["bytes"] * 1e3
+    by_ops = ops / PEAK[kind] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else "operations"
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def register_report(report: str) -> str:
+    """ptxas -v output as one line per kernel instantiation: name,
+    template arguments, registers, spills."""
+    import re
+    lines = []
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)I((?:Li\d+E)+)", m.group(1))
+            name = (f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
+                    if k else m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            lines.append(f"{name}: {m.group(1)} registers")
+            name = None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and (m.group(1) != "0" or m.group(2) != "0"):
+            lines.append(f"  {name}: SPILLS {line.strip()}")
+    return "\n".join(lines)
+
+
 def compare(kern, plain, ids) -> float:
-    """Largest |kernel - plain| of the per-chunk partials hi + lo; raises
-    past KERNEL_TOL of the largest partial or on a nonzero sentinel."""
+    """Largest |kernel - plain| of the partials hi + lo (per chunk, or per
+    block of the batch kernel, where ids is None); raises past KERNEL_TOL
+    of the largest partial or on a nonzero sentinel."""
     import torch
-    pk = kern[:, 0] + kern[:, 1]
-    pp = plain[:, 0] + plain[:, 1]
+    if kern.shape != plain.shape or kern.dtype != plain.dtype:
+        raise AssertionError(f"kernel {tuple(kern.shape)} {kern.dtype} vs "
+                             f"plain {tuple(plain.shape)} {plain.dtype}")
+    pk = kern[..., 0].double() + kern[..., 1].double()
+    pp = plain[..., 0].double() + plain[..., 1].double()
     if not (torch.isfinite(pk).all() and torch.isfinite(pp).all()):
         raise AssertionError("non-finite partials")
-    dead = ids < 0
-    if bool((kern[dead] != 0).any()):
+    if ids is not None and bool((kern[ids < 0] != 0).any()):
         raise AssertionError("a sentinel chunk wrote a nonzero partial")
     err = float((pk - pp).abs().max())
     scale = float(pp.abs().max())
@@ -113,6 +189,38 @@ def compare_mod(kern, plain, ids, p) -> int:
     return err
 
 
+def batch_stacks():
+    """The serving shapes: 256 seeded integer matrices of n=24, and 16 of
+    n=32 (the batch's full width) whose first is the n=32 main-path
+    matrix."""
+    stack_a = np.stack([random_int_matrix(np.random.default_rng(24 + i), 24,
+                                          0.5) for i in range(256)])
+    stack_b = np.stack([random_int_matrix(np.random.default_rng(SEED + i), 32,
+                                          0.5) for i in range(16)])
+    return stack_a, stack_b
+
+
+def mixed_list():
+    """Orders 8..32, two integer matrices each, one real-valued matrix
+    and one with an empty row: (kind, matrix) pairs."""
+    out = []
+    for n in (8, 12, 13, 16, 20, 24, 28, 32):
+        for j in range(2):
+            out.append(("int", random_int_matrix(
+                np.random.default_rng(1000 + 10 * n + j), n, 0.5)))
+    rng = np.random.default_rng(7)
+    out.insert(5, ("real", (rng.random((16, 16)) < 0.6)
+                   * rng.random((16, 16)) * 5.0))
+    empty = random_int_matrix(np.random.default_rng(8), 20, 0.5)
+    empty[3] = 0
+    out.insert(11, ("empty", empty))
+    return out
+
+
+def rel_err(got: float, want) -> float:
+    return abs(got - want) / abs(want)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -120,9 +228,13 @@ def main() -> int:
         return 2
     import superman_tpu_torch as spt
     from superman_tpu_torch.csrc import build
-    from superman_tpu_torch.ops import (exact, gray, modp, modp_cuda, oracle,
-                                        ryser_cuda)
+    from superman_tpu_torch.ops import (batch, exact, gray, modp, modp_cuda,
+                                        oracle, ryser_cuda)
     from superman_tpu_torch.ops.ryser import _center_scales, _row_scales
+
+    def zero_counts():
+        ryser_cuda.LAUNCHES = ryser_cuda.BATCH_LAUNCHES = 0
+        modp_cuda.LAUNCHES = 0
 
     # ---- 1. probe and build
     card = smi()
@@ -133,11 +245,11 @@ def main() -> int:
     path, report = build.build()
     build.load()
     print(f"build: {time.perf_counter() - t:.1f} s -> {path}")
-    print(report.strip())
+    print(register_report(report))
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    # ---- 2. kernel vs plain version on the card, main-path shapes
+    # ---- 2. K1 vs its plain version on the card, main-path shapes
     a32 = random_int_matrix(np.random.default_rng(SEED), 32, 0.5)
     plan = gray.make_plan(32, sms=sms)
     print(f"plan n=32: r={plan.r} chunks={plan.num_chunks} "
@@ -149,11 +261,16 @@ def main() -> int:
     ids = torch.cat([torch.arange(2048), torch.full((128,), -1),
                      torch.arange(plan.num_chunks - 2048, plan.num_chunks)]
                     ).to(dev)
-    kern = ryser_cuda.ryser_partials(ids, x0, cols, n=32, r=plan.r)
-    torch.cuda.synchronize()
-    plain = ryser_cuda.ryser_partials_ref(ids, x0, cols, n=32, r=plan.r)
-    print(f"kernel vs plain, {ids.numel()} chunk ids (start, sentinels, end):")
-    max_err = compare(kern, plain, ids)
+    k1_err = {}
+    for tier in TIERS:
+        kern = ryser_cuda.ryser_partials(ids, x0, cols, n=32, r=plan.r,
+                                         tier=tier)
+        torch.cuda.synchronize()
+        plain = ryser_cuda.ryser_partials_ref(ids, x0, cols, n=32, r=plan.r,
+                                              tier=tier)
+        print(f"ryser_walk_{tier} vs plain, {ids.numel()} chunk ids "
+              f"(start, sentinels, end):")
+        k1_err[tier] = compare(kern, plain, ids)
 
     # ---- 2b. the Z_p kernel vs its plain version, same plan and ids
     core, mult = exact._fold_lines(exact.dyadic_int_matrix(a32)[0])
@@ -170,17 +287,46 @@ def main() -> int:
                                            r=plan.r)
         mod_err = max(mod_err, compare_mod(kern, plain, ids, p))
 
-    # ---- 3. the df64 path
+    # ---- 2c. K2 vs its plain version at the serving shapes, per tier,
+    # with both times (the kernel by CUDA events, the plain version once)
+    stack_a, stack_b = batch_stacks()
+    if not np.array_equal(stack_b[0], a32):
+        raise AssertionError("the n=32 stack does not start with a32")
+    k2 = {tier: {"err": 0.0} for tier in TIERS}
+    for tag, stack, reps in (("n24", stack_a, 5), ("n32", stack_b, 3)):
+        B, n = stack.shape[:2]
+        r = gray.batch_plan(n, B, sms=sms)
+        x0p, colsT, _, _ = batch.pack_stack(stack.astype(np.float64))
+        bx0, bcols = torch.as_tensor(x0p).to(dev), torch.as_tensor(colsT).to(dev)
+        for tier in TIERS:
+            def run_batch():
+                return ryser_cuda.batch_partials(bx0, bcols, n=n, r=r,
+                                                 tier=tier)
+            run_batch()                                   # warm-up
+            ms, kern = cuda_ms(run_batch, reps)
+            plain_ms, plain = cuda_ms(lambda: ryser_cuda.batch_partials_ref(
+                bx0, bcols, n=n, r=r, tier=tier), 1)
+            steps = B << (n - 1)
+            print(f"ryser_batch {tier} vs plain, {B} x n={n}, "
+                  f"{1 << (n - 1 - r)} chunks of 2^{r} a matrix, "
+                  f"{kern.shape[1]} block pairs each: kernel {ms:.3f} ms "
+                  f"({steps / ms / 1e6:.1f} G steps/s), plain "
+                  f"{plain_ms:.1f} ms")
+            k2[tier]["err"] = max(k2[tier]["err"], compare(kern, plain, None))
+            k2[tier][tag] = (ms, plain_ms, walk_bound(
+                steps, n, tier, nbytes_of(bx0, bcols, kern)))
+
+    # ---- 3. the single-matrix paths: df64, then f32 and f32k
     small = []
     for n in (20, 24):
         a = random_int_matrix(np.random.default_rng(n), n, 0.5)
         small.append((n, a, float(oracle.perman64(a, dtype=np.longdouble))))
-    ryser_cuda.LAUNCHES = modp_cuda.LAUNCHES = 0
+    zero_counts()
     spt.permanent(a32, calc="df64")                       # warm-up
     best = min((spt.permanent(a32, calc="df64") for _ in range(3)),
                key=lambda res: res.time)
-    rel = abs(best.permanent - PINNED_N32) / PINNED_N32
-    rel_exact = abs(best.permanent - EXACT_N32) / EXACT_N32
+    rel = rel_err(best.permanent, PINNED_N32)
+    rel_exact = rel_err(best.permanent, EXACT_N32)
     print(f"main path n=32 df64: {best.permanent!r} in {best.time:.4f} s "
           f"(best of 3), {best.iterations / best.time / 1e9:.2f} G Gray "
           f"iters/s, rel err {rel:.3e} vs pinned {PINNED_N32!r}, "
@@ -188,20 +334,39 @@ def main() -> int:
           f"r={best.meta['r']} chunks={best.meta['chunks']}")
     if best.algo_name != "ryser_cuda_df64" or not rel <= MAIN_TOL:
         raise AssertionError(f"n=32: {best.algo_name} rel {rel:.3e}")
+    k1_launches = {"df64": ryser_cuda.LAUNCHES}
+    zero_counts()
     for n, a, want in small:
         res = spt.permanent(a, calc="df64")
-        rel_n = abs(res.permanent - want) / abs(want)
+        rel_n = rel_err(res.permanent, want)
         print(f"main path n={n} df64: {res.permanent!r} vs long-double "
               f"oracle {want!r}: rel err {rel_n:.3e}")
         if res.algo_name != "ryser_cuda_df64" or not rel_n <= SMALL_TOL:
             raise AssertionError(f"n={n}: {res.algo_name} rel {rel_n:.3e}")
-    launches = ryser_cuda.LAUNCHES
-    print(f"ryser_walk_df64 launches on the df64 path: {launches}")
-    if launches <= 0:
-        raise AssertionError("the df64 path did not launch the kernel")
+    print(f"ryser_walk_df64 launches: {k1_launches['df64']} on the n=32 "
+          f"path (4 calls), {ryser_cuda.LAUNCHES} on the n=20 and n=24 path "
+          f"(2 calls)")
+    if ryser_cuda.LAUNCHES <= 0:
+        raise AssertionError("the n=20 and n=24 path did not launch K1")
+    for tier, tol in (("f32", F32_TOL), ("f32k", F32K_TOL)):
+        zero_counts()
+        spt.permanent(a32, calc=tier)                     # warm-up
+        res = min((spt.permanent(a32, calc=tier) for _ in range(3)),
+                  key=lambda res: res.time)
+        k1_launches[tier] = ryser_cuda.LAUNCHES
+        rel_t = rel_err(res.permanent, EXACT_N32)
+        print(f"main path n=32 {tier}: {res.permanent!r} in {res.time:.4f} s "
+              f"(best of 3), rel err {rel_t:.3e} vs the exact integer "
+              f"(limit {tol:.0e}); {res.algo_name}, "
+              f"{k1_launches[tier]} launches")
+        if res.algo_name != f"ryser_cuda_{tier}" or not rel_t <= tol:
+            raise AssertionError(f"n=32 {tier}: {res.algo_name} "
+                                 f"rel {rel_t:.3e}")
+    if min(k1_launches.values()) <= 0:
+        raise AssertionError(f"a tier's path did not launch K1: {k1_launches}")
 
     # ---- 3b. the exact path
-    ryser_cuda.LAUNCHES = modp_cuda.LAUNCHES = 0
+    zero_counts()
     ex = []
     for _ in range(3):
         t = time.perf_counter()
@@ -220,7 +385,7 @@ def main() -> int:
     if meta["engine"] != "cuda_mod" or mod_launches <= 0:
         raise AssertionError(f"exact path: engine {meta['engine']}, "
                              f"{mod_launches} modp_walk launches")
-    rel_df = abs(best.permanent - EXACT_N32) / EXACT_N32
+    rel_df = rel_err(best.permanent, EXACT_N32)
     print(f"df64 n=32 vs the exact path's integer: rel err {rel_df:.3e}")
     if not rel_df <= MAIN_TOL:
         raise AssertionError(f"df64 vs exact: rel {rel_df:.3e}")
@@ -231,19 +396,130 @@ def main() -> int:
     if not nw == gl == EXACT_N32 % GLYNN_PRIME:
         raise AssertionError("Glynn and Nijenhuis-Wilf residues disagree")
 
+    # ---- 3c. the serving batch: permanent_batch per tier
+    def run_batch_path(mats, calc):
+        """permanent_batch on `mats`, every result from the batch kernel;
+        returns (values, best wall seconds of 3, the last run's spans in
+        ms)."""
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            out = spt.permanent_batch(list(mats), calc=calc)
+            walls.append(time.perf_counter() - t)
+        for res in out:
+            if res.algo_name != f"ryser_cuda_batch_{calc}" or \
+                    res.iterations != 1 << (len(mats[0]) - 1):
+                raise AssertionError(f"batch {calc}: {res.algo_name}, "
+                                     f"{res.iterations} iterations")
+        vals = np.array([res.permanent for res in out])
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"batch {calc}: non-finite values")
+        spans = {k: round(v * 1e3, 2) for k, v in out[0].meta["spans"]}
+        return vals, min(walls), spans
+
+    k2_paths = {}
+    zero_counts()
+    vals_a, wall_a, spans = run_batch_path(stack_a, "df64")
+    k2_paths["256 x n=24 df64, 3 calls"] = ryser_cuda.BATCH_LAUNCHES
+    print(f"batch path 256 x n=24 df64: {wall_a * 1e3:.2f} ms wall (best of "
+          f"3), {256 / wall_a:.0f} matrices/s; spans of the last run {spans}")
+    zero_counts()
+    vals_b, wall_b, _ = run_batch_path(stack_b, "df64")
+    k2_paths["16 x n=32 df64, 3 calls"] = ryser_cuda.BATCH_LAUNCHES
+    rel_b = rel_err(vals_b[0], EXACT_N32)
+    print(f"batch path 16 x n=32 df64: {wall_b * 1e3:.2f} ms wall; matrix 0 "
+          f"{float(vals_b[0])!r}, rel err {rel_b:.3e} vs the exact integer")
+    if not rel_b <= MAIN_TOL:
+        raise AssertionError(f"batch n=32 matrix 0: rel {rel_b:.3e}")
+    mixed = mixed_list()
+    zero_counts()
+    out_c = spt.permanent_batch([m for _, m in mixed])
+    groups_c = len({m.shape[0] for _, m in mixed if m.shape[0] >= 13})
+    k2_paths[f"mixed list df64, 1 call, {groups_c} order groups from "
+             f"n=13"] = ryser_cuda.BATCH_LAUNCHES
+    if ryser_cuda.BATCH_LAUNCHES != groups_c:
+        raise AssertionError(f"mixed list: {ryser_cuda.BATCH_LAUNCHES} "
+                             f"launches for {groups_c} order groups")
+    # the kernels line reports the path its times are taken at
+    k2_launches = {"df64": k2_paths["256 x n=24 df64, 3 calls"]}
+    worst = {"exact": 0.0, "oracle": 0.0}
+    for (kind, m), res in zip(mixed, out_c):
+        n = m.shape[0]
+        want_name = "ryser_cuda_batch_df64" if n >= 13 else "ryser_walk_batch"
+        if res.algo_name != want_name or res.iterations != 1 << (n - 1):
+            raise AssertionError(f"mixed n={n}: {res.algo_name}")
+        if kind == "empty":
+            if res.permanent != 0.0:
+                raise AssertionError(f"empty row: {res.permanent!r}")
+            continue
+        if kind == "int" and n >= 20:
+            want = spt.permanent(m, calc="exact").meta["exact_fraction"]
+            worst["exact"] = max(worst["exact"], rel_err(res.permanent, want))
+        if n <= 24:
+            want = float(oracle.perman64(m, dtype=np.longdouble))
+            worst["oracle"] = max(worst["oracle"],
+                                  rel_err(res.permanent, want))
+    print(f"batch path, mixed list of {len(mixed)} (n=8..32, one real, one "
+          f"empty row): worst rel err {worst['exact']:.3e} vs the exact "
+          f"integers (n >= 20), {worst['oracle']:.3e} vs the long-double "
+          f"oracle (n <= 24)")
+    if not (worst["exact"] <= MAIN_TOL and worst["oracle"] <= SMALL_TOL):
+        raise AssertionError(f"mixed list: {worst}")
+    # batched against one by one (K1 launches; the counts are read above)
+    t = time.perf_counter()
+    single_a = np.array([spt.permanent(m, calc="df64").permanent
+                         for m in stack_a])
+    wall_single = time.perf_counter() - t
+    singles = [(vals_a, single_a)]
+    singles.append((vals_b, np.array([spt.permanent(m, calc="df64").permanent
+                                      for m in stack_b])))
+    big = [(res.permanent, m) for (kind, m), res in zip(mixed, out_c)
+           if kind != "empty" and m.shape[0] >= 19]
+    singles.append((np.array([v for v, _ in big]),
+                    np.array([spt.permanent(m, calc="df64").permanent
+                              for _, m in big])))
+    vs_single = max(float(np.max(np.abs(got - one) / np.abs(one)))
+                    for got, one in singles)
+    print(f"the same 256 one by one through permanent(): "
+          f"{wall_single * 1e3:.1f} ms wall, {256 / wall_single:.0f} "
+          f"matrices/s ({wall_single / wall_a:.1f}x the batch); batched vs "
+          f"one by one, n >= 19: worst rel diff {vs_single:.3e}")
+    if not vs_single <= BATCH_VS_SINGLE_TOL:
+        raise AssertionError(f"batched vs one by one: {vs_single:.3e}")
+    tier_err = {}
+    for tier, tol in (("f32", F32_TOL), ("f32k", F32K_TOL)):
+        zero_counts()
+        vals_t, wall_t, _ = run_batch_path(stack_a, tier)
+        k2_launches[tier] = ryser_cuda.BATCH_LAUNCHES
+        k2_paths[f"256 x n=24 {tier}, 3 calls"] = ryser_cuda.BATCH_LAUNCHES
+        tier_err[tier] = float(np.max(np.abs(vals_t - vals_a)
+                                      / np.abs(vals_a)))
+        print(f"batch path 256 x n=24 {tier}: {wall_t * 1e3:.2f} ms wall, "
+              f"worst rel err {tier_err[tier]:.3e} vs df64 (limit {tol:.0e})")
+        if not tier_err[tier] <= tol:
+            raise AssertionError(f"batch {tier}: {tier_err[tier]:.3e}")
+    print(f"ryser_batch launches, path by path: {k2_paths}")
+    if min(k2_paths.values()) <= 0:
+        raise AssertionError(f"a batch path did not launch K2: {k2_paths}")
+
     # ---- 4. times at the full n=32 main-path plan
     ids = torch.arange(plan.num_chunks, device=dev)
-
-    def run_kernel():
-        return ryser_cuda.ryser_partials(ids, x0, cols, n=32, r=plan.r)
-
-    run_kernel()                                          # warm-up
-    kernel_ms, kern = cuda_ms(run_kernel, 5)
-    plain_ms, plain = cuda_ms(lambda: ryser_cuda.ryser_partials_ref(
-        ids, x0, cols, n=32, r=plan.r), 1)
-    print(f"kernel vs plain, full plan ({plan.num_chunks} chunks of "
-          f"2^{plan.r}): kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms")
-    max_err = max(max_err, compare(kern, plain, ids))
+    k1 = {}
+    for tier in TIERS:
+        def run_kernel():
+            return ryser_cuda.ryser_partials(ids, x0, cols, n=32, r=plan.r,
+                                             tier=tier)
+        run_kernel()                                      # warm-up
+        kernel_ms, kern = cuda_ms(run_kernel, 5)
+        plain_ms, plain = cuda_ms(lambda: ryser_cuda.ryser_partials_ref(
+            ids, x0, cols, n=32, r=plan.r, tier=tier), 1)
+        print(f"ryser_walk_{tier} vs plain, full plan ({plan.num_chunks} "
+              f"chunks of 2^{plan.r}): kernel {kernel_ms:.3f} ms "
+              f"({(1 << 31) / kernel_ms / 1e6:.1f} G steps/s), plain "
+              f"{plain_ms:.1f} ms")
+        k1_err[tier] = max(k1_err[tier], compare(kern, plain, ids))
+        k1[tier] = (kernel_ms, plain_ms, walk_bound(
+            1 << 31, 32, tier, nbytes_of(ids, x0, cols, kern)))
 
     p = MOD_PRIMES[-1]
     mx0, mcols = (t.to(dev) for t in modp.pack_mod(
@@ -260,19 +536,39 @@ def main() -> int:
           f"({(1 << 31) / mod_ms / 1e6:.2f} G steps/s), plain "
           f"{mod_plain_ms:.1f} ms")
     mod_err = max(mod_err, compare_mod(kern, plain, ids, p))
+    # a Z_p step cannot avoid n modular adds (add, conditional subtract)
+    # and n-1 Montgomery products (3 multiplies, 3 more) and the sum
+    mod_bound = bound(nbytes_of(ids, mx0, mcols, kern),
+                      (1 << 31) * (2 * 32 + 6 * 31 + 2), "int32")
 
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              **more):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                **({"issue_bound_ms": bnd[2]} if len(bnd) > 2 else {}),
+                **more}
+
+    kernels = [entry(f"ryser_walk_{tier}",
+                     "superman_tpu_torch/csrc/ryser_walk.cu",
+                     "superman_tpu/ops/ryser_pallas.py:541",
+                     k1_launches[tier], k1_err[tier], *k1[tier])
+               for tier in TIERS]
+    # ms, plain_ms and bound_ms at 256 x n=24; the 16 x n=32 figures beside
+    kernels += [entry("ryser_batch", "superman_tpu_torch/csrc/ryser_batch.cu",
+                      "superman_tpu/ops/ryser_pallas.py:685",
+                      k2_launches[tier], k2[tier]["err"], *k2[tier]["n24"],
+                      tier=tier, ms_n32=k2[tier]["n32"][0],
+                      plain_ms_n32=k2[tier]["n32"][1],
+                      bound_ms_n32=k2[tier]["n32"][2][0],
+                      issue_bound_ms_n32=k2[tier]["n32"][2][2])
+                for tier in TIERS]
+    kernels.append(entry("modp_walk", "superman_tpu_torch/csrc/modp_walk.cu",
+                         "superman_tpu/ops/modp.py:413", mod_launches,
+                         mod_err, mod_ms, mod_plain_ms, mod_bound))
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "ryser_walk_df64", "route": "cuda",
-        "source": "superman_tpu_torch/csrc/ryser_walk.cu",
-        "replaces": "superman_tpu/ops/ryser_pallas.py:541",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}, {
-        "name": "modp_walk", "route": "cuda",
-        "source": "superman_tpu_torch/csrc/modp_walk.cu",
-        "replaces": "superman_tpu/ops/modp.py:413",
-        "launches": mod_launches, "max_abs_err": mod_err,
-        "ms": mod_ms, "plain_ms": mod_plain_ms}]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

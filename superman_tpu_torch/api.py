@@ -2,13 +2,14 @@
 
 ``permanent(matrix_or_path, device=None, **flag_overrides)`` is the entry
 point, as ``superman_tpu.permanent`` is for the JAX package, with one
-addition: the torch device the engine runs on.
+addition: the torch device the engine runs on.  ``permanent_batch`` is
+the serving entry point for many matrices at once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import List, Sequence, Union
 
 import numpy as np
 import torch
@@ -106,3 +107,13 @@ def permanent(matrix: Union[np.ndarray, DenseMatrix, str, None] = None,
     if spans:
         res.meta.setdefault("spans", spans)
     return res
+
+
+def permanent_batch(mats: Sequence[np.ndarray],
+                    device: Union[str, torch.device, None] = None,
+                    **overrides) -> List[Result]:
+    """Permanents of many square matrices; same-order groups share one
+    kernel launch (see ops.batch.permanent_batch).  device as in
+    `permanent`."""
+    from .ops.batch import permanent_batch as _pb
+    return _pb(mats, device=device, **overrides)

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources in this directory are compiled by nvcc for sm_90a into one
-shared library with a plain C interface, loaded with ctypes.  The build
-runs at first use, goes to ``build/superman_tpu_torch/<hash>/`` at the
-root of the checkout, and is keyed by a hash of the sources and the flags,
-so an edited source rebuilds.  A failed build or load raises; nothing
-falls back to the plain versions.
+The sources in this directory are compiled by nvcc for sm_90a, one nvcc
+per source and all at once, and linked into one shared library with a
+plain C interface, loaded with ctypes.  The build runs at first use, goes
+to ``build/superman_tpu_torch/<hash>/`` at the root of the checkout, and
+is keyed by a hash of the sources, the headers and the flags, so an edited
+source or header rebuilds.  A failed build or load raises; nothing falls
+back to the plain versions.
 
 Usage: python -m superman_tpu_torch.csrc.build   (prints the library path
 and the compiler's register/shared-memory report)
@@ -23,11 +24,13 @@ import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-SOURCES = (HERE / "ryser_walk.cu", HERE / "modp_walk.cu")
+SOURCES = (HERE / "ryser_walk.cu", HERE / "ryser_batch.cu",
+           HERE / "modp_walk.cu")
+HEADERS = (HERE / "walk.cuh",)
 BUILD_ROOT = HERE.parents[1] / "build" / "superman_tpu_torch"
 LIB_NAME = "libsuperman_tpu_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -44,7 +47,7 @@ def nvcc_path() -> str:
 
 def _key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -58,18 +61,35 @@ def build() -> tuple:
     if lib.exists():
         return str(lib), ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent builder never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return str(lib), proc.stdout + proc.stderr
+    # one nvcc per source, all started together; objects and the library
+    # go to a private directory and the library is renamed into place, so
+    # a concurrent build never sees a half-written one
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs = [os.path.join(tmp_dir, src.stem + ".o") for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        report = ""
+        failed = []
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            report += out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(tmp_dir, LIB_NAME)
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    return str(lib), report + proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,9 +97,15 @@ def load() -> ctypes.CDLL:
     """Build if needed, load once per process, declare the C signatures."""
     path, _ = build()
     lib = ctypes.CDLL(path)
-    fn = lib.ryser_walk_df64
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    for fn in (lib.ryser_walk_df64, lib.ryser_walk_f32, lib.ryser_walk_f32k):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    fn = lib.ryser_batch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.modp_walk

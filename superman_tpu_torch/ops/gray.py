@@ -5,7 +5,7 @@ i in [0, 2^(n-1)) is cut into aligned chunks of 2**r indices, chunk ids
 0..2^(n-1-r)-1.  Inside an aligned chunk the flipped column at inner step
 m is k = ctz(m) for every chunk alike, and the only chunk-dependent sign
 is that of the single mid step m = 2**(r-1), which equals the chunk-index
-parity.  The CUDA kernel walks one chunk per thread; this module keeps the
+parity.  The CUDA kernels walk one chunk per thread; this module keeps the
 decomposition, the chunk ids and the parity rule of the reference, so
 per-chunk partials of the two packages compare one to one.
 """
@@ -69,6 +69,27 @@ def make_plan(n: int, lanes: int = 1024, chunk_log2=None, *,
                      num_chunks=num_chunks)
 
 
+def batch_plan(n: int, batch: int, chunk_log2=None, *,
+               sms: int = DEFAULT_SMS) -> int:
+    """log2 chunk length r for the serving-batch kernel walking `batch`
+    matrices of order n, each cut into 2^(n-1-r) chunks in blocks of 128.
+
+    r is the largest value that still gives every SM
+    RESIDENT_CHUNKS_PER_SM threads over the whole batch, clamped so that
+    a matrix has at least one full block (r <= n - 8) and r >= 1: 256
+    matrices of n=24 get 512 chunks of 2^14 steps each, 16 of n=32 get
+    8192 chunks of 2^18.  With chunk_log2 given, r is that, clamped the
+    same way."""
+    if n < 9:
+        raise ValueError(f"the batch kernel needs n >= 9, got {n}")
+    if chunk_log2 is None:
+        want = -(-sms * RESIDENT_CHUNKS_PER_SM // max(1, batch))
+        r = (n - 1) - (want - 1).bit_length()
+    else:
+        r = chunk_log2
+    return max(1, min(r, n - 8))
+
+
 def chunk_gray_bits(chunk_ids: torch.Tensor, n: int, r: int) -> torch.Tensor:
     """Gray-code bits of base = chunk_id * 2^r as a (..., n-1) 0/1 int64
     tensor: bit b = gray(chunk)>>(b-r) for b >= r, chunk&1 for b == r-1,
@@ -91,22 +112,26 @@ def x0_f64(a: np.ndarray) -> np.ndarray:
 
 def chunk_init(chunk_ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
                n: int, r: int):
-    """x-vectors and mid-step signs of chunks, in float64.
+    """x-vectors and mid-step signs of chunks, in the dtype of x0
+    (float64, or float32 for the f32 tiers).
 
     chunk_ids: (C,) int64 (sentinel ids < 0 give x = 0, a dead chunk).
-    x0:        (n_pad,) float64, padding rows 1.
-    cols:      (n-1, n_pad) float64, column k of the matrix in row k.
-    Returns (x, sign_mid): x (C, n_pad) float64, sign_mid (C,) float64.
+    x0:        (n_pad,), padding rows 1; or (B, n_pad), one per matrix
+               of a stack that walks the same chunk ids.
+    cols:      (n-1, n_pad), column k of the matrix in row k; or
+               (B, n-1, n_pad).
+    Returns (x, sign_mid): x (C, n_pad) or (B, C, n_pad), sign_mid (C,).
 
     The columns are added in order k = 0..n-2, as the kernel's prologue
-    adds them (csrc/ryser_walk.cu), so both give the same bits.
+    adds them (csrc/walk.cuh), so both give the same bits, and a stack
+    gives each matrix the bits it gets alone.
     """
     dead = chunk_ids < 0
     ids = torch.where(dead, 0, chunk_ids)
     bits = chunk_gray_bits(ids, n, r).to(x0.dtype)          # (C, n-1)
-    x = x0.expand(ids.shape[0], x0.shape[0])
+    x = x0[..., None, :].expand(*x0.shape[:-1], ids.shape[0], x0.shape[-1])
     for k in range(n - 1):
-        x = x + bits[:, k:k + 1] * cols[k]
+        x = x + bits[:, k:k + 1] * cols[..., k, None, :]
     sign_mid = (1 - 2 * (ids & 1)).to(x0.dtype)
     x = torch.where(dead[:, None], 0.0, x)
     return x, sign_mid

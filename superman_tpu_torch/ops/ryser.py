@@ -1,4 +1,5 @@
-"""Exact-permanent engine: planning, dispatch, reduction (dense df64/f64).
+"""Exact-permanent engine: planning, dispatch, reduction (dense, tiers
+df64, f32, f32k and f64).
 
 Port of the dense branch of ``superman_tpu/ops/ryser.py``.  The host
 side (row scales, pack, underflow retry, sign and 2^E) is the
@@ -25,8 +26,10 @@ def _exact_storage(dense: DenseMatrix) -> bool:
 
     Decided on the VALUES, not the declared storage class: a float64
     matrix holding small integers walks identically to an "int"-typed one.
-    The port's walk keeps x in float64 either way; the flag is reported in
-    Result.meta, and it selects the f32 and tf96 tiers once they exist."""
+    The port's df64 walk keeps x in float64 and its f32 tiers round the
+    pack to float32 either way, so the flag selects nothing here: it is
+    reported in Result.meta.  The tf96 tier, which needs exact f32 x
+    updates, will read it once it exists."""
     a = np.asarray(dense.mat)
     if a.dtype == np.longdouble:
         return False                  # -v storage keeps long-double bits
@@ -117,11 +120,12 @@ def _sm_count(device: torch.device) -> int:
 
 
 def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
-    """Exact permanent of `dense` on `device`, calc "df64" or "f64"."""
+    """Exact permanent of `dense` on `device`, calc "df64", "f32",
+    "f32k" or "f64"."""
     a = np.asarray(dense.mat)
     n = a.shape[0]
     calc = flags.resolved_calc()
-    if calc not in ("df64", "f64"):
+    if calc not in ("df64", "f32", "f32k", "f64"):
         raise ValueError(f"ryser_exact has no {calc!r} tier")
     t0 = time.perf_counter()
 
@@ -133,7 +137,9 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
 
     if calc == "f64" or n < 19:
         from .ryser_walk import ryser_walk
-        p = ryser_walk(a, device)
+        # the small-n route walks float32 for calc="f32" only
+        p = ryser_walk(a, device,
+                       torch.float32 if calc == "f32" else torch.float64)
         return Result(float(p), time.perf_counter() - t0,
                       algo_name=f"ryser_walk_{calc}",
                       iterations=1 << (n - 1),
@@ -169,8 +175,9 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
         with trace.timer("pack"):
             x0, cols = gray.pack_matrix(a_s, plan.n_pad)
         with trace.timer("walk"):
-            total = float(compute_partials(ids_blocks, x0, cols, plan,
-                                           device).sum(dtype=np.float64))
+            total = float(compute_partials(
+                ids_blocks, x0, cols, plan, device,
+                tier=calc).sum(dtype=np.float64))
         # scaled sums far below 1 may have lost underflowed terms; shift
         # the row scales to center the result near 2^0 and rerun (scaling
         # is exact, so a rerun is a pure exponent adjustment).  Shifts are

@@ -1,17 +1,27 @@
-"""Ryser walk, df64 tier: the CUDA kernel's wrapper and its plain version.
+"""Ryser walk, tiers df64, f32 and f32k: the CUDA kernels' wrappers and
+their plain versions.
 
-Replaces the Pallas walk of ``superman_tpu/ops/ryser_pallas.py``
-(``_partials_jit``'s ``pl.pallas_call``, bodies ``_walk_scalar`` and
-``_walk_u16``) for the df64 tier.  The kernel is ``csrc/ryser_walk.cu``:
-one thread walks one aligned chunk of 2^r Gray steps and writes that
-chunk's signed partial sum as a (hi, lo) float64 pair.
+The counterpart of ``superman_tpu/ops/ryser_pallas.py``, whose two
+``pl.pallas_call`` sites it replaces:
 
-x and every product are native float64 on the card (the TPU carried them
-as f32 pairs); the accumulator is a compensated double-double.  The
-plain version below computes the same function with the same operation
-order, so on a card the two agree to the last bit on any input where
-nvcc keeps IEEE order (no fast-math; the only contractible multiply,
-s * col with s = +-1, is exact).
+* ``ryser_partials`` (``_partials_jit``, bodies ``_walk_scalar`` and
+  ``_walk_u16``) is ``csrc/ryser_walk.cu``: one thread walks one aligned
+  chunk of 2^r Gray steps of ONE matrix and writes that chunk's signed
+  partial sum as a (hi, lo) pair.
+* ``batch_partials`` (``_ryser_kernel_batch`` and the ``_merge_out8`` lane
+  reduction after it) is ``csrc/ryser_batch.cu``: a stack of B matrices of
+  one order, each walked whole by its own blocks of 128 chunks, every
+  block reduced to one (hi, lo) pair in a fixed order.
+
+Both kernels run one walk body (``csrc/walk.cuh``).  In the df64 tier x
+and every product are native float64 on the card (the TPU carried them as
+f32 pairs) and the accumulator is a compensated double-double; in f32 and
+f32k x, the column table and the products are float32, with a plain and a
+TwoSum accumulator.  The plain versions below compute the same functions
+with the same operation order, so on a card kernel and plain version
+agree to the last bit on any input where nvcc keeps IEEE order (no
+fast-math; the only contractible multiply, s * col with s = +-1, is
+exact).
 """
 
 from __future__ import annotations
@@ -19,14 +29,32 @@ from __future__ import annotations
 import torch
 
 from . import gray
-from .df64 import df_add_f64
+from .df64 import df_add_f64, quick_two_sum, two_sum
 
 #: kernel launches made by ryser_partials; a run reads it to show that the
 #: main path went through the kernel
 LAUNCHES = 0
+#: kernel launches made by batch_partials
+BATCH_LAUNCHES = 0
 
-#: the kernel is instantiated for n_pad = 8, 16, ..., MAX_N_PAD
+#: the chunk kernel is instantiated for n_pad = 8, 16, ..., MAX_N_PAD
 MAX_N_PAD = 64
+#: the batch kernel is instantiated for these n_pad (orders 9..32)
+BATCH_N_PADS = (16, 24, 32)
+#: threads of a block: the batch kernel reduces this many chunks to a pair
+BLOCK = 128
+#: most matrices of one batch launch (the grid's second dimension)
+MAX_BATCH = 65535
+
+#: tier -> (working dtype, the batch kernel's tier number)
+TIERS = {"df64": (torch.float64, 0), "f32": (torch.float32, 1),
+         "f32k": (torch.float32, 2)}
+
+
+def _tier_dtype(tier: str) -> torch.dtype:
+    if tier not in TIERS:
+        raise ValueError(f"unknown tier {tier!r} (one of {sorted(TIERS)})")
+    return TIERS[tier][0]
 
 
 def _check(ids, x0, cols, n: int, r: int) -> None:
@@ -54,60 +82,87 @@ def _check(ids, x0, cols, n: int, r: int) -> None:
 
 
 def ryser_partials(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
-                   *, n: int, r: int) -> torch.Tensor:
+                   *, n: int, r: int, tier: str = "df64") -> torch.Tensor:
     """Per-chunk signed partial sums of the Gray walk.
 
     ids:  (C,) int64 chunk ids in [0, 2^(n-1-r)); ids < 0 are sentinels
           whose partial is 0.
     x0:   (n_pad,) float64 initial x, padding rows 1 (gray.pack_matrix).
     cols: (n-1, n_pad) float64 matrix columns, padding 0.
-    Returns (C, 2) float64: hi and lo of each chunk's partial sum.
+    tier: "df64", "f32" or "f32k".  The f32 tiers round x0 and cols to
+          float32 (the hi word of the reference's f32 pair) and walk those.
+    Returns (C, 2), float64 for df64 and float32 otherwise: hi and lo of
+    each chunk's partial sum (lo is 0 in the f32 tier).
 
     A CUDA tensor launches the kernel (and raises if it cannot); a CPU
     tensor runs the plain version.
     """
     _check(ids, x0, cols, n, r)
+    _tier_dtype(tier)
     if ids.device.type == "cpu":
-        return ryser_partials_ref(ids, x0, cols, n=n, r=r)
+        return ryser_partials_ref(ids, x0, cols, n=n, r=r, tier=tier)
     if ids.device.type != "cuda":
         raise ValueError(f"unsupported device {ids.device}")
-    return _launch(ids, x0, cols, n, r)
+    return _launch(ids, x0, cols, n, r, tier)
 
 
-def _launch(ids, x0, cols, n: int, r: int) -> torch.Tensor:
+def _launch(ids, x0, cols, n: int, r: int, tier: str) -> torch.Tensor:
     global LAUNCHES
     from ..csrc.build import load
     lib = load()
-    out = torch.empty((ids.shape[0], 2), dtype=torch.float64,
-                      device=ids.device)
+    dtype = _tier_dtype(tier)
+    out = torch.empty((ids.shape[0], 2), dtype=dtype, device=ids.device)
     if ids.shape[0] == 0:
         return out
+    x0, cols = x0.to(dtype), cols.to(dtype)
     stream = torch.cuda.current_stream(ids.device).cuda_stream
-    rc = lib.ryser_walk_df64(
+    rc = getattr(lib, f"ryser_walk_{tier}")(
         ids.data_ptr(), ids.shape[0], x0.data_ptr(), cols.data_ptr(),
         n, x0.shape[0], r, out.data_ptr(), ids.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"ryser_walk_df64 launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ryser_walk_{tier} launch failed: CUDA error {rc}")
     LAUNCHES += 1
     return out
 
 
 def tree_prod(x: torch.Tensor) -> torch.Tensor:
-    """Product over dim 1 in the kernel's order: fold the upper half onto
-    the lower (p[i] *= p[i + ceil(s/2)]) until one row is left."""
-    s = x.shape[1]
+    """Product over the last dim in the kernel's order: fold the upper
+    half onto the lower (p[i] *= p[i + ceil(s/2)]) until one is left."""
+    s = x.shape[-1]
     while s > 1:
         ns, h = (s + 1) // 2, s // 2
-        x = torch.cat([x[:, :h] * x[:, ns:s], x[:, h:ns]], dim=1)
+        p = x[..., :h] * x[..., ns:s]
+        x = p if h == ns else torch.cat([p, x[..., h:ns]], dim=-1)
         s = ns
-    return x[:, 0]
+    return x[..., 0]
 
 
-def ryser_partials_ref(ids: torch.Tensor, x0: torch.Tensor,
-                       cols: torch.Tensor, *, n: int, r: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: vectorised over chunks, one
-    Python step per Gray index m, the same step rule and accumulator."""
-    x, sign_mid = gray.chunk_init(ids, x0, cols, n, r)
+def acc_add(hi, lo, t, tier: str):
+    """(hi, lo) += t with the tier's accumulator (csrc/walk.cuh acc_add)."""
+    if tier == "f32":
+        return hi + t, lo
+    if tier == "f32k":
+        s, e = two_sum(hi, t)
+        return s, lo + e
+    return df_add_f64(hi, lo, t)
+
+
+def acc_merge(hi, lo, bhi, blo, tier: str):
+    """(hi, lo) += (bhi, blo) with the tier's compensated add, as the
+    batch kernel's block reduction merges two partial sums."""
+    if tier == "f32":
+        return hi + bhi, lo
+    s, e = two_sum(hi, bhi)
+    if tier == "f32k":
+        return s, lo + blo + e
+    return quick_two_sum(s, e + (lo + blo))
+
+
+def _walk_ref(x, sign_mid, cols, r: int, tier: str):
+    """The walk body of both plain versions: x (..., C, n_pad) and
+    sign_mid (C,) from gray.chunk_init, cols (..., n-1, n_pad) with one
+    table per leading index of x.  One Python step per Gray index m, the
+    kernel's step rule and accumulator.  Returns (hi, lo), each (..., C)."""
     hi = tree_prod(x)
     lo = torch.zeros_like(hi)
     for m in range(1, 1 << r):
@@ -116,8 +171,126 @@ def ryser_partials_ref(ids: torch.Tensor, x0: torch.Tensor,
             s = sign_mid[:, None]          # mid step: the chunk parity
         else:
             s = -1.0 if (m >> (k + 1)) & 1 else 1.0
-        x = x + s * cols[k]
+        x = x + s * cols[..., k, None, :]
         t = tree_prod(x)
-        hi, lo = df_add_f64(hi, lo, -t if m & 1 else t)
+        hi, lo = acc_add(hi, lo, -t if m & 1 else t, tier)
+    return hi, lo
+
+
+def ryser_partials_ref(ids: torch.Tensor, x0: torch.Tensor,
+                       cols: torch.Tensor, *, n: int, r: int,
+                       tier: str = "df64") -> torch.Tensor:
+    """Plain PyTorch version of the chunk kernel: vectorised over chunks,
+    the tier's dtype, fold order and accumulator."""
+    dtype = _tier_dtype(tier)
+    x0, cols = x0.to(dtype), cols.to(dtype)
+    x, sign_mid = gray.chunk_init(ids, x0, cols, n, r)
+    hi, lo = _walk_ref(x, sign_mid, cols, r, tier)
     out = torch.stack([hi, lo], dim=1)
     return torch.where((ids < 0)[:, None], 0.0, out)
+
+
+def _check_batch(x0s, colss, n: int, r: int) -> None:
+    for name, t in (("x0s", x0s), ("colss", colss)):
+        if t.dtype != torch.float64:
+            raise TypeError(f"{name} must be torch.float64, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if colss.device != x0s.device:
+        raise ValueError(f"colss is on {colss.device}, x0s on {x0s.device}")
+    if x0s.dim() != 2:
+        raise ValueError("x0s must be (B, n_pad)")
+    batch, n_pad = x0s.shape
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"a launch takes 1..{MAX_BATCH} matrices, got "
+                         f"{batch}")
+    if n_pad not in BATCH_N_PADS:
+        raise ValueError(f"n_pad={n_pad} must be one of {BATCH_N_PADS}")
+    if not n_pad - 8 < n <= n_pad or n < 9:
+        raise ValueError(f"n={n} does not pad to n_pad={n_pad}")
+    if tuple(colss.shape) != (batch, n - 1, n_pad):
+        raise ValueError(f"colss must be ({batch}, {n - 1}, {n_pad}), got "
+                         f"{tuple(colss.shape)}")
+    if not 1 <= r <= n - 8:
+        raise ValueError(f"r={r} must lie in [1, n-8={n - 8}]: a matrix "
+                         f"needs at least one full block of {BLOCK} chunks")
+
+
+def batch_partials(x0s: torch.Tensor, colss: torch.Tensor, *, n: int, r: int,
+                   tier: str = "df64") -> torch.Tensor:
+    """Per-block partial sums of the whole Gray walk of each matrix of a
+    stack.
+
+    x0s:   (B, n_pad) float64, one gray.pack_matrix x0 per matrix.
+    colss: (B, n-1, n_pad) float64, one column table per matrix.
+    Matrix b has 2^(n-1-r) chunks of 2^r steps, in blocks of 128.
+    Returns (B, 2^(n-1-r) / 128, 2), float64 for df64 and float32
+    otherwise: hi and lo of each block's sum, reduced in the kernel's
+    fixed halving order.  Matrix b's scaled total is the float64 sum of
+    hi + lo over its blocks.
+
+    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
+    tensor runs the plain version.
+    """
+    _check_batch(x0s, colss, n, r)
+    _tier_dtype(tier)
+    if x0s.device.type == "cpu":
+        return batch_partials_ref(x0s, colss, n=n, r=r, tier=tier)
+    if x0s.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0s.device}")
+    return _launch_batch(x0s, colss, n, r, tier)
+
+
+def _launch_batch(x0s, colss, n: int, r: int, tier: str) -> torch.Tensor:
+    global BATCH_LAUNCHES
+    from ..csrc.build import load
+    lib = load()
+    dtype, tier_no = TIERS[tier]
+    batch, n_pad = x0s.shape
+    blocks = (1 << (n - 1 - r)) // BLOCK
+    out = torch.empty((batch, blocks, 2), dtype=dtype, device=x0s.device)
+    x0s, colss = x0s.to(dtype), colss.to(dtype)
+    stream = torch.cuda.current_stream(x0s.device).cuda_stream
+    rc = lib.ryser_batch(
+        x0s.data_ptr(), colss.data_ptr(), batch, n, n_pad, r, tier_no,
+        out.data_ptr(), x0s.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"ryser_batch launch failed: CUDA error {rc}")
+    BATCH_LAUNCHES += 1
+    return out
+
+
+def batch_chunk_partials_ref(x0s: torch.Tensor, colss: torch.Tensor, *,
+                             n: int, r: int, tier: str = "df64"):
+    """The batch walk before its block reduction: (hi, lo), each
+    (B, 2^(n-1-r)), equal bit for bit to ryser_partials_ref of matrix b
+    on all its chunk ids at the same r."""
+    dtype = _tier_dtype(tier)
+    x0s, colss = x0s.to(dtype), colss.to(dtype)
+    ids = torch.arange(1 << (n - 1 - r), dtype=torch.int64,
+                       device=x0s.device)
+    x, sign_mid = gray.chunk_init(ids, x0s, colss, n, r)
+    return _walk_ref(x, sign_mid, colss, r, tier)
+
+
+def block_reduce_ref(hi: torch.Tensor, lo: torch.Tensor, tier: str):
+    """(B, C) per-chunk pairs -> (B, C / 128, 2) per-block pairs in the
+    batch kernel's order: thread t takes thread t + 64, then t + 32, ..."""
+    batch = hi.shape[0]
+    hi = hi.reshape(batch, -1, BLOCK)
+    lo = lo.reshape(batch, -1, BLOCK)
+    s = BLOCK // 2
+    while s >= 1:
+        hi, lo = acc_merge(hi[..., :s], lo[..., :s], hi[..., s:2 * s],
+                           lo[..., s:2 * s], tier)
+        s //= 2
+    return torch.stack([hi[..., 0], lo[..., 0]], dim=-1)
+
+
+def batch_partials_ref(x0s: torch.Tensor, colss: torch.Tensor, *, n: int,
+                       r: int, tier: str = "df64") -> torch.Tensor:
+    """Plain PyTorch version of the batch kernel: vectorised over
+    matrices and chunks, one Python step per Gray index, then the block
+    reduction in the kernel's order."""
+    hi, lo = batch_chunk_partials_ref(x0s, colss, n=n, r=r, tier=tier)
+    return block_reduce_ref(hi, lo, tier)

@@ -25,11 +25,12 @@ def pad_ids(ids: np.ndarray, lanes: int) -> np.ndarray:
 
 
 def compute_partials(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
-                     plan: gray.RyserPlan,
-                     device: torch.device) -> np.ndarray:
-    """Walk the (B, L) chunk ids on `device` and return the per-chunk
-    partial sums hi + lo as a (B, L) float64 host array (0 for sentinel
-    ids); its .sum() is the scaled total.
+                     plan: gray.RyserPlan, device: torch.device,
+                     tier: str = "df64") -> np.ndarray:
+    """Walk the (B, L) chunk ids on `device` in `tier` ("df64", "f32" or
+    "f32k") and return the per-chunk partial sums hi + lo as a (B, L)
+    float64 host array (0 for sentinel ids); its .sum() is the scaled
+    total.
 
     x0 (n_pad,) and cols (n-1, n_pad) are the float64 pack
     (gray.pack_matrix)."""
@@ -37,6 +38,6 @@ def compute_partials(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
     out = ryser_partials(ids.to(device),
                          torch.as_tensor(x0, dtype=torch.float64).to(device),
                          torch.as_tensor(cols, dtype=torch.float64).to(device),
-                         n=plan.n, r=plan.r)
-    out = out.cpu().numpy()
+                         n=plan.n, r=plan.r, tier=tier)
+    out = out.cpu().numpy().astype(np.float64)
     return (out[:, 0] + out[:, 1]).reshape(ids_blocks.shape)

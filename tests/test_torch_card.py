@@ -12,15 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-from superman_tpu_torch.ops import gray, modp, modp_cuda, ryser, ryser_cuda
+from superman_tpu_torch.ops import (batch, gray, modp, modp_cuda, ryser,
+                                    ryser_cuda)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["df64", "f32", "f32k"])
 @pytest.mark.parametrize("n,r", [(12, 3), (24, 5), (40, 2)])
-def test_kernel_matches_plain_on_card(n, r):
+def test_kernel_matches_plain_on_card(n, r, tier):
     """Integer matrix, row-scaled as the engine scales it: the kernel
-    and the plain version take the same IEEE steps, so the partials must
-    agree bitwise; sentinel ids give 0 and the launch is counted."""
+    and the plain version take the same IEEE steps in every tier, so the
+    partials must agree bitwise; sentinel ids give 0 and the launch is
+    counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(n)
@@ -34,13 +37,66 @@ def test_kernel_matches_plain_on_card(n, r):
                      torch.arange(nchunks - min(nchunks, 512), nchunks)]
                     ).to(dev)
     before = ryser_cuda.LAUNCHES
-    got = ryser_cuda.ryser_partials(ids, x0, cols, n=n, r=r)
+    got = ryser_cuda.ryser_partials(ids, x0, cols, n=n, r=r, tier=tier)
     torch.cuda.synchronize()
     assert ryser_cuda.LAUNCHES == before + 1
-    want = ryser_cuda.ryser_partials_ref(ids, x0, cols, n=n, r=r)
+    want = ryser_cuda.ryser_partials_ref(ids, x0, cols, n=n, r=r, tier=tier)
+    assert got.dtype == want.dtype
     assert torch.equal(got, want)
-    assert torch.equal(got[ids < 0], torch.zeros(5, 2, dtype=torch.float64,
+    assert torch.equal(got[ids < 0], torch.zeros(5, 2, dtype=got.dtype,
                                                  device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["df64", "f32", "f32k"])
+@pytest.mark.parametrize("n,count,r", [(13, 5, 2), (16, 3, 5), (24, 7, 9),
+                                       (32, 2, 14)])
+def test_batch_kernel_matches_plain_on_card(n, count, r, tier):
+    """A stack of integer and real-valued matrices: the batch kernel and
+    its plain version walk the same body and reduce each block in the
+    same order, so the per-block pairs must agree bitwise; one launch is
+    counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(100 * n + count)
+    stack = np.stack([
+        ((rng.random((n, n)) < 0.5) * rng.integers(1, 5, (n, n))
+         ).astype(np.float64) if i % 2 == 0 else
+        (rng.random((n, n)) < 0.6) * rng.random((n, n)) * 5.0
+        for i in range(count)])
+    dev = torch.device("cuda", 0)
+    x0p, colsT, _, _ = batch.pack_stack(stack)
+    x0s, colss = torch.as_tensor(x0p).to(dev), torch.as_tensor(colsT).to(dev)
+    before = ryser_cuda.BATCH_LAUNCHES
+    got = ryser_cuda.batch_partials(x0s, colss, n=n, r=r, tier=tier)
+    torch.cuda.synchronize()
+    assert ryser_cuda.BATCH_LAUNCHES == before + 1
+    want = ryser_cuda.batch_partials_ref(x0s, colss, n=n, r=r, tier=tier)
+    assert tuple(got.shape) == (count, (1 << (n - 1 - r)) // 128, 2)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_permanent_batch_on_card_matches_cpu():
+    """The entry point on a card against the same call on the CPU: the
+    same plan is not given (the card plans for its SMs), so df64 values
+    agree to 1e-12 and not bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import superman_tpu_torch as spt
+    rng = np.random.default_rng(5)
+    mats = [(rng.random((n, n)) < 0.6) * rng.integers(1, 4, (n, n))
+            for n in (9, 14, 14, 9, 15)]
+    got = spt.permanent_batch(mats)
+    want = spt.permanent_batch(mats, device="cpu")
+    for g, w, m in zip(got, want, mats):
+        kernel = m.shape[0] >= 13
+        assert g.algo_name == ("ryser_cuda_batch_df64" if kernel
+                               else "ryser_walk_batch")
+        assert w.algo_name == ("ryser_plain_batch_df64" if kernel
+                               else "ryser_walk_batch")
+        assert abs(g.permanent - w.permanent) <= 1e-12 * abs(w.permanent)
 
 
 @pytest.mark.cuda

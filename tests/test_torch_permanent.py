@@ -100,6 +100,40 @@ def test_walk_route_matches_ryser_xla(n, calc):
     assert got.permanent == pytest.approx(ryser_xla(a), rel=1e-12)
 
 
+@pytest.mark.parametrize("calc,n,rel", [("f32", 19, 1e-3), ("f32k", 20, 1e-4),
+                                        ("f32", 20, 1e-3), ("f32k", 19, 1e-4)])
+def test_f32_tiers_match_jax(calc, n, rel):
+    """permanent(calc="f32"/"f32k") on the reference's plan (chunk_log2
+    given) at n=19-20, where n_pad is 24 and the two packages fold the
+    product in different orders: they agree to 1e-3 (f32) and 1e-4
+    (f32k), and each lies within the tier's own account of itself (f32
+    1e-2, f32k 1e-3) of the float64 oracle."""
+    a = random_int_matrix(np.random.default_rng(n), n, 0.5, vmax=3)
+    ref = sp.permanent(a, calc=calc, chunk_log2=6, lanes=256)
+    got = spt.permanent(a, calc=calc, chunk_log2=6, lanes=256, device="cpu")
+    assert ref.algo_name == f"ryser_pallas_{calc}"
+    assert got.algo_name == f"ryser_plain_{calc}"
+    assert got.permanent == pytest.approx(ref.permanent, rel=rel)
+    assert got.permanent == pytest.approx(perman64(a), rel=10 * rel)
+    for key in ("calc", "chunks", "r", "lanes", "scale_log2"):
+        assert got.meta[key] == ref.meta[key], key
+    assert got.meta["exact_storage"] is True
+
+
+@pytest.mark.parametrize("calc,rel", [("f32", 1e-4), ("f32k", 1e-12)])
+def test_f32_tiers_small_n_route_matches_jax(calc, rel):
+    """n=12 takes the walk route in both packages: float32 for
+    calc="f32" (rel 1e-4: the products round in another order), float64
+    for f32k (rel 1e-12, as df64)."""
+    a = random_float_matrix(np.random.default_rng(12), 12, 0.6)
+    ref = sp.permanent(a, calc=calc)
+    got = spt.permanent(a, calc=calc, device="cpu")
+    assert ref.algo_name == f"ryser_xla_{calc}"
+    assert got.algo_name == f"ryser_walk_{calc}"
+    assert got.permanent == pytest.approx(ref.permanent, rel=rel)
+    assert got.permanent == pytest.approx(ryser_xla(a), rel=max(rel, 1e-12))
+
+
 def test_empty_row_is_zero():
     a = random_int_matrix(np.random.default_rng(4), 20, 0.6)
     a[3] = 0
@@ -114,7 +148,7 @@ def test_auto_sparse_walks_dense_and_says_so(monkeypatch):
     the CPU, and only the engine's decision is under test."""
     from superman_tpu_torch.parallel import sharding
 
-    def half(ids_blocks, x0, cols, plan, device):
+    def half(ids_blocks, x0, cols, plan, device, tier="df64"):
         return np.full(ids_blocks.shape, 0.5 / ids_blocks.size)
 
     monkeypatch.setattr(sharding, "compute_partials", half)
@@ -138,7 +172,8 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     {"sparse": True}, {"calc": "tf96"}, {"approximation": True},
-    {"calc": "f32"}, {"calc": "f32k"}, {"calc": "auto"},
+    {"calc": "tf96", "chunk_log2": 6}, {"calc": "tf96", "lanes": 256},
+    {"calc": "auto"},
     {"calc": "exact", "approximation": True},
     {"calc": "quad"}, {"perman_algo": "glynn"}, {"perman_algo": "14"},
     {"perman_algo": "5"}, {"mesh_shape": (2,)}, {"hybrid": True},

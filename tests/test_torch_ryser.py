@@ -52,6 +52,139 @@ def _port_walk(ids, x0, cols, n, r):
     return out[:, 0] + out[:, 1]
 
 
+def _both_walks_f32(a, ids, r, tier):
+    """(JAX, port) per-chunk (hi, lo) float32 words of an f32 tier on the
+    same pack and plan: the JAX kernel in interpret mode walks the hi
+    words of its pairs, the port's plain version the pack rounded to
+    float32, which is the same numbers."""
+    n, n_pad = a.shape[0], gray.pad_n(a.shape[0])
+    x0_pair, cols_pair = jgray.pack_matrix(a, n_pad)
+    cth, ctl = jryser.colst_pack(a, n_pad)
+    xhi, xlo, smid = jgray.chunk_init(
+        jnp.asarray(ids.astype(np.int32)), x0_pair, cols_pair, n=n,
+        n_pad=n_pad, r=r, df=False)
+    out = np.asarray(jax_partials(xhi, xlo, smid, cth, ctl, r=r, df=False,
+                                  exact_storage=True, kahan=tier == "f32k",
+                                  interpret=True))
+    want = np.stack([out[:, 0].reshape(-1), out[:, 1].reshape(-1)], axis=1)
+    x0, cols = gray.from_jax_pack(x0_pair, cols_pair)
+    got = ryser_cuda.ryser_partials(
+        torch.as_tensor(ids.reshape(-1), dtype=torch.int64),
+        torch.as_tensor(x0), torch.as_tensor(cols), n=n, r=r,
+        tier=tier).numpy()
+    assert got.dtype == want.dtype == np.float32
+    return want, got
+
+
+def _exact_product_matrix(rng, n):
+    """0/1, one 1 in every row (a permutation) and two more in up to 14
+    rows: x is +-1/2 or +-3/2 and never 0, so every product is
+    +-3^j / 2^n with 3^j < 2^24 -- exact in float32, and never 0."""
+    a = np.zeros((n, n))
+    a[np.arange(n), rng.permutation(n)] = 1.0
+    for row in rng.permutation(n)[:14]:
+        free = np.flatnonzero(a[row] == 0)
+        a[row, rng.choice(free, 2, replace=False)] = 1.0
+    return a
+
+
+def _chunk_ids(n, r):
+    nchunks = 1 << (n - 1 - r)
+    return np.concatenate([np.arange(min(nchunks // 2, 128)),
+                           np.arange(nchunks - 128, nchunks)]).reshape(2, -1)
+
+
+@pytest.mark.parametrize("tier", ["f32", "f32k"])
+@pytest.mark.parametrize("n,r", [(14, 4), (26, 5)])
+def test_f32_partials_bitwise_vs_jax(n, r, tier):
+    """0/1 matrices whose products are exact in float32, row-scaled, at
+    n_pad 16 and 32: the sums round, in the same order in both packages,
+    so both words of every chunk match the reference bit for bit."""
+    a = _exact_product_matrix(np.random.default_rng(n), n)
+    a_s = np.ldexp(a, -ryser._row_scales(a)[:, None])
+    want, got = _both_walks_f32(a_s, _chunk_ids(n, r), r, tier)
+    assert np.array_equal(got, want)
+    assert np.count_nonzero(got[:, 0]) > len(got) // 2
+
+
+@pytest.mark.parametrize("tier", ["f32", "f32k"])
+@pytest.mark.parametrize("n,r,min_same", [(14, 4, 0.9), (26, 5, 0.0)])
+def test_f32_partials_same_steps_as_jax(n, r, min_same, tier):
+    """Random 0/1 matrices at n_pad 16 and 32, where the port folds the
+    product in the reference's order.  Where a product is inexact the
+    reference's CPU backend may fuse a term's last multiply into the
+    accumulator's add (one rounding where the port and the card's kernel
+    make two), so chunks can differ in their last bits: at n=14, where
+    most products are still exact, at least 9 in 10 match in both words;
+    at any order all lie within 2^-20 of the largest partial."""
+    a = (np.random.default_rng(n).random((n, n)) < 0.5).astype(np.float64)
+    a_s = np.ldexp(a, -ryser._row_scales(a)[:, None])
+    want, got = _both_walks_f32(a_s, _chunk_ids(n, r), r, tier)
+    assert (got == want).all(axis=1).mean() >= min_same
+    want = want.astype(np.float64).sum(axis=1)
+    got = got.astype(np.float64).sum(axis=1)
+    assert np.abs(got - want).max() <= 2.0 ** -20 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("tier", ["f32", "f32k"])
+@pytest.mark.parametrize("kind,n,r", [("int", 21, 6), ("real", 20, 5)])
+def test_f32_partials_match_jax_other_orders(kind, n, r, tier):
+    """n_pad = 24: the reference folds 8-row groups first, the port the
+    upper half onto the lower, so each product differs in its last bits
+    (21 roundings of 2^-24); over 2^r terms the partials agree within
+    1e-5 of the largest one."""
+    rng = np.random.default_rng(300 + n)
+    a = (random_int_matrix(rng, n, 0.5, vmax=3) if kind == "int"
+         else random_float_matrix(rng, n, 0.5))
+    a_s = np.ldexp(a.astype(np.float64), -ryser._row_scales(a)[:, None])
+    want, got = _both_walks_f32(a_s, _chunk_ids(n, r), r, tier)
+    want = want.astype(np.float64).sum(axis=1)
+    got = got.astype(np.float64).sum(axis=1)
+    scale = np.abs(want).max()
+    assert scale > 0
+    assert np.abs(got - want).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("tier", ["f32", "f32k"])
+def test_f32_sentinels_and_dtype(tier):
+    """ids < 0 give an exact (0, 0) in the f32 tiers too."""
+    a = random_int_matrix(np.random.default_rng(7), 12, 0.6)
+    x0, cols = (torch.as_tensor(v) for v in gray.pack_matrix(
+        a, gray.pad_n(12)))
+    ids = torch.tensor([0, -1, 3, -1])
+    out = ryser_cuda.ryser_partials(ids, x0, cols, n=12, r=3, tier=tier)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (4, 2)
+    assert torch.equal(out[ids < 0], torch.zeros(2, 2))
+    assert (out[ids >= 0, 0] != 0).all()
+
+
+def test_f32k_accumulator_is_compensated():
+    """hi + lo of an f32k chunk is the sum of its float32 terms to ~2^-40
+    of their magnitude; the f32 tier's plain sum is only good to ~2^-20."""
+    from fractions import Fraction
+    n, r = 10, 8
+    a = random_float_matrix(np.random.default_rng(3), n, 0.8)
+    x0, cols = (torch.as_tensor(v) for v in gray.pack_matrix(
+        a, gray.pad_n(n)))
+    ids = torch.tensor([0, 1])
+    x, sign_mid = gray.chunk_init(ids, x0.float(), cols.float(), n, r)
+    terms = [ryser_cuda.tree_prod(x)]
+    for m in range(1, 1 << r):
+        k = (m & -m).bit_length() - 1
+        s = (sign_mid[:, None] if k == r - 1
+             else (-1.0 if (m >> (k + 1)) & 1 else 1.0))
+        x = x + s * cols.float()[k]
+        t = ryser_cuda.tree_prod(x)
+        terms.append(-t if m & 1 else t)
+    for tier, bound in (("f32k", 2.0 ** -40), ("f32", 2.0 ** -16)):
+        out = ryser_cuda.ryser_partials(ids, x0, cols, n=n, r=r, tier=tier)
+        for c in range(2):
+            exact = sum(Fraction(float(t[c])) for t in terms)
+            mag = sum(abs(Fraction(float(t[c]))) for t in terms)
+            got = Fraction(float(out[c, 0])) + Fraction(float(out[c, 1]))
+            assert abs(got - exact) <= mag * Fraction(bound)
+
+
 @pytest.mark.parametrize("n,r,vmax", [(10, 4, 1), (21, 6, 3)])
 def test_chunk_init_matches_jax(n, r, vmax):
     """x of every chunk equals the JAX df64 init's hi + lo exactly on
@@ -169,6 +302,7 @@ def test_accumulator_is_double_double():
     ({"x0": torch.ones(16, dtype=torch.float32)}, TypeError),
     ({"cols": torch.zeros(9, 32, dtype=torch.float64)}, ValueError),
     ({"r": 9}, ValueError),
+    ({"tier": "tf96"}, ValueError),
     ({"x0": torch.ones(72, dtype=torch.float64),
       "cols": torch.zeros(9, 72, dtype=torch.float64)}, ValueError),
 ])
@@ -178,7 +312,8 @@ def test_wrapper_rejects_bad_inputs(bad, exc):
     args.update(bad)
     with pytest.raises(exc):
         ryser_cuda.ryser_partials(args["ids"], args["x0"], args["cols"],
-                                  n=10, r=args["r"])
+                                  n=10, r=args["r"],
+                                  tier=args.get("tier", "df64"))
 
 
 @pytest.mark.parametrize("n,lanes,chunk_log2", [
