@@ -5,8 +5,9 @@
 Builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version on the card at its path's shapes, and drives
 the paths through the package's entry points: superman_tpu_torch.permanent
-at n=32 with calc="df64", "f32" and "f32k" (the Ryser walk,
-csrc/ryser_walk.cu) and calc="exact" (the Z_p walk, csrc/modp_walk.cu,
+at n=32 with calc="df64", "f32", "f32k" and "tf96" (the Ryser walk,
+csrc/ryser_walk.cu), with perman_algo="glynn" (the same kernel under the
+Glynn packing) and with calc="exact" (the Z_p walk, csrc/modp_walk.cu,
 under the modular CRT engine), and superman_tpu_torch.permanent_batch
 (the serving batch, csrc/ryser_batch.cu) on 256 matrices of n=24, 16 of
 n=32 and a mixed list.  It checks their values, times kernels and plain
@@ -28,9 +29,11 @@ printed.  Without CUDA it exits with code 2 before doing anything.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from fractions import Fraction
 
 import numpy as np
 
@@ -55,7 +58,16 @@ SMALL_TOL = 1e-10        # n=20, 24 vs the long-double oracle
 F32K_TOL = 1e-3
 F32_TOL = 5e-2
 BATCH_VS_SINGLE_TOL = 1e-12   # batched df64 vs permanent() one by one
-TIERS = ("df64", "f32", "f32k")
+#: tf96 against exact integers: what is left is the rounding of the final
+#: double (2^-53 = 1.1e-16, twice that where the long-double total rounds
+#: first) and the long-double host sum
+TF96_TOL = 1e-15
+#: per(J_n) = n!, the df64 tier's worst case, under tf96.  The products
+#: and chunk sums are good to ~2^-100, so the limit is the host's: the
+#: long-double sum of the partials errs by at most 2^-64 of their
+#: magnitudes, which stand ~5e3 (n=24) and ~1e5 (n=32) above n!
+ONES_TOL = {24: 1e-13, 32: 1e-14}
+TIERS = ("df64", "f32", "f32k", "tf96")
 #: peak rates of one H100 SXM.  Memory (3.35 TB/s) and float32 (67
 #: TFLOP/s, a fused multiply-add counted as two) are NVIDIA's data-sheet
 #: figures; float64 outside the tensor cores runs on 64 of an SM's 128
@@ -69,8 +81,14 @@ PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 33.5e12, "int32": 16.75e12}
 FMA_SLOTS = 0.5
 #: operations of the tier's accumulator per term, counted whole as the
 #: tier defines it (TwoSum is 6).  One add is what no accumulator could
-#: avoid: counted so, the df64 bound at n=32 would be 64/73 of this one
-ACC_OPS = {"df64": 10, "f32": 1, "f32k": 7}
+#: avoid: counted so, the df64 bound at n=32 would be 64/73 of this one.
+#: tf96 adds double-doubles: TwoSum 6, two adds, FastTwoSum 3
+ACC_OPS = {"df64": 10, "f32": 1, "f32k": 7, "tf96": 11}
+#: operations of the tf96 product, an FMA counted as two: TwoProd is a
+#: multiply and an FMA; a double-double multiply is a TwoProd, two
+#: multiplies and two adds for the cross terms, and a FastTwoSum
+TWO_PROD_OPS = 3
+DD_MUL_OPS = TWO_PROD_OPS + 4 + 3
 #: the Z_p kernel is checked at the largest prime the TPU kernel took and
 #: at the largest the card's takes; residues must agree exactly
 MOD_PRIMES = (2039, (1 << 31) - 1)
@@ -109,12 +127,20 @@ def walk_bound(steps: int, n: int, tier: str, nbytes: int):
     """(bound_ms, bound_by, issue_bound_ms) of a Ryser walk of `steps`
     Gray steps of an order-n matrix: a step does n-1 multiplies, n adds
     and the tier's accumulator; nbytes is every input read and output
-    written once.  issue_bound_ms is the same operations at the rate
-    unfusable instructions issue."""
-    ops = steps * (2 * n - 1 + ACC_OPS[tier])
-    kind = "fp64" if tier == "df64" else "fp32"
-    ms, by = bound(nbytes, ops, kind)
-    return ms, by, max(ms, ops / (PEAK[kind] * FMA_SLOTS) * 1e3)
+    written once.  In tf96 the first n // 2 multiplies are TwoProds and
+    the others double-double multiplies.  issue_bound_ms is the same
+    work at the rate its instructions issue: an unfusable multiply or add
+    takes the slot of an FMA, so all of them at half the peak, the one
+    FMA of each tf96 multiply counted once."""
+    if tier == "tf96":
+        per_step = (n + TWO_PROD_OPS * (n // 2)
+                    + DD_MUL_OPS * (n - 1 - n // 2) + ACC_OPS[tier])
+        instr = per_step - (n - 1)
+    else:
+        per_step = instr = 2 * n - 1 + ACC_OPS[tier]
+    kind = "fp64" if tier in ("df64", "tf96") else "fp32"
+    ms, by = bound(nbytes, steps * per_step, kind)
+    return ms, by, max(ms, steps * instr / (PEAK[kind] * FMA_SLOTS) * 1e3)
 
 
 def bound(nbytes: int, ops: int, kind: str):
@@ -218,7 +244,10 @@ def mixed_list():
 
 
 def rel_err(got: float, want) -> float:
-    return abs(got - want) / abs(want)
+    """|got - want| / |want| in exact arithmetic: `want` may be an integer
+    beyond 2^53, which a float subtraction would round first."""
+    want = Fraction(want)
+    return float(abs(Fraction(got) - want) / abs(want))
 
 
 def main() -> int:
@@ -229,7 +258,7 @@ def main() -> int:
     import superman_tpu_torch as spt
     from superman_tpu_torch.csrc import build
     from superman_tpu_torch.ops import (batch, exact, gray, modp, modp_cuda,
-                                        oracle, ryser_cuda)
+                                        oracle, ryser_cuda, tf96)
     from superman_tpu_torch.ops.ryser import _center_scales, _row_scales
 
     def zero_counts():
@@ -241,6 +270,9 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}")
+    print(f"np.longdouble mantissa bits: {np.finfo(np.longdouble).nmant}; "
+          f"the tf96 host sum runs in "
+          f"{'long double' if tf96.LONGDOUBLE_WIDE else 'exact summation'}")
     t = time.perf_counter()
     path, report = build.build()
     build.load()
@@ -262,15 +294,18 @@ def main() -> int:
                      torch.arange(plan.num_chunks - 2048, plan.num_chunks)]
                     ).to(dev)
     k1_err = {}
+    k1_sampled = {}
     for tier in TIERS:
         kern = ryser_cuda.ryser_partials(ids, x0, cols, n=32, r=plan.r,
                                          tier=tier)
         torch.cuda.synchronize()
-        plain = ryser_cuda.ryser_partials_ref(ids, x0, cols, n=32, r=plan.r,
-                                              tier=tier)
+        plain_ms, plain = cuda_ms(lambda: ryser_cuda.ryser_partials_ref(
+            ids, x0, cols, n=32, r=plan.r, tier=tier), 1)
         print(f"ryser_walk_{tier} vs plain, {ids.numel()} chunk ids "
-              f"(start, sentinels, end):")
+              f"(start, sentinels, end), plain {plain_ms:.1f} ms:")
         k1_err[tier] = compare(kern, plain, ids)
+        k1_sampled[tier] = (kern, plain_ms)
+    sampled_ids = ids
 
     # ---- 2b. the Z_p kernel vs its plain version, same plan and ids
     core, mult = exact._fold_lines(exact.dyadic_int_matrix(a32)[0])
@@ -287,13 +322,18 @@ def main() -> int:
                                            r=plan.r)
         mod_err = max(mod_err, compare_mod(kern, plain, ids, p))
 
-    # ---- 2c. K2 vs its plain version at the serving shapes, per tier,
-    # with both times (the kernel by CUDA events, the plain version once)
+    # ---- 2c. K2 at the serving shapes, per tier: the kernel's time by
+    # CUDA events at both, and the kernel against its plain version (run
+    # and timed once) on all of 256 x n=24 and on the first 2 matrices of
+    # n=32, which the plan cuts into chunks of 2^15 steps: the plain
+    # version pays per step, and 16 matrices walk chunks of 2^18
     stack_a, stack_b = batch_stacks()
     if not np.array_equal(stack_b[0], a32):
         raise AssertionError("the n=32 stack does not start with a32")
     k2 = {tier: {"err": 0.0} for tier in TIERS}
-    for tag, stack, reps in (("n24", stack_a, 5), ("n32", stack_b, 3)):
+    for tag, stack, reps, check in (("n24", stack_a, 5, True),
+                                    ("n32", stack_b, 3, False),
+                                    ("n32_2", stack_b[:2], 3, True)):
         B, n = stack.shape[:2]
         r = gray.batch_plan(n, B, sms=sms)
         x0p, colsT, _, _ = batch.pack_stack(stack.astype(np.float64))
@@ -304,15 +344,23 @@ def main() -> int:
                                                  tier=tier)
             run_batch()                                   # warm-up
             ms, kern = cuda_ms(run_batch, reps)
-            plain_ms, plain = cuda_ms(lambda: ryser_cuda.batch_partials_ref(
-                bx0, bcols, n=n, r=r, tier=tier), 1)
             steps = B << (n - 1)
-            print(f"ryser_batch {tier} vs plain, {B} x n={n}, "
-                  f"{1 << (n - 1 - r)} chunks of 2^{r} a matrix, "
-                  f"{kern.shape[1]} block pairs each: kernel {ms:.3f} ms "
-                  f"({steps / ms / 1e6:.1f} G steps/s), plain "
-                  f"{plain_ms:.1f} ms")
-            k2[tier]["err"] = max(k2[tier]["err"], compare(kern, plain, None))
+            line = (f"ryser_batch {tier}, {B} x n={n}, "
+                    f"{1 << (n - 1 - r)} chunks of 2^{r} a matrix, "
+                    f"{kern.shape[1]} block pairs each: kernel {ms:.3f} ms "
+                    f"({steps / ms / 1e6:.1f} G steps/s)")
+            plain_ms = None
+            if check:
+                plain_ms, plain = cuda_ms(
+                    lambda: ryser_cuda.batch_partials_ref(
+                        bx0, bcols, n=n, r=r, tier=tier), 1)
+                print(f"{line}, plain {plain_ms:.1f} ms")
+                k2[tier]["err"] = max(k2[tier]["err"],
+                                      compare(kern, plain, None))
+            else:
+                if not bool(torch.isfinite(kern).all()):
+                    raise AssertionError(f"{line}: non-finite partials")
+                print(line)
             k2[tier][tag] = (ms, plain_ms, walk_bound(
                 steps, n, tier, nbytes_of(bx0, bcols, kern)))
 
@@ -348,7 +396,9 @@ def main() -> int:
           f"(2 calls)")
     if ryser_cuda.LAUNCHES <= 0:
         raise AssertionError("the n=20 and n=24 path did not launch K1")
-    for tier, tol in (("f32", F32_TOL), ("f32k", F32K_TOL)):
+    tier_vals = {"df64": best.permanent}
+    for tier, tol in (("f32", F32_TOL), ("f32k", F32K_TOL),
+                      ("tf96", TF96_TOL)):
         zero_counts()
         spt.permanent(a32, calc=tier)                     # warm-up
         res = min((spt.permanent(a32, calc=tier) for _ in range(3)),
@@ -362,8 +412,43 @@ def main() -> int:
         if res.algo_name != f"ryser_cuda_{tier}" or not rel_t <= tol:
             raise AssertionError(f"n=32 {tier}: {res.algo_name} "
                                  f"rel {rel_t:.3e}")
+        tier_vals[tier] = res.permanent
     if min(k1_launches.values()) <= 0:
         raise AssertionError(f"a tier's path did not launch K1: {k1_launches}")
+
+    # ---- 3a. the high-precision tier where df64 is weakest, and Glynn
+    # per(J_n) = n!: all-ones matrices cancel hardest
+    for n in (24, 32):
+        ones = np.ones((n, n), dtype=np.int64)
+        errs = {}
+        for tier in ("df64", "tf96"):
+            res = spt.permanent(ones, calc=tier)
+            if res.algo_name != f"ryser_cuda_{tier}":
+                raise AssertionError(f"all-ones n={n}: {res.algo_name}")
+            errs[tier] = rel_err(res.permanent, math.factorial(n))
+        print(f"all-ones n={n} vs {n}!: df64 rel err {errs['df64']:.3e}, "
+              f"tf96 {errs['tf96']:.3e} (limit {ONES_TOL[n]:.0e})")
+        if not errs["tf96"] <= ONES_TOL[n]:
+            raise AssertionError(f"all-ones n={n} tf96: {errs['tf96']:.3e}")
+    # the second formula through the same kernel: its own packing, scales
+    # and host code
+    glynn_launches = {}
+    for tier, tol in (("df64", MAIN_TOL), ("tf96", TF96_TOL)):
+        zero_counts()
+        res = min((spt.permanent(a32, perman_algo="glynn", calc=tier)
+                   for _ in range(2)), key=lambda res: res.time)
+        glynn_launches[tier] = ryser_cuda.LAUNCHES
+        rel_g = rel_err(res.permanent, EXACT_N32)
+        vs_ryser = rel_err(res.permanent, tier_vals[tier])
+        print(f"Glynn n=32 {tier}: {res.permanent!r} in {res.time:.4f} s "
+              f"(best of 2), rel err {rel_g:.3e} vs the exact integer "
+              f"(limit {tol:.0e}), {vs_ryser:.3e} vs Ryser {tier}; "
+              f"{res.algo_name}, {glynn_launches[tier]} launches")
+        if res.algo_name != f"glynn_cuda_{tier}" or not rel_g <= tol \
+                or not vs_ryser <= 2 * tol or glynn_launches[tier] <= 0:
+            raise AssertionError(f"Glynn n=32 {tier}: {res.algo_name} rel "
+                                 f"{rel_g:.3e}, vs Ryser {vs_ryser:.3e}, "
+                                 f"{glynn_launches[tier]} launches")
 
     # ---- 3b. the exact path
     zero_counts()
@@ -498,6 +583,21 @@ def main() -> int:
               f"worst rel err {tier_err[tier]:.3e} vs df64 (limit {tol:.0e})")
         if not tier_err[tier] <= tol:
             raise AssertionError(f"batch {tier}: {tier_err[tier]:.3e}")
+    zero_counts()
+    vals_t, wall_t, _ = run_batch_path(stack_a, "tf96")
+    k2_launches["tf96"] = ryser_cuda.BATCH_LAUNCHES
+    k2_paths["256 x n=24 tf96, 3 calls"] = ryser_cuda.BATCH_LAUNCHES
+    exact_a = [spt.permanent(m, calc="exact").meta["exact_fraction"]
+               for m in stack_a[:8]]
+    tier_err["tf96"] = max(rel_err(v, want)
+                           for v, want in zip(vals_t, exact_a))
+    df_err = max(rel_err(v, want) for v, want in zip(vals_a, exact_a))
+    print(f"batch path 256 x n=24 tf96: {wall_t * 1e3:.2f} ms wall, "
+          f"{256 / wall_t:.0f} matrices/s; worst rel err vs the exact "
+          f"integers of the first 8: {tier_err['tf96']:.3e} (limit "
+          f"{TF96_TOL:.0e}; df64 on the same 8: {df_err:.3e})")
+    if not tier_err["tf96"] <= TF96_TOL:
+        raise AssertionError(f"batch tf96: {tier_err['tf96']:.3e}")
     print(f"ryser_batch launches, path by path: {k2_paths}")
     if min(k2_paths.values()) <= 0:
         raise AssertionError(f"a batch path did not launch K2: {k2_paths}")
@@ -511,13 +611,26 @@ def main() -> int:
                                              tier=tier)
         run_kernel()                                      # warm-up
         kernel_ms, kern = cuda_ms(run_kernel, 5)
-        plain_ms, plain = cuda_ms(lambda: ryser_cuda.ryser_partials_ref(
-            ids, x0, cols, n=32, r=plan.r, tier=tier), 1)
-        print(f"ryser_walk_{tier} vs plain, full plan ({plan.num_chunks} "
-              f"chunks of 2^{plan.r}): kernel {kernel_ms:.3f} ms "
-              f"({(1 << 31) / kernel_ms / 1e6:.1f} G steps/s), plain "
-              f"{plain_ms:.1f} ms")
-        k1_err[tier] = max(k1_err[tier], compare(kern, plain, ids))
+        line = (f"ryser_walk_{tier}, full plan ({plan.num_chunks} chunks of "
+                f"2^{plan.r}): kernel {kernel_ms:.3f} ms "
+                f"({(1 << 31) / kernel_ms / 1e6:.1f} G steps/s)")
+        if tier == "tf96":
+            # its plain version takes ~130 launches a step: it ran once, on
+            # the sampled ids of phase 2 (a plain walk pays per step, not
+            # per chunk); here the full plan's chunks must repeat those
+            was, plain_ms = k1_sampled[tier]
+            live = sampled_ids >= 0
+            if not torch.equal(kern[sampled_ids[live]], was[live]):
+                raise AssertionError("tf96: the full plan's partials differ "
+                                     "from the sampled run's")
+            print(f"{line}; plain {plain_ms:.1f} ms on the "
+                  f"{sampled_ids.numel()} sampled ids, whose partials the "
+                  f"full plan repeats bit for bit")
+        else:
+            plain_ms, plain = cuda_ms(lambda: ryser_cuda.ryser_partials_ref(
+                ids, x0, cols, n=32, r=plan.r, tier=tier), 1)
+            print(f"{line}, plain {plain_ms:.1f} ms")
+            k1_err[tier] = max(k1_err[tier], compare(kern, plain, ids))
         k1[tier] = (kernel_ms, plain_ms, walk_bound(
             1 << 31, 32, tier, nbytes_of(ids, x0, cols, kern)))
 
@@ -553,16 +666,23 @@ def main() -> int:
     kernels = [entry(f"ryser_walk_{tier}",
                      "superman_tpu_torch/csrc/ryser_walk.cu",
                      "superman_tpu/ops/ryser_pallas.py:541",
-                     k1_launches[tier], k1_err[tier], *k1[tier])
+                     k1_launches[tier], k1_err[tier], *k1[tier],
+                     **({"plain_ms_chunks": int(sampled_ids.numel())}
+                        if tier == "tf96" else {}),
+                     **({"glynn_launches": glynn_launches[tier]}
+                        if tier in glynn_launches else {}))
                for tier in TIERS]
-    # ms, plain_ms and bound_ms at 256 x n=24; the 16 x n=32 figures beside
+    # ms, plain_ms and bound_ms at 256 x n=24; beside them the kernel at
+    # 16 x n=32 and kernel and plain version at the first 2 of those
     kernels += [entry("ryser_batch", "superman_tpu_torch/csrc/ryser_batch.cu",
                       "superman_tpu/ops/ryser_pallas.py:685",
                       k2_launches[tier], k2[tier]["err"], *k2[tier]["n24"],
                       tier=tier, ms_n32=k2[tier]["n32"][0],
-                      plain_ms_n32=k2[tier]["n32"][1],
                       bound_ms_n32=k2[tier]["n32"][2][0],
-                      issue_bound_ms_n32=k2[tier]["n32"][2][2])
+                      issue_bound_ms_n32=k2[tier]["n32"][2][2],
+                      ms_n32_2=k2[tier]["n32_2"][0],
+                      plain_ms_n32_2=k2[tier]["n32_2"][1],
+                      bound_ms_n32_2=k2[tier]["n32_2"][2][0])
                 for tier in TIERS]
     kernels.append(entry("modp_walk", "superman_tpu_torch/csrc/modp_walk.cu",
                          "superman_tpu/ops/modp.py:413", mod_launches,

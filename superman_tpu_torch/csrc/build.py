@@ -97,7 +97,8 @@ def load() -> ctypes.CDLL:
     """Build if needed, load once per process, declare the C signatures."""
     path, _ = build()
     lib = ctypes.CDLL(path)
-    for fn in (lib.ryser_walk_df64, lib.ryser_walk_f32, lib.ryser_walk_f32k):
+    for fn in (lib.ryser_walk_df64, lib.ryser_walk_f32, lib.ryser_walk_f32k,
+               lib.ryser_walk_tf96):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,

@@ -1,5 +1,5 @@
 // Serving-batch Ryser walk for Hopper (sm_90a): a stack of B matrices of
-// one order n, each walked whole, tiers df64, f32 and f32k.
+// one order n, each walked whole, tiers df64, f32, f32k and tf96.
 //
 // Replaces the TPU Pallas kernel _ryser_kernel_batch behind the pallas_call
 // of batch_partials in superman_tpu/ops/ryser_pallas.py, and the lane
@@ -18,7 +18,8 @@
 // floating-point atomics: a matrix's result does not depend on how the
 // grid was scheduled, and the plain version (ops/ryser_cuda.py
 // batch_partials_ref) repeats the order bit for bit.  The host adds
-// hi + lo per block and sums a matrix's few blocks in float64.
+// hi + lo per block and sums a matrix's few blocks in float64 (tf96: all
+// their words in long double).
 //
 // What bounds it on this card: the walk's arithmetic, as in ryser_walk.cu;
 // the table load and the reduction are a few hundred operations against
@@ -91,10 +92,10 @@ cudaError_t launch(const void* x0s, const void* colss, int batch, int n, int r,
 
 // C entry point, bound with ctypes (ops/ryser_cuda.py).  x0s is
 // (batch, n_pad), colss (batch, n-1, n_pad), out
-// (batch, 2^(n-1-r) / 128, 2): double for tier 0 (df64), float for tiers 1
-// (f32) and 2 (f32k).  Launches on `stream` of `device`, allocates
-// nothing, does not synchronise, and returns cudaGetLastError() of the
-// launch (0 on success).
+// (batch, 2^(n-1-r) / 128, 2): double for tiers 0 (df64) and 3 (tf96),
+// float for tiers 1 (f32) and 2 (f32k).  Launches on `stream` of `device`,
+// allocates nothing, does not synchronise, and returns cudaGetLastError()
+// of the launch (0 on success).
 extern "C" int ryser_batch(const void* x0s, const void* colss, int batch,
                            int n, int n_pad, int r, int tier, void* out,
                            int device, void* stream) {
@@ -112,8 +113,9 @@ extern "C" int ryser_batch(const void* x0s, const void* colss, int batch,
 #define BATCH_TIERS(NP)       \
   BATCH_CASE(NP, walk::kDf64) \
   BATCH_CASE(NP, walk::kF32)  \
-  BATCH_CASE(NP, walk::kF32k)
-  if (tier < 0 || tier > 2) return (int)cudaErrorInvalidValue;
+  BATCH_CASE(NP, walk::kF32k) \
+  BATCH_CASE(NP, walk::kTf96)
+  if (tier < 0 || tier > 3) return (int)cudaErrorInvalidValue;
   switch (n_pad * 4 + tier) {
     BATCH_TIERS(16)
     BATCH_TIERS(24)

@@ -1,17 +1,18 @@
 // Ryser walk over a list of chunk ids, for Hopper (sm_90a): tiers df64,
-// f32 and f32k.
+// f32, f32k and tf96.
 //
 // Replaces the TPU Pallas walk in superman_tpu/ops/ryser_pallas.py
 // (_ryser_kernel, _ryser_kernel_u16 and _ryser_kernel_u16_multi behind the
-// pallas_call of _partials_jit) for calc="df64", "f32" and "f32k".
+// pallas_call of _partials_jit) for calc="df64", "f32", "f32k" and "tf96".
 //
 // What it computes: one thread walks one aligned chunk of 2^r Gray steps
 // (walk.cuh, which also says what bounds the walk on this card and what
 // the design does about it) and writes that chunk's partial sum as a
 // (hi, lo) pair of the tier's type; the host adds hi + lo per chunk and
-// sums the chunks in float64.  Chunk ids < 0 are sentinels and write 0.
-// The TPU's f32-pair emulation, 16-step unroll, lane vectorisation and
-// multi-block programs have no counterpart here.
+// sums the chunks in float64 (tf96: all words in long double).  Chunk ids
+// < 0 are sentinels and write 0.  The TPU's f32-pair and f32-triple
+// emulation, 16-step unroll, lane vectorisation and multi-block programs
+// have no counterpart here.
 
 #include "walk.cuh"
 
@@ -92,8 +93,8 @@ int run(const long long* ids, long long num_chunks, const void* x0,
 }  // namespace
 
 // C entry points, bound with ctypes (ops/ryser_cuda.py): x0 is (n_pad,),
-// cols (n-1, n_pad), out (num_chunks, 2), all double for df64 and float
-// for f32 and f32k.
+// cols (n-1, n_pad), out (num_chunks, 2), all double for df64 and tf96
+// and float for f32 and f32k.
 extern "C" int ryser_walk_df64(const long long* ids, long long num_chunks,
                                const double* x0, const double* cols, int n,
                                int n_pad, int r, double* out, int device,
@@ -115,5 +116,13 @@ extern "C" int ryser_walk_f32k(const long long* ids, long long num_chunks,
                                int n_pad, int r, float* out, int device,
                                void* stream) {
   return run<walk::kF32k>(ids, num_chunks, x0, cols, n, n_pad, r, out, device,
+                          stream);
+}
+
+extern "C" int ryser_walk_tf96(const long long* ids, long long num_chunks,
+                               const double* x0, const double* cols, int n,
+                               int n_pad, int r, double* out, int device,
+                               void* stream) {
+  return run<walk::kTf96>(ids, num_chunks, x0, cols, n, n_pad, r, out, device,
                           stream);
 }

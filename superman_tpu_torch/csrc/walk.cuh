@@ -3,8 +3,9 @@
 // kernel (ryser_batch.cu).
 //
 // Replaces the walk bodies of superman_tpu/ops/ryser_pallas.py
-// (_walk_scalar / _walk_u16) for the tiers df64, f32 and f32k, and folds in
-// their XLA prologue (superman_tpu/ops/gray.py chunk_init).
+// (_walk_scalar / _walk_u16) for the tiers df64, f32, f32k and tf96 (the
+// arithmetic of superman_tpu/ops/tf96.py with them), and folds in their XLA
+// prologue (superman_tpu/ops/gray.py chunk_init).
 //
 // What it computes: the Nijenhuis-Wilf Gray-code Ryser sum is cut into
 // aligned chunks of 2^r steps.  A thread walks chunk l: it builds x from
@@ -16,7 +17,14 @@
 //          double-double (TwoSum, then a renormalising FastTwoSum);
 //   kF32   x, the column table and the products float; acc += +-t;
 //   kF32k  as kF32 with a TwoSum accumulator: hi, e = two_sum(hi, +-t),
-//          lo += e; word 0 is the sum, word 1 the compensation.
+//          lo += e; word 0 is the sum, word 1 the compensation;
+//   kTf96  x and the column table IEEE double, holding values that are
+//          exact in float32, so every x update is one exact add; each
+//          product a double-double (two doubles, ~104 bits): the first
+//          level of the tree is an exact TwoProd by FMA, the rest dd_mul;
+//          the accumulator a double-double sum (acc_merge).  The TPU
+//          carried this tier as float32 triples (~72 bits); the card has
+//          native double and FMA, so two doubles do better with less.
 //
 // What bounds it on this card: arithmetic of the tier's type, about n
 // multiplies for the product plus n adds for the x update per step, and no
@@ -26,10 +34,16 @@
 // of a warp read the same column k at the same step -- a broadcast, with
 // no bank conflicts.
 //
-// Build without fast-math and with nvcc's default -ftz=false: the sums are
-// add-only, so FMA contraction cannot break them; the one contractible
-// product, s * col with s = +-1, is exact; the tree is multiply-only; and
-// denormal float products must round as the plain version's do.
+// Build without fast-math and with nvcc's default -ftz=false, so denormal
+// float products round as the plain version's do.  nvcc contracts a
+// multiply and an add into an FMA by default (-fmad=true), which the plain
+// PyTorch versions cannot repeat, so no rounding may depend on it.  In the
+// df64, f32 and f32k tiers it cannot: the sums are add-only, the tree is
+// multiply-only, and the one contractible product, s * col with s = +-1,
+// is exact.  The tf96 tier does mix multiplies and adds (dd_mul), so every
+// operation of two_prod and dd_mul is an intrinsic (__dmul_rn, __dadd_rn,
+// __fma_rn), which the compiler never fuses or splits: the only FMA is the
+// one that TwoProd asks for, and its result is exact.
 
 #pragma once
 
@@ -39,10 +53,11 @@ namespace walk {
 
 constexpr int kThreads = 128;
 
-enum Tier { kDf64 = 0, kF32 = 1, kF32k = 2 };
+enum Tier { kDf64 = 0, kF32 = 1, kF32k = 2, kTf96 = 3 };
 
 template <int TIER> struct Real { using type = float; };
 template <> struct Real<kDf64> { using type = double; };
+template <> struct Real<kTf96> { using type = double; };
 
 // p[0] = product of p[0..S): fold the upper half onto the lower half,
 // p[i] *= p[i + ceil(S/2)], until one element is left.  The plain version
@@ -63,6 +78,56 @@ __device__ __forceinline__ T tree_prod(const T (&x)[N_PAD]) {
 #pragma unroll
   for (int i = 0; i < N_PAD; ++i) p[i] = x[i];
   fold_prod<N_PAD, N_PAD, T>(p);
+  return p[0];
+}
+
+// A double-double: the value hi + lo, |lo| <= ulp(hi) / 2.
+struct dd {
+  double hi, lo;
+};
+
+// a * b = p + e exactly: the FMA returns the product's rounding error,
+// which is a double unless it underflows (|p| > 2^-960 is enough; the
+// engines scale so that |x| <~ 1).  The plain version (ops/tf96.py
+// two_prod) gets the same e from a Veltkamp split and Dekker's sum.
+__device__ __forceinline__ dd two_prod(double a, double b) {
+  const double p = __dmul_rn(a, b);
+  return {p, __fma_rn(a, b, -p)};
+}
+
+// a * b for double-doubles, relative error a few 2^-106: the exact product
+// of the high words, the two cross terms rounded, a.lo * b.lo dropped,
+// then a FastTwoSum.  ops/tf96.py dd_mul repeats it operation by operation.
+__device__ __forceinline__ dd dd_mul(dd a, dd b) {
+  const dd p = two_prod(a.hi, b.hi);
+  const double cross =
+      __dadd_rn(__dmul_rn(a.hi, b.lo), __dmul_rn(a.lo, b.hi));
+  const double e = __dadd_rn(p.lo, cross);
+  const double hi = __dadd_rn(p.hi, e);
+  return {hi, __dsub_rn(e, __dsub_rn(hi, p.hi))};
+}
+
+// p[0] = product of p[0..S) in fold_prod's order, on double-doubles.
+template <int S, int N>
+__device__ __forceinline__ void fold_prod_dd(dd (&p)[N]) {
+  if constexpr (S > 1) {
+    constexpr int NS = (S + 1) / 2;
+#pragma unroll
+    for (int i = 0; i < S / 2; ++i) p[i] = dd_mul(p[i], p[i + NS]);
+    fold_prod_dd<NS, N>(p);
+  }
+}
+
+// The tf96 tier's product of x[0..N_PAD): fold_prod's order, the first
+// level (x[i] * x[i + N_PAD/2], plain doubles) exact by TwoProd.
+template <int N_PAD>
+__device__ __forceinline__ dd tree_prod_dd(const double (&x)[N_PAD]) {
+  static_assert(N_PAD % 2 == 0, "the first fold pairs all of x");
+  constexpr int H = N_PAD / 2;
+  dd p[H];
+#pragma unroll
+  for (int i = 0; i < H; ++i) p[i] = two_prod(x[i], x[i + H]);
+  fold_prod_dd<H, H>(p);
   return p[0];
 }
 
@@ -95,7 +160,10 @@ __device__ __forceinline__ void acc_add(T& hi, T& lo, T t) {
 }
 
 // (hi, lo) += (bhi, blo): two partial sums merged with the tier's
-// compensated add, the counterpart of the reference's _merge_out8.
+// compensated add, the counterpart of the reference's _merge_out8.  For
+// kDf64 and kTf96 it is a double-double sum (TwoSum of the high words, the
+// low words folded in, a FastTwoSum), absolute error ~2^-105 of the larger
+// operand; kTf96 also adds every term with it (the reference's tf_add).
 template <int TIER, typename T>
 __device__ __forceinline__ void acc_merge(T& hi, T& lo, T bhi, T blo) {
   if constexpr (TIER == kF32) {
@@ -142,8 +210,15 @@ __device__ __forceinline__ void walk_chunk(
   }
   const T smid = (ul & 1ull) ? T(-1) : T(1);
 
-  hi = tree_prod<N_PAD, T>(x);  // m = 0: base index even, sign +1
-  lo = T(0);
+  // m = 0: base index even, sign +1
+  if constexpr (TIER == kTf96) {
+    const dd t = tree_prod_dd<N_PAD>(x);
+    hi = t.hi;
+    lo = t.lo;
+  } else {
+    hi = tree_prod<N_PAD, T>(x);
+    lo = T(0);
+  }
   const unsigned long long steps = 1ull << r;
   for (unsigned long long m = 1; m < steps; ++m) {
     const int k = __ffsll((long long)m) - 1;
@@ -154,8 +229,17 @@ __device__ __forceinline__ void walk_chunk(
     const T* ck = col_s + k * N_PAD;
 #pragma unroll
     for (int i = 0; i < N_PAD; ++i) x[i] += s * ck[i];
-    const T t = tree_prod<N_PAD, T>(x);
-    acc_add<TIER, T>(hi, lo, (m & 1ull) ? -t : t);  // term sign (-1)^m
+    // term sign (-1)^m
+    if constexpr (TIER == kTf96) {
+      const dd t = tree_prod_dd<N_PAD>(x);
+      if (m & 1ull)
+        acc_merge<TIER, T>(hi, lo, -t.hi, -t.lo);
+      else
+        acc_merge<TIER, T>(hi, lo, t.hi, t.lo);
+    } else {
+      const T t = tree_prod<N_PAD, T>(x);
+      acc_add<TIER, T>(hi, lo, (m & 1ull) ? -t : t);
+    }
   }
 }
 

@@ -1,8 +1,9 @@
 """Orchestration: dispatch a (matrix, flags) pair to an engine.
 
 Port of ``superman_tpu/drivers/runner.py`` for what the port carries so
-far: the dense exact engine (ops/ryser.py) in the df64, f32, f32k and f64
-tiers and the modular CRT exact engine (ops/exact.py, calc="exact").
+far: the dense exact engine (ops/ryser.py) in the df64, f32, f32k, tf96 and
+f64 tiers, the Glynn engine (ops/glynn.py, perman_algo="glynn") in the same
+tiers, and the modular CRT exact engine (ops/exact.py, calc="exact").
 Every other feature the flags can ask for raises NotImplementedError
 naming the ROADMAP item that brings it; none is ignored, so no result
 differs quietly from what the JAX package would return.
@@ -19,7 +20,6 @@ from ..core.result import Result
 
 #: ROADMAP.md Queue 1 items that carry the features not ported yet
 ROADMAP_ITEMS = {
-    4: "tf96 and Glynn",
     5: "sparse engine",
     6: 'calc="auto" ladder',
     9: "estimators",
@@ -73,10 +73,11 @@ def run_algo(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     if calc == "auto":
         raise unported('calc="auto"', 6)
     if str(flags.perman_algo) == "glynn":
-        raise unported("the Glynn engine", 4)
-    if calc == "tf96":
-        raise unported('calc="tf96"', 4)
-    from ..ops.ryser import ryser_exact
-    res = ryser_exact(dense, flags, device)
+        # independent second exact engine (cross-algorithm oracle)
+        from ..ops.glynn import glynn_exact
+        res = glynn_exact(dense, flags, device)
+    else:
+        from ..ops.ryser import ryser_exact
+        res = ryser_exact(dense, flags, device)
     flags.algo_name = res.algo_name
     return res

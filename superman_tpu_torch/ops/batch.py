@@ -25,8 +25,16 @@ from .ryser_walk import walk_lanes
 BATCH_MAX_N = 32
 #: smallest order that goes to the kernel; below it the float64 walk
 KERNEL_MIN_N = 13
-#: tiers that stay batched (the reference's fourth, tf96, is not ported)
-BATCHED_CALCS = ("df64", "f32", "f32k")
+#: tiers that stay batched
+BATCHED_CALCS = ("df64", "f32", "f32k", "tf96")
+
+
+def exact_storage_mask(mats: np.ndarray) -> np.ndarray:
+    """(B,) bool: which matrices of a (B, n, n) float64 stack hold integers
+    whose rows keep the half-integer x walk exact in float32
+    (ryser._exact_storage, decided matrix by matrix)."""
+    ints = np.all(mats == np.round(mats), axis=(1, 2))
+    return ints & (np.abs(mats).sum(axis=2).max(axis=1) < 2 ** 22)
 
 
 def permanent_batch_same_n(mats: np.ndarray, device: torch.device,
@@ -91,12 +99,18 @@ def permanent_batch_kernel(mats: np.ndarray, calc: str = "df64", device=None,
 
     Matrices whose scaled total underflows (below 2^-40) are re-run
     through the single-matrix engine, whose retry loop handles them.
+
+    calc="tf96" takes only matrices whose storage is exact
+    (exact_storage_mask) and raises on any other: its products are exact
+    to ~2^-100 only on x updates that are exact.  permanent_batch sends
+    the others through df64.
     """
     from ..api import permanent, resolve_device
     from ..core.flags import Flags
     from ..utils import trace
     from .ryser import _sm_count
     from .ryser_cuda import batch_partials
+    from .tf96 import sum_words
 
     device = resolve_device(device, Flags())
     mats = np.asarray(mats, dtype=np.float64)
@@ -107,10 +121,14 @@ def permanent_batch_kernel(mats: np.ndarray, calc: str = "df64", device=None,
     if not KERNEL_MIN_N <= n <= BATCH_MAX_N:
         raise ValueError(f"permanent_batch_kernel takes orders "
                          f"{KERNEL_MIN_N}..{BATCH_MAX_N}, got {n}")
-    # decided on the whole stack, as the reference decides it; the port's
-    # tiers walk the same way either way, so it only goes into meta
-    ints = bool(np.all(mats == np.round(mats)))
-    exact_storage = bool(ints and np.abs(mats).sum(axis=2).max() < 2 ** 22)
+    # whether the whole stack is exact, as the reference reports it; the
+    # df64 and f32 tiers walk the same way either way
+    exact_storage = bool(exact_storage_mask(mats).all())
+    if calc == "tf96" and not exact_storage:
+        raise ValueError(
+            "permanent_batch_kernel: calc='tf96' needs exact-f32 storage "
+            "(integer values, row abs-sums below 2^22) in every matrix; "
+            "walk the others as calc='df64'")
 
     with trace.timer("batch_pack"):
         x0p, colsT, s, zero = pack_stack(mats)
@@ -121,12 +139,16 @@ def permanent_batch_kernel(mats: np.ndarray, calc: str = "df64", device=None,
                              n=n, r=r, tier=calc)       # (B, blocks, 2)
         # one small copy per group; a matrix's few blocks are summed as
         # the single-matrix path sums its chunks: hi + lo, then float64
+        # (tf96: all the words in long double)
         o = out.cpu().numpy().astype(np.float64)
-    tot = (o[:, :, 0] + o[:, :, 1]).sum(axis=1)
+    if calc == "tf96":
+        tot = sum_words(o)
+    else:
+        tot = (o[:, :, 0] + o[:, :, 1]).sum(axis=1)
     sign = 4 * (n & 1) - 2
     E = s.sum(axis=1)
     with np.errstate(over="ignore"):
-        per = np.array([float(sign * np.ldexp(np.float64(t), int(e)))
+        per = np.array([float(sign * np.ldexp(t, int(e)))
                         for t, e in zip(tot, E)])
     per[zero] = 0.0
     # underflowed totals: the single-matrix engine's retry loop recovers
@@ -147,20 +169,21 @@ def permanent_batch(mats: Sequence[np.ndarray], device=None,
     Same-order matrices with 2 < n <= BATCH_MAX_N are grouped into
     batched walks on `device`: orders from 13 go to the serving-batch
     kernel, smaller ones to one batched float64 walk.  A `calc` override
-    ("df64"/"f32"/"f32k") stays batched.  Any other override (or an
-    unbatchable calc such as "quad"/"auto") routes through the normal
+    ("df64"/"f32"/"f32k"/"tf96") stays batched.  Any other override (or
+    an unbatchable calc such as "quad"/"auto") routes through the normal
     engine one by one, with a logged warning, never silently.
+    Under calc="tf96" a matrix whose storage is not exact in f32 walks as
+    df64 with a UserWarning, matrix by matrix (the reference decides for
+    the whole stack and then walks such a matrix rounded to f32), and
+    orders below 13 run one by one, where the long-double host route
+    keeps the tier's precision.
     device=None means cuda:{device_id} and raises without CUDA; "cpu"
     runs the kernels' plain versions."""
-    from ..api import permanent, resolve_device, unported
+    from ..api import permanent, resolve_device
     from ..core.flags import Flags
     from ..utils import trace
 
     calc = overrides.get("calc", "df64")
-    if calc == "tf96":
-        # the reference batches tf96 from n = 13 and runs it one by one
-        # below (its small-order batch walk is plain float64)
-        raise unported('calc="tf96"', 4)
     batchable_calc = calc in BATCHED_CALCS
     batchable = batchable_calc and not (overrides.keys() - {"calc"})
     if not batchable:
@@ -179,18 +202,29 @@ def permanent_batch(mats: Sequence[np.ndarray], device=None,
         if m.ndim != 2 or m.shape[0] != m.shape[1]:
             raise ValueError(f"matrix {i} is not square")
         n = m.shape[0]
-        if 2 < n <= BATCH_MAX_N and batchable:
-            groups.setdefault(n, []).append(i)
+        if 2 < n <= BATCH_MAX_N and batchable and (n >= KERNEL_MIN_N
+                                                   or calc != "tf96"):
+            tier = calc
+            if calc == "tf96" and not exact_storage_mask(
+                    m.astype(np.float64)[None])[0]:
+                tier = "df64"
+            groups.setdefault((n, tier), []).append(i)
         else:
+            # tf96 below 13 too: the small-order batch walk is plain
+            # float64 and would quietly downgrade the tier
             results[i] = permanent(m, device=device, **overrides)
     if groups:
         dev = resolve_device(device, Flags())
-    for n, idxs in groups.items():
+    if any(tier != calc for _, tier in groups):
+        import warnings
+        warnings.warn("tf96 requires exact-f32 storage; falling back to "
+                      "df64 for the matrices without it")
+    for (n, tier), idxs in groups.items():
         stack = np.stack([mats[i].astype(np.float64) for i in idxs])
         if n >= KERNEL_MIN_N:
-            vals, meta = permanent_batch_kernel(stack, calc, dev)
+            vals, meta = permanent_batch_kernel(stack, tier, dev)
             where = "cuda" if dev.type == "cuda" else "plain"
-            name = f"ryser_{where}_batch_{calc}"
+            name = f"ryser_{where}_batch_{tier}"
         else:
             # small orders: the float64 walk (>= the accuracy of the
             # f32/f32k/df64 tiers)

@@ -1,0 +1,147 @@
+"""Glynn-formula exact permanent, an independent second exact engine.
+
+Port of ``superman_tpu/ops/glynn.py``.
+
+per(A) = 2^(1-n) * sum over delta in {+-1}^n with delta_n = +1 of
+         (prod_i delta_i) * prod_j (sum_i delta_i * a_ij).
+
+Cross-ALGORITHM agreement is the primary correctness oracle, and the
+Ryser / Nijenhuis-Wilf formula otherwise provides every result of the
+card.  The Gray walk over delta maps exactly onto the Ryser walk kernel
+(csrc/ryser_walk.cu) with another packing:
+
+* state x_j = sum_i delta_i a_ij; initially (all delta = +1) the column
+  sums of A;
+* flipping delta_k toggles -2 * a[k, :] in and out of x, so the kernel's
+  column table holds  row k = -2 * (row k of A)  for k < n-1;
+* the term sign (prod delta) = (-1)^popcount(gray(m)) = (-1)^m, the
+  parity the kernel already applies;
+* the final factor 2^(1-n) replaces Ryser's (4*(n&1)-2).
+
+Column scaling by powers of two is exact and keeps every |x_j| <~ 1, as
+row scaling does on the Ryser path.  The engine runs every tier of the
+kernel (df64, f32, f32k, tf96) and shares none of the Ryser engine's
+host code: that is its value.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.matrix import DenseMatrix
+from ..core.result import Result
+from ..utils import trace
+from . import gray
+
+
+def _col_scales(a: np.ndarray) -> np.ndarray:
+    """Integer exponents s_j bounding |x_j| <= ~1 along the whole walk:
+    |x_j| <= sum_i |a_ij| always."""
+    ab = np.abs(np.asarray(a, dtype=np.float64))
+    xmax = ab.sum(axis=0)
+    with np.errstate(divide="ignore"):
+        s = np.ceil(np.log2(np.maximum(xmax, 1e-300)))
+    return np.clip(s, -980, 980).astype(np.int64)
+
+
+def _pack_glynn(a_s: np.ndarray, n_pad: int):
+    """x0 = column sums (padding 1); walk table row k = -2 * row k of the
+    matrix, k < n-1 (padding 0): (x0 (n_pad,), cols (n-1, n_pad)),
+    float64, the layout gray.pack_matrix gives the Ryser walk."""
+    n = a_s.shape[0]
+    x0 = np.ones(n_pad, dtype=np.float64)
+    x0[:n] = a_s.sum(axis=0)
+    g = np.zeros((n - 1, n_pad), dtype=np.float64)
+    g[:, :n] = -2.0 * a_s[: n - 1, :]
+    return x0, g
+
+
+def glynn_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
+    """Exact permanent of `dense` on `device` by the Glynn formula, calc
+    "df64", "f32", "f32k", "tf96" or "f64"."""
+    a = np.asarray(dense.mat)
+    n = a.shape[0]
+    calc = flags.resolved_calc()
+    if calc not in ("df64", "f32", "f32k", "tf96", "f64"):
+        raise ValueError(f"glynn_exact has no {calc!r} tier")
+    t0 = time.perf_counter()
+    if n <= 2 or calc == "f64" or n < 19:
+        from .oracle import perman_glynn
+        # small-n tf96 keeps long-double precision on the host walk, the
+        # same contract as ryser_exact's host route
+        dt = np.longdouble if calc == "tf96" else np.float64
+        p = perman_glynn(a, dtype=dt)
+        return Result(float(p), time.perf_counter() - t0,
+                      algo_name="glynn_host", iterations=1 << max(n - 1, 0))
+
+    where = "cuda" if device.type == "cuda" else "plain"
+    # trivial zero: an empty row or column zeroes every Glynn term, and
+    # the scale-retry heuristic would rerun 3 full walks on pure zeros
+    if (np.count_nonzero(a, axis=1) == 0).any() or \
+       (np.count_nonzero(a, axis=0) == 0).any():
+        return Result(0.0, time.perf_counter() - t0,
+                      algo_name=f"glynn_{where}_{calc}", iterations=0,
+                      meta={"reason": "empty row/col"})
+
+    # x_j = sum_i delta_i a_ij * 2^-s_j: all terms of x_j share the column
+    # scale, so the walk is exact in f32 iff the values are integers and
+    # the column abs-sums fit in 24-bit mantissas (the mirror of
+    # ryser._exact_storage's row test, decided on the values likewise)
+    a64 = a.astype(np.float64)
+    exact_storage = bool(
+        (dense.type == "int" or np.all(a64 == np.round(a64)))
+        and np.max(np.abs(a64).sum(axis=0), initial=0.0) < 2 ** 22)
+    if calc == "tf96" and not exact_storage:
+        import warnings
+        warnings.warn("tf96 requires exact-f32 storage; falling back to "
+                      "df64")
+        calc = "df64"
+    tf = calc == "tf96"
+
+    from ..parallel.sharding import compute_total, pad_ids
+    from .ryser import _sm_count
+    plan = gray.make_plan(n, flags.lanes, flags.chunk_log2,
+                          sms=_sm_count(device),
+                          grid_multip=int(flags.grid_multip))
+    ids_blocks = pad_ids(np.arange(plan.num_chunks, dtype=np.int64),
+                         plan.lanes)
+
+    scales = _col_scales(a)
+    best = None
+    shifted = 0
+    shift_cap = max(1, 100 // n)
+    for attempt in range(3):
+        a_s = np.ldexp(a64, -scales[None, :])
+        with trace.timer("pack"):
+            x0, cols = _pack_glynn(a_s, plan.n_pad)
+        with trace.timer("walk"):
+            total = compute_total(ids_blocks, x0, cols, plan, device,
+                                  tier=calc)
+        # bounded cumulative shifts and a finite fallback (see ops/ryser.py)
+        if not np.isfinite(total):
+            break
+        best = (total, int(scales.sum()))
+        if total != 0.0 and abs(total) > 2.0 ** -40:
+            break
+        room = shift_cap - shifted
+        if room <= 0:
+            break
+        bump = 120 if total == 0.0 else int(-np.log2(abs(total)) // n + 1)
+        per_row = max(1, min(bump, room))
+        scales = scales - per_row
+        shifted += per_row
+    total, E = best if best is not None else (total, int(scales.sum()))
+    with np.errstate(over="ignore"):
+        acc = np.longdouble(total) if tf else np.float64(total)
+        p = float(np.ldexp(acc, E + 1 - n)) + 0.0
+    dt = time.perf_counter() - t0
+    iters = plan.num_chunks << plan.r
+    return Result(p, dt, algo_name=f"glynn_{where}_{calc}",
+                  iterations=iters,
+                  meta={"calc": calc, "chunks": plan.num_chunks, "r": plan.r,
+                        "lanes": plan.lanes, "scale_log2": E,
+                        "iters_per_sec": iters / dt, "device": str(device),
+                        "exact_storage": exact_storage})

@@ -151,8 +151,12 @@ def pack_matrix(a: np.ndarray, n_pad: int):
 
 
 def from_jax_pack(x0_pair, cols_pair):
-    """The JAX package's f32-pair pack (``superman_tpu.ops.gray.
-    pack_matrix``) as this package's float64 pack: hi + lo, exact.
+    """The JAX package's f32-pair pack as this package's float64 pack:
+    hi + lo, exact.  It takes the Ryser pack (``superman_tpu.ops.gray.
+    pack_matrix``) and the Glynn pack (``superman_tpu.ops.glynn.
+    _pack_glynn``), which share one layout: x0_pair (2, n_pad) and
+    cols_pair (2, n-1, n_pad) become x0 (n_pad,) and cols (n-1, n_pad),
+    what gray.pack_matrix and glynn._pack_glynn make here.
     A permanent engine has no weights; this is the one input format the
     two packages must agree on, so both walk identical inputs."""
     x0_pair = np.asarray(x0_pair)

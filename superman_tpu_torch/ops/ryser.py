@@ -1,5 +1,5 @@
 """Exact-permanent engine: planning, dispatch, reduction (dense, tiers
-df64, f32, f32k and f64).
+df64, f32, f32k, tf96 and f64).
 
 Port of the dense branch of ``superman_tpu/ops/ryser.py``.  The host
 side (row scales, pack, underflow retry, sign and 2^E) is the
@@ -27,9 +27,10 @@ def _exact_storage(dense: DenseMatrix) -> bool:
     Decided on the VALUES, not the declared storage class: a float64
     matrix holding small integers walks identically to an "int"-typed one.
     The port's df64 walk keeps x in float64 and its f32 tiers round the
-    pack to float32 either way, so the flag selects nothing here: it is
-    reported in Result.meta.  The tf96 tier, which needs exact f32 x
-    updates, will read it once it exists."""
+    pack to float32 either way, so for them the flag is only reported in
+    Result.meta.  The tf96 tier reads it: its double-double products are
+    worth their cost only on x updates that are exact, so calc="tf96" on
+    other storage falls back to df64 with a warning."""
     a = np.asarray(dense.mat)
     if a.dtype == np.longdouble:
         return False                  # -v storage keeps long-double bits
@@ -121,11 +122,11 @@ def _sm_count(device: torch.device) -> int:
 
 def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
     """Exact permanent of `dense` on `device`, calc "df64", "f32",
-    "f32k" or "f64"."""
+    "f32k", "tf96" or "f64"."""
     a = np.asarray(dense.mat)
     n = a.shape[0]
     calc = flags.resolved_calc()
-    if calc not in ("df64", "f32", "f32k", "f64"):
+    if calc not in ("df64", "f32", "f32k", "tf96", "f64"):
         raise ValueError(f"ryser_exact has no {calc!r} tier")
     t0 = time.perf_counter()
 
@@ -134,6 +135,15 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
         p = perman_brute(a)
         return Result(float(p), time.perf_counter() - t0,
                       algo_name="ryser_exact", iterations=1)
+
+    if calc == "tf96" and n < 19:
+        # small n: the host long-double walk, which meets the tier's
+        # contract; the float64 walk below would quietly degrade it
+        from .oracle import perman64
+        p = perman64(a, dtype=np.longdouble)
+        return Result(float(p), time.perf_counter() - t0,
+                      algo_name="ryser_tf96_host", iterations=1 << (n - 1),
+                      meta={"calc": calc})
 
     if calc == "f64" or n < 19:
         from .ryser_walk import ryser_walk
@@ -145,6 +155,17 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
                       iterations=1 << (n - 1),
                       meta={"calc": calc, "device": str(device)})
 
+    exact_storage = _exact_storage(dense)
+    if calc == "tf96" and not exact_storage:
+        # tf96 needs x updates that are exact in f32 (the int suites); the
+        # hybrid and checkpoint routes the reference also names here are
+        # refused before this engine is reached
+        import warnings
+        warnings.warn("tf96 requires exact-f32 storage and the non-hybrid "
+                      "path; falling back to df64")
+        calc = "df64"
+    tf = calc == "tf96"
+
     # the kernel on a card, its plain version on the CPU
     name = f"ryser_{'cuda' if device.type == 'cuda' else 'plain'}_{calc}"
     # trivial zero: an empty row or column makes the permanent 0 and also
@@ -154,7 +175,7 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
         return Result(0.0, time.perf_counter() - t0, algo_name=name,
                       iterations=0, meta={"reason": "empty row/col"})
 
-    from ..parallel.sharding import compute_partials, pad_ids
+    from ..parallel.sharding import compute_total, pad_ids
     plan = gray.make_plan(n, flags.lanes, flags.chunk_log2,
                           sms=_sm_count(device),
                           grid_multip=int(flags.grid_multip))
@@ -175,9 +196,9 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
         with trace.timer("pack"):
             x0, cols = gray.pack_matrix(a_s, plan.n_pad)
         with trace.timer("walk"):
-            total = float(compute_partials(
-                ids_blocks, x0, cols, plan, device,
-                tier=calc).sum(dtype=np.float64))
+            # a float; np.longdouble for tf96, kept until the last rounding
+            total = compute_total(ids_blocks, x0, cols, plan, device,
+                                  tier=calc)
         # scaled sums far below 1 may have lost underflowed terms; shift
         # the row scales to center the result near 2^0 and rerun (scaling
         # is exact, so a rerun is a pure exponent adjustment).  Shifts are
@@ -199,13 +220,14 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
     # ldexp multiplies by 2**E exactly; out-of-range RESULTS become the
     # honest double inf/0 rather than raising
     with np.errstate(over="ignore"):
-        p = float((4 * (n & 1) - 2) * np.ldexp(np.float64(total), E)) + 0.0
+        acc = np.longdouble(total) if tf else np.float64(total)
+        p = float((4 * (n & 1) - 2) * np.ldexp(acc, E)) + 0.0
     dt = time.perf_counter() - t0
     iters = plan.num_chunks << plan.r
     meta = {"calc": calc, "chunks": plan.num_chunks, "r": plan.r,
             "lanes": plan.lanes, "scale_log2": E,
             "iters_per_sec": iters / dt, "device": str(device),
-            "exact_storage": _exact_storage(dense)}
+            "exact_storage": exact_storage}
     # where the reference would engage its pruned sparse walk on its own
     # (n >= 28, density < 0.30), the port still walks dense: say so
     if n >= 28 and np.count_nonzero(a) / a.size < 0.30 and flags.skip_pruning:

@@ -1,5 +1,5 @@
-"""Ryser walk, tiers df64, f32 and f32k: the CUDA kernels' wrappers and
-their plain versions.
+"""Ryser walk, tiers df64, f32, f32k and tf96: the CUDA kernels' wrappers
+and their plain versions.
 
 The counterpart of ``superman_tpu/ops/ryser_pallas.py``, whose two
 ``pl.pallas_call`` sites it replaces:
@@ -17,11 +17,14 @@ Both kernels run one walk body (``csrc/walk.cuh``).  In the df64 tier x
 and every product are native float64 on the card (the TPU carried them as
 f32 pairs) and the accumulator is a compensated double-double; in f32 and
 f32k x, the column table and the products are float32, with a plain and a
-TwoSum accumulator.  The plain versions below compute the same functions
-with the same operation order, so on a card kernel and plain version
-agree to the last bit on any input where nvcc keeps IEEE order (no
-fast-math; the only contractible multiply, s * col with s = +-1, is
-exact).
+TwoSum accumulator; in tf96 x is float64 holding values exact in float32
+and every product and the accumulator are double-doubles (ops/tf96.py;
+the TPU carried them as f32 triples).  The plain versions below compute
+the same functions with the same operation order, so on a card kernel and
+plain version agree to the last bit on any input where nvcc keeps IEEE
+order (no fast-math; the only multiply nvcc may fuse into an add, s * col
+with s = +-1, is exact; the tf96 products are written with intrinsics it
+does not fuse).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 
 from . import gray
 from .df64 import df_add_f64, quick_two_sum, two_sum
+from .tf96 import tree_prod_dd
 
 #: kernel launches made by ryser_partials; a run reads it to show that the
 #: main path went through the kernel
@@ -48,7 +52,7 @@ MAX_BATCH = 65535
 
 #: tier -> (working dtype, the batch kernel's tier number)
 TIERS = {"df64": (torch.float64, 0), "f32": (torch.float32, 1),
-         "f32k": (torch.float32, 2)}
+         "f32k": (torch.float32, 2), "tf96": (torch.float64, 3)}
 
 
 def _tier_dtype(tier: str) -> torch.dtype:
@@ -89,10 +93,13 @@ def ryser_partials(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
           whose partial is 0.
     x0:   (n_pad,) float64 initial x, padding rows 1 (gray.pack_matrix).
     cols: (n-1, n_pad) float64 matrix columns, padding 0.
-    tier: "df64", "f32" or "f32k".  The f32 tiers round x0 and cols to
-          float32 (the hi word of the reference's f32 pair) and walk those.
-    Returns (C, 2), float64 for df64 and float32 otherwise: hi and lo of
-    each chunk's partial sum (lo is 0 in the f32 tier).
+    tier: "df64", "f32", "f32k" or "tf96".  The f32 tiers round x0 and
+          cols to float32 (the hi word of the reference's f32 pair) and
+          walk those.  tf96 is as exact as its products only where every
+          x update is: on values exact in float32 (the engines see to it).
+    Returns (C, 2), float64 for df64 and tf96 and float32 otherwise: hi
+    and lo of each chunk's partial sum (lo is 0 in the f32 tier; in tf96
+    the pair is a double-double, to be summed wider than float64).
 
     A CUDA tensor launches the kernel (and raises if it cannot); a CPU
     tensor runs the plain version.
@@ -138,7 +145,10 @@ def tree_prod(x: torch.Tensor) -> torch.Tensor:
 
 
 def acc_add(hi, lo, t, tier: str):
-    """(hi, lo) += t with the tier's accumulator (csrc/walk.cuh acc_add)."""
+    """(hi, lo) += t with the tier's accumulator (csrc/walk.cuh acc_add;
+    a tf96 term is a (hi, lo) pair and goes through acc_merge)."""
+    if tier == "tf96":
+        return acc_merge(hi, lo, t[0], t[1], tier)
     if tier == "f32":
         return hi + t, lo
     if tier == "f32k":
@@ -149,7 +159,9 @@ def acc_add(hi, lo, t, tier: str):
 
 def acc_merge(hi, lo, bhi, blo, tier: str):
     """(hi, lo) += (bhi, blo) with the tier's compensated add, as the
-    batch kernel's block reduction merges two partial sums."""
+    batch kernel's block reduction merges two partial sums.  For df64 and
+    tf96 it is the double-double sum (tf96.dd_add); tf96 adds every term
+    with it too."""
     if tier == "f32":
         return hi + bhi, lo
     s, e = two_sum(hi, bhi)
@@ -158,13 +170,26 @@ def acc_merge(hi, lo, bhi, blo, tier: str):
     return quick_two_sum(s, e + (lo + blo))
 
 
+def _term(x, negate, tier: str):
+    """The signed Ryser term +-prod(x) over the last dim in the tier's
+    product: a tensor, or for tf96 a (hi, lo) pair of them."""
+    if tier == "tf96":
+        thi, tlo = tree_prod_dd(x)
+        return (-thi, -tlo) if negate else (thi, tlo)
+    t = tree_prod(x)
+    return -t if negate else t
+
+
 def _walk_ref(x, sign_mid, cols, r: int, tier: str):
     """The walk body of both plain versions: x (..., C, n_pad) and
     sign_mid (C,) from gray.chunk_init, cols (..., n-1, n_pad) with one
     table per leading index of x.  One Python step per Gray index m, the
     kernel's step rule and accumulator.  Returns (hi, lo), each (..., C)."""
-    hi = tree_prod(x)
-    lo = torch.zeros_like(hi)
+    if tier == "tf96":
+        hi, lo = _term(x, False, tier)
+    else:
+        hi = _term(x, False, tier)
+        lo = torch.zeros_like(hi)
     for m in range(1, 1 << r):
         k = (m & -m).bit_length() - 1
         if k == r - 1:
@@ -172,8 +197,7 @@ def _walk_ref(x, sign_mid, cols, r: int, tier: str):
         else:
             s = -1.0 if (m >> (k + 1)) & 1 else 1.0
         x = x + s * cols[..., k, None, :]
-        t = tree_prod(x)
-        hi, lo = acc_add(hi, lo, -t if m & 1 else t, tier)
+        hi, lo = acc_add(hi, lo, _term(x, m & 1, tier), tier)
     return hi, lo
 
 
@@ -224,10 +248,11 @@ def batch_partials(x0s: torch.Tensor, colss: torch.Tensor, *, n: int, r: int,
     x0s:   (B, n_pad) float64, one gray.pack_matrix x0 per matrix.
     colss: (B, n-1, n_pad) float64, one column table per matrix.
     Matrix b has 2^(n-1-r) chunks of 2^r steps, in blocks of 128.
-    Returns (B, 2^(n-1-r) / 128, 2), float64 for df64 and float32
-    otherwise: hi and lo of each block's sum, reduced in the kernel's
-    fixed halving order.  Matrix b's scaled total is the float64 sum of
-    hi + lo over its blocks.
+    Returns (B, 2^(n-1-r) / 128, 2), float64 for df64 and tf96 and
+    float32 otherwise: hi and lo of each block's sum, reduced in the
+    kernel's fixed halving order.  Matrix b's scaled total is the float64
+    sum of hi + lo over its blocks (tf96: of all the words, summed wider,
+    tf96.sum_words).
 
     A CUDA tensor launches the kernel (and raises if it cannot); a CPU
     tensor runs the plain version.

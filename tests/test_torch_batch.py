@@ -195,13 +195,13 @@ def test_permanent_batch_rejects(monkeypatch):
     a = random_int_matrix(np.random.default_rng(12), 14, 0.5)
     with pytest.raises(ValueError, match="matrix 1 is not square"):
         spt.permanent_batch([a, np.ones((3, 4))], device="cpu")
-    for m in (a, a[:9, :9]):          # the kernel group and the small one
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 4"):
-            spt.permanent_batch([m, m], device="cpu", calc="tf96")
-    for calc in ("tf96", "quad"):
+    for calc in ("amp", "quad"):
         with pytest.raises(ValueError, match="unsupported calc"):
             batch.permanent_batch_kernel(np.stack([a, a]), calc, device="cpu")
+    # a tf96 stack must be exact in f32, matrix by matrix
+    with pytest.raises(ValueError, match="exact-f32 storage"):
+        batch.permanent_batch_kernel(np.stack([a, a + 0.5]), "tf96",
+                                     device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         spt.permanent_batch([a, a])
@@ -277,7 +277,7 @@ def test_batch_plan(n, batch_size, chunk_log2, want):
     ({"x0s": torch.ones(2, 40, dtype=torch.float64),
       "colss": torch.zeros(2, 13, 40, dtype=torch.float64)}, ValueError),
     ({"r": 7}, ValueError), ({"r": 0}, ValueError),
-    ({"tier": "tf96"}, ValueError),
+    ({"tier": "amp"}, ValueError),
     # one launch takes at most 65535 matrices (the grid's second dimension)
     ({"x0s": torch.ones(65536, 16, dtype=torch.float64)}, ValueError),
     ({"x0s": torch.ones(0, 16, dtype=torch.float64)}, ValueError),

@@ -17,7 +17,7 @@ from superman_tpu_torch.ops import (batch, gray, modp, modp_cuda, ryser,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["df64", "f32", "f32k"])
+@pytest.mark.parametrize("tier", ["df64", "f32", "f32k", "tf96"])
 @pytest.mark.parametrize("n,r", [(12, 3), (24, 5), (40, 2)])
 def test_kernel_matches_plain_on_card(n, r, tier):
     """Integer matrix, row-scaled as the engine scales it: the kernel
@@ -48,7 +48,7 @@ def test_kernel_matches_plain_on_card(n, r, tier):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["df64", "f32", "f32k"])
+@pytest.mark.parametrize("tier", ["df64", "f32", "f32k", "tf96"])
 @pytest.mark.parametrize("n,count,r", [(13, 5, 2), (16, 3, 5), (24, 7, 9),
                                        (32, 2, 14)])
 def test_batch_kernel_matches_plain_on_card(n, count, r, tier):
@@ -97,6 +97,57 @@ def test_permanent_batch_on_card_matches_cpu():
         assert w.algo_name == ("ryser_plain_batch_df64" if kernel
                                else "ryser_walk_batch")
         assert abs(g.permanent - w.permanent) <= 1e-12 * abs(w.permanent)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["ryser", "glynn"])
+@pytest.mark.parametrize("calc,rel", [("tf96", 1e-15), ("df64", 1e-11),
+                                      ("f32k", 1e-3), ("f32", 5e-2)])
+def test_tiers_and_glynn_on_card(algo, calc, rel):
+    """permanent() at n=22 on the card, Ryser and Glynn in every tier of
+    K1, against the exact integer (the port's calc="exact"): tf96 within
+    1e-15 (the rounding of the final double), df64 1e-11, f32k 1e-3,
+    f32 5e-2; each run launches K1 and names the kernel route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import superman_tpu_torch as spt
+    rng = np.random.default_rng(22)
+    a = (rng.random((22, 22)) < 0.5) * rng.integers(1, 5, (22, 22))
+    want = spt.permanent(a, calc="exact").meta["exact_fraction"]
+    before = ryser_cuda.LAUNCHES
+    overrides = {"perman_algo": "glynn"} if algo == "glynn" else {}
+    got = spt.permanent(a, calc=calc, **overrides)
+    assert ryser_cuda.LAUNCHES > before
+    assert got.algo_name == f"{algo}_cuda_{calc}"
+    assert abs(got.permanent - want) <= rel * abs(want)
+
+
+@pytest.mark.cuda
+def test_tf96_batch_on_card_matches_exact():
+    """permanent_batch(calc="tf96") on a card: integer matrices from
+    n=13 go through K2's tf96 tier and land within 1e-15 of the exact
+    integers (the rounding of the final double), a
+    real-valued one walks as df64 with the warning, n=9 runs one by one
+    on the host route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import superman_tpu_torch as spt
+    rng = np.random.default_rng(6)
+    mats = [(rng.random((n, n)) < 0.6) * rng.integers(1, 4, (n, n))
+            for n in (14, 9, 14, 20)]
+    mats.insert(2, rng.random((14, 14)))
+    before = ryser_cuda.BATCH_LAUNCHES
+    with pytest.warns(UserWarning, match="tf96 requires"):
+        got = spt.permanent_batch(mats, calc="tf96")
+    assert ryser_cuda.BATCH_LAUNCHES == before + 3
+    assert [g.algo_name for g in got] == [
+        "ryser_cuda_batch_tf96", "ryser_tf96_host", "ryser_cuda_batch_df64",
+        "ryser_cuda_batch_tf96", "ryser_cuda_batch_tf96"]
+    for g, m in zip(got, mats):
+        if m.dtype.kind == "f":
+            continue
+        want = spt.permanent(m, calc="exact").meta["exact_fraction"]
+        assert abs(g.permanent - want) <= 1e-15 * abs(want)
 
 
 @pytest.mark.cuda

@@ -171,11 +171,14 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    {"sparse": True}, {"calc": "tf96"}, {"approximation": True},
-    {"calc": "tf96", "chunk_log2": 6}, {"calc": "tf96", "lanes": 256},
+    {"sparse": True}, {"approximation": True},
     {"calc": "auto"},
     {"calc": "exact", "approximation": True},
-    {"calc": "quad"}, {"perman_algo": "glynn"}, {"perman_algo": "14"},
+    {"calc": "quad"}, {"perman_algo": "14"},
+    {"perman_algo": "glynn", "calc": "auto"},
+    {"perman_algo": "glynn", "calc": "quad"},
+    {"perman_algo": "glynn", "sparse": True},
+    {"calc": "tf96", "hybrid": True},
     {"perman_algo": "5"}, {"mesh_shape": (2,)}, {"hybrid": True},
     {"checkpoint_path": "journal"}, {"compression": True},
     {"scaling_threshold": 1.0}, {"cpu": True, "gpu": False},

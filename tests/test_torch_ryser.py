@@ -302,7 +302,7 @@ def test_accumulator_is_double_double():
     ({"x0": torch.ones(16, dtype=torch.float32)}, TypeError),
     ({"cols": torch.zeros(9, 32, dtype=torch.float64)}, ValueError),
     ({"r": 9}, ValueError),
-    ({"tier": "tf96"}, ValueError),
+    ({"tier": "amp"}, ValueError),
     ({"x0": torch.ones(72, dtype=torch.float64),
       "cols": torch.zeros(9, 72, dtype=torch.float64)}, ValueError),
 ])
