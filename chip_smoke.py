@@ -10,8 +10,11 @@ csrc/ryser_walk.cu), with perman_algo="glynn" (the same kernel under the
 Glynn packing) and with calc="exact" (the Z_p walk, csrc/modp_walk.cu,
 under the modular CRT engine), and superman_tpu_torch.permanent_batch
 (the serving batch, csrc/ryser_batch.cu) on 256 matrices of n=24, 16 of
-n=32 and a mixed list.  It checks their values, times kernels and plain
-versions, and prints:
+n=32 and a mixed list; the sparse engine (the pruned, factored walk,
+ryser_walk_reduced) through permanent() on seeded sparse matrices of n=36
+and n=40; and calc="auto" (the ladder, with the amp walk ryser_walk_amp)
+at n=32 and on a real-valued n=24 matrix built to defeat the float tiers.
+It checks their values, times kernels and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
@@ -68,6 +71,16 @@ TF96_TOL = 1e-15
 #: magnitudes, which stand ~5e3 (n=24) and ~1e5 (n=32) above n!
 ONES_TOL = {24: 1e-13, 32: 1e-14}
 TIERS = ("df64", "f32", "f32k", "tf96")
+#: the sparse engine against exact integers: df64's accumulation over the
+#: live steps, and tf96's last rounding with some room (its weights are
+#: double-doubles, so nothing is lost before the final double)
+SPARSE_TOL = {"df64": 1e-9, "f32": F32_TOL, "f32k": F32K_TOL, "tf96": 1e-13}
+#: operations of one step of the amp walk beyond its n adds to x: two
+#: product trees of n-1 multiplies, n reciprocals (each counted as one
+#: operation, the least a divider could need), their n-1 adds, one
+#: multiply, and two TwoSum accumulators of 6 adds plus the add that
+#: gathers each compensation
+AMP_ACC_OPS = 1 + 2 * 7
 #: peak rates of one H100 SXM.  Memory (3.35 TB/s) and float32 (67
 #: TFLOP/s, a fused multiply-add counted as two) are NVIDIA's data-sheet
 #: figures; float64 outside the tensor cores runs on 64 of an SM's 128
@@ -101,6 +114,53 @@ def random_int_matrix(rng, n, density, vmax=4):
     """As tests/conftest.py makes its integer matrices."""
     a = (rng.random((n, n)) < density).astype(np.int64)
     return a * rng.integers(1, vmax + 1, (n, n))
+
+
+def sparse_int_matrix(seed, n, density):
+    """The sparse engine's seeded matrices: entries 1..4 at the given
+    density, a full diagonal of 1..3."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < density) * rng.integers(1, 5, (n, n))
+    np.fill_diagonal(a, rng.integers(1, 4, n))
+    return a
+
+
+def within_line_landmine(lrng, n):
+    """As tests/test_exact_dense.py makes it: a real-valued dyadic matrix
+    (so the exact engine takes it) whose rows, large +-c pairs with
+    near-zero sums, cross zero mid-walk: the walk's per-term error then
+    exceeds what the plain amplitude predicts."""
+    q = 1.0 / 256.0
+    a = np.round(lrng.uniform(-2, 2, (n, n)) / q) * q
+    a[np.abs(a) < 4 * q] = 4 * q
+    for i in range(0, n, 3):
+        c = float(1 << int(lrng.integers(8, 14)))
+        j = int(lrng.integers(0, n - 2))
+        a[i, :] = np.round(lrng.uniform(-1, 1, n) / q) * q
+        a[i, j], a[i, j + 1] = c, -c + q * float(lrng.integers(1, 5))
+    return a
+
+
+def amp_host_log2(a):
+    """(log2 amp, log2 cond) of the whole walk by the exhaustive host
+    formula in float64 (ops/ryser.amp_cond_walk_log2 below n=19, run here
+    at any n): sum_m prod_i |x_i| and sum_m sum_i S_i prod_{j != i}
+    max(|x_j|, S_j 2^-50), S_i the row's amplitude bound."""
+    a = np.asarray(a, np.float64)
+    n = a.shape[0]
+    x0 = a[:, -1] - a.sum(axis=1) / 2.0
+    cols = a[:, : n - 1]
+    S = np.abs(x0) + np.abs(cols).sum(axis=1)
+    m = np.arange(1 << (n - 1), dtype=np.uint64)
+    g = m ^ (m >> np.uint64(1))
+    bits = ((g[:, None] >> np.arange(n - 1, dtype=np.uint64))
+            & np.uint64(1)).astype(np.float64)
+    ax = np.abs(x0[None, :] + bits @ cols.T)
+    axc = np.maximum(ax, S[None, :] * 2.0 ** -50)
+    logc = np.log2(axc).sum(axis=1) + np.log2((S[None, :] / axc).sum(axis=1))
+    mx = float(logc.max())
+    return (math.log2(np.prod(ax, axis=1).sum()),
+            mx + float(np.log2(np.exp2(logc - mx).sum())))
 
 
 def smi() -> str:
@@ -141,6 +201,16 @@ def walk_bound(steps: int, n: int, tier: str, nbytes: int):
     kind = "fp64" if tier in ("df64", "tf96") else "fp32"
     ms, by = bound(nbytes, steps * per_step, kind)
     return ms, by, max(ms, steps * instr / (PEAK[kind] * FMA_SLOTS) * 1e3)
+
+
+def amp_bound(steps: int, n: int, nbytes: int):
+    """(bound_ms, bound_by, issue_bound_ms) of an amp walk of `steps` Gray
+    steps of an order-n matrix, all in float64: n adds to x, 2 (n-1)
+    multiplies, n reciprocals, n-1 adds and AMP_ACC_OPS more a step;
+    nothing of it can fuse."""
+    per_step = n + 2 * (n - 1) + n + (n - 1) + AMP_ACC_OPS
+    ms, by = bound(nbytes, steps * per_step, "fp64")
+    return ms, by, max(ms, steps * per_step / (PEAK["fp64"] * FMA_SLOTS) * 1e3)
 
 
 def bound(nbytes: int, ops: int, kind: str):
@@ -198,6 +268,31 @@ def compare(kern, plain, ids) -> float:
     print(f"  max abs err {err:.3e} (tol {KERNEL_TOL * scale:.3e}), "
           f"bitwise equal: {bool(torch.equal(kern, plain))}")
     return err
+
+
+def compare_amp(kern, plain, ids) -> float:
+    """Largest |kernel - plain| of the amp walk's two sums per chunk
+    (amp hi + lo, cond hi + lo); raises past KERNEL_TOL of the largest sum
+    or on a nonzero sentinel."""
+    import torch
+    if kern.shape != plain.shape or kern.dtype != plain.dtype:
+        raise AssertionError(f"kernel {tuple(kern.shape)} {kern.dtype} vs "
+                             f"plain {tuple(plain.shape)} {plain.dtype}")
+    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+        raise AssertionError("non-finite amp sums")
+    if bool((kern[ids < 0] != 0).any()):
+        raise AssertionError("a sentinel chunk wrote a nonzero amp sum")
+    worst = 0.0
+    for name, c in (("amp", 0), ("cond", 2)):
+        pk, pp = kern[:, c] + kern[:, c + 1], plain[:, c] + plain[:, c + 1]
+        err, scale = float((pk - pp).abs().max()), float(pp.abs().max())
+        if err > KERNEL_TOL * scale:
+            raise AssertionError(f"amp kernel vs plain, {name}: max abs err "
+                                 f"{err:.3e} > {KERNEL_TOL:.1e} * {scale:.3e}")
+        worst = max(worst, err)
+    print(f"  max abs err {worst:.3e}, bitwise equal: "
+          f"{bool(torch.equal(kern, plain))}")
+    return worst
 
 
 def compare_mod(kern, plain, ids, p) -> int:
@@ -258,11 +353,15 @@ def main() -> int:
     import superman_tpu_torch as spt
     from superman_tpu_torch.csrc import build
     from superman_tpu_torch.ops import (batch, exact, gray, modp, modp_cuda,
-                                        oracle, ryser_cuda, tf96)
-    from superman_tpu_torch.ops.ryser import _center_scales, _row_scales
+                                        oracle, pruning, ryser_cuda, tf96)
+    from superman_tpu_torch.ops.ryser import (K1_GITERS, _center_scales,
+                                              _row_scales, amp_cond_walk_log2)
 
     def zero_counts():
         ryser_cuda.LAUNCHES = ryser_cuda.BATCH_LAUNCHES = 0
+        ryser_cuda.AMP_LAUNCHES = 0
+        for tier in ryser_cuda.REDUCED_LAUNCHES:
+            ryser_cuda.REDUCED_LAUNCHES[tier] = 0
         modp_cuda.LAUNCHES = 0
 
     # ---- 1. probe and build
@@ -332,7 +431,7 @@ def main() -> int:
         raise AssertionError("the n=32 stack does not start with a32")
     k2 = {tier: {"err": 0.0} for tier in TIERS}
     for tag, stack, reps, check in (("n24", stack_a, 5, True),
-                                    ("n32", stack_b, 3, False),
+                                    ("n32", stack_b, 1, False),
                                     ("n32_2", stack_b[:2], 3, True)):
         B, n = stack.shape[:2]
         r = gray.batch_plan(n, B, sms=sms)
@@ -363,6 +462,72 @@ def main() -> int:
                 print(line)
             k2[tier][tag] = (ms, plain_ms, walk_bound(
                 steps, n, tier, nbytes_of(bx0, bcols, kern)))
+
+    # ---- 2d. the weighted, block-reduced walk vs its plain version, per
+    # tier, on the sparse path's own plan: the n=36 matrix as the planner
+    # orders and cuts it at the tier's rate, the alive rows' and the
+    # factored rows' packs as the engine scales them, the live list split
+    # as the engine splits it; compared on its first 2,048 and last 1,983
+    # ids around 64 sentinels (a ragged last block), block pair by block
+    # pair, bit for bit
+    a36 = sparse_int_matrix(36, 36, 0.15)
+    sparse36 = {}
+    for tier in TIERS:
+        sp36 = pruning.plan_sparse(a36, giters=K1_GITERS[tier])
+        if sp36 is None or not len(sp36.factor_rows):
+            raise AssertionError(f"n=36 {tier}: the planner gave {sp36}")
+        ap = np.ascontiguousarray(a36[:, sp36.col_perm]).astype(np.float64)
+        ap_s = np.ldexp(ap, -_center_scales(ap, _row_scales(ap))[:, None])
+        pack = [torch.as_tensor(v).to(dev).contiguous() for v in
+                gray.pack_matrix(ap_s[sp36.alive_rows],
+                                 gray.pad_n(len(sp36.alive_rows)))
+                + gray.pack_matrix(ap_s[sp36.factor_rows],
+                                   len(sp36.factor_rows))]
+        ids_all, r_w = gray.split_chunks(
+            torch.as_tensor(sp36.ids).to(dev), sp36.r,
+            sms * gray.SPLIT_CHUNKS_PER_SM)
+        cmp_ids = torch.cat([ids_all[:2048], ids_all.new_full((64,), -1),
+                             ids_all[-1983:]])
+        kern = ryser_cuda.ryser_reduced(cmp_ids, *pack, n=36, r=r_w,
+                                        tier=tier)
+        torch.cuda.synchronize()
+        plain_ms, plain = cuda_ms(lambda: ryser_cuda.ryser_reduced_ref(
+            cmp_ids, *pack, n=36, r=r_w, tier=tier), 1)
+        print(f"ryser_walk_reduced {tier} vs plain, n=36: plan r={sp36.r}, "
+              f"{len(sp36.ids)} live chunks of {1 << (35 - sp36.r)}, "
+              f"{len(sp36.alive_rows)} alive and {len(sp36.factor_rows)} "
+              f"factored rows, walked as {ids_all.numel()} chunks of "
+              f"2^{r_w}; {cmp_ids.numel()} ids (start, sentinels, end) in "
+              f"{kern.shape[0]} blocks, plain {plain_ms:.1f} ms:")
+        err = compare(kern, plain, None)
+        if not torch.equal(kern, plain):
+            raise AssertionError(f"ryser_walk_reduced {tier}: kernel and "
+                                 f"plain version differ")
+        sparse36[tier] = {"sp": sp36, "pack": pack, "ids": ids_all,
+                          "r": r_w, "err": err, "plain_ms": plain_ms,
+                          "plain_chunks": int(cmp_ids.numel())}
+
+    # ---- 2e. the amp tier vs its plain version on the sampled ids of the
+    # n=32 plan, and its two sums over a whole n=20 walk against the
+    # exhaustive host formula
+    amp_kern = ryser_cuda.ryser_amp(sampled_ids, x0, cols, n=32, r=plan.r)
+    torch.cuda.synchronize()
+    amp_plain_ms, amp_plain = cuda_ms(lambda: ryser_cuda.ryser_amp_ref(
+        sampled_ids, x0, cols, n=32, r=plan.r), 1)
+    print(f"ryser_walk_amp vs plain, {sampled_ids.numel()} chunk ids (start, "
+          f"sentinels, end), plain {amp_plain_ms:.1f} ms:")
+    amp_err = compare_amp(amp_kern, amp_plain, sampled_ids)
+    rng20 = np.random.default_rng(20)
+    a20 = (rng20.random((20, 20)) < 0.6) * rng20.random((20, 20)) * 5.0 - 0.5
+    amp20, cond20 = amp_cond_walk_log2(a20, dev)
+    host_amp20, host_cond20 = amp_host_log2(a20)
+    print(f"amp walk n=20 (real-valued): log2 amp {amp20:.9f} vs the "
+          f"exhaustive host sum {host_amp20:.9f}; log2 cond {cond20:.4f} vs "
+          f"the host formula {host_cond20:.4f} (band -1 .. +2: the kernel "
+          f"weights rows by their power-of-two scales, the host by S_i)")
+    if not (abs(amp20 - host_amp20) <= 1e-9
+            and host_cond20 - 1.0 <= cond20 <= host_cond20 + 2.0):
+        raise AssertionError("amp walk n=20 disagrees with the host formula")
 
     # ---- 3. the single-matrix paths: df64, then f32 and f32k
     small = []
@@ -602,6 +767,151 @@ def main() -> int:
     if min(k2_paths.values()) <= 0:
         raise AssertionError(f"a batch path did not launch K2: {k2_paths}")
 
+    # ---- 3d. the sparse engine: permanent() engages the pruned, factored
+    # walk by itself on a clearly sparse matrix
+    t = time.perf_counter()
+    exact36 = spt.permanent(a36, calc="exact").meta["exact_fraction"]
+    print(f"sparse path n=36 (seed 36, density 0.15): exact integer "
+          f"{exact36} in {time.perf_counter() - t:.3f} s")
+    reduced_launches = {}
+    for tier in TIERS:
+        zero_counts()
+        spt.permanent(a36, calc=tier)                     # warm-up
+        res = min((spt.permanent(a36, calc=tier) for _ in range(3)),
+                  key=lambda res: res.time)
+        reduced_launches[tier] = ryser_cuda.REDUCED_LAUNCHES[tier]
+        rel_s = rel_err(res.permanent, exact36)
+        sp36 = sparse36[tier]["sp"]
+        want_meta = {"dead_frac": round(sp36.dead_frac, 4),
+                     "factored_rows": len(sp36.factor_rows), "r": sp36.r}
+        line = (f"sparse path n=36 {tier}: {res.permanent!r} in "
+                f"{res.time:.4f} s (best of 3), rel err {rel_s:.3e} vs the "
+                f"exact integer (limit {SPARSE_TOL[tier]:.0e}); "
+                f"{res.algo_name}, {res.meta['chunks']} live chunks of "
+                f"2^{res.meta['r']} cut 2^{res.meta['split_log2']} ways, "
+                f"sparse {res.meta.get('sparse')}, spans "
+                f"{ {k: round(v * 1e3, 2) for k, v in res.meta['spans']} }, "
+                f"{reduced_launches[tier]} reduced launches (4 calls), "
+                f"{ryser_cuda.LAUNCHES} dense")
+        if res.algo_name != f"ryser_cuda_{tier}" \
+                or res.meta.get("sparse") != want_meta \
+                or res.meta["chunks"] != len(sp36.ids) \
+                or reduced_launches[tier] != 4 or ryser_cuda.LAUNCHES != 0 \
+                or not rel_s <= SPARSE_TOL[tier]:
+            raise AssertionError(line)
+        if tier in ("df64", "tf96"):
+            dense = spt.permanent(a36, calc=tier, skip_pruning=False)
+            rel_d = rel_err(dense.permanent, exact36)
+            vs_dense = rel_err(res.permanent, dense.permanent)
+            line += (f"; unpruned {dense.permanent!r} in {dense.time:.4f} s "
+                     f"({dense.time / res.time:.1f}x), rel err {rel_d:.3e}, "
+                     f"pruned vs unpruned {vs_dense:.3e}")
+            if "sparse" in dense.meta or ryser_cuda.LAUNCHES <= 0 \
+                    or not rel_d <= SPARSE_TOL[tier] \
+                    or not vs_dense <= 2 * SPARSE_TOL[tier]:
+                raise AssertionError(line)
+        print(line)
+    pinned36 = {"df64": (16, 65098, 0.8758), "tf96": (16, 65098, 0.8758)}
+    for tier, want in pinned36.items():
+        sp36 = sparse36[tier]["sp"]
+        got = (sp36.r, len(sp36.ids), round(sp36.dead_frac, 4))
+        if got != want or len(sp36.factor_rows) != 4:
+            raise AssertionError(f"n=36 {tier} plan {got}, pinned {want}")
+    a40 = sparse_int_matrix(40, 40, 0.10)
+    vals40 = {}
+    for tier in ("df64", "tf96"):
+        zero_counts()
+        res = min((spt.permanent(a40, calc=tier) for _ in range(2)),
+                  key=lambda res: res.time)
+        vals40[tier] = res.permanent
+        print(f"sparse path n=40 (seed 40, density 0.10) {tier}: "
+              f"{res.permanent!r} in {res.time:.4f} s (best of 2); "
+              f"{res.meta['chunks']} live chunks of 2^{res.meta['r']} cut "
+              f"2^{res.meta['split_log2']} ways, sparse "
+              f"{res.meta.get('sparse')}, "
+              f"{ryser_cuda.REDUCED_LAUNCHES[tier]} reduced launches")
+        if res.meta.get("sparse", {}).get("factored_rows") != 8 \
+                or ryser_cuda.REDUCED_LAUNCHES[tier] != 2:
+            raise AssertionError(f"n=40 {tier}: {res.meta}")
+    rel40 = rel_err(vals40["df64"], vals40["tf96"])
+    print(f"sparse path n=40: df64 vs tf96 rel diff {rel40:.3e} (limit "
+          f"{SPARSE_TOL['df64']:.0e})")
+    if not rel40 <= SPARSE_TOL["df64"]:
+        raise AssertionError(f"n=40 df64 vs tf96: {rel40:.3e}")
+
+    # ---- 3e. calc="auto": the ladder
+    # (a) a benign matrix: the probe alone clears the target
+    zero_counts()
+    res = spt.permanent(a32, calc="auto")
+    rel_a = rel_err(res.permanent, EXACT_N32)
+    print(f"auto n=32: {res.permanent!r} in {res.time:.4f} s, rel err "
+          f"{rel_a:.3e}; {res.algo_name}, auto {res.meta['auto']}, "
+          f"{ryser_cuda.LAUNCHES} K1 launches, {ryser_cuda.AMP_LAUNCHES} amp")
+    if res.meta["auto"].get("probe_only") is not True \
+            or res.algo_name != "ryser_cuda_df64" or ryser_cuda.LAUNCHES != 1 \
+            or ryser_cuda.AMP_LAUNCHES != 0 or not rel_a <= MAIN_TOL:
+        raise AssertionError("auto n=32: not the probe-only df64 result")
+    # (b) an impossible target: f32k companion, the amp walk over all 2^31
+    # indices, then the exact rung, or with no exact budget tf96, flagged
+    zero_counts()
+    t = time.perf_counter()
+    res = spt.permanent(a32, calc="auto", auto_target=1e-30)
+    wall_b = time.perf_counter() - t
+    amp_launches = ryser_cuda.AMP_LAUNCHES
+    print(f"auto n=32, auto_target=1e-30: {res.meta['exact_fraction']} in "
+          f"{wall_b:.4f} s; {res.algo_name}, auto {res.meta['auto']}, "
+          f"{ryser_cuda.LAUNCHES} K1 launches, {amp_launches} amp, "
+          f"{modp_cuda.LAUNCHES} modp_walk")
+    if res.meta["auto"]["escalated"] != "exact" \
+            or res.meta["exact_fraction"] != EXACT_N32 \
+            or ryser_cuda.LAUNCHES != 2 or amp_launches != 1 \
+            or modp_cuda.LAUNCHES <= 0:
+        raise AssertionError("auto n=32, impossible target: not the exact "
+                             "rung")
+    zero_counts()
+    t = time.perf_counter()
+    res = spt.permanent(a32, calc="auto", auto_target=1e-30,
+                        auto_exact_budget_s=0.0)
+    wall_b0 = time.perf_counter() - t
+    rel_b0 = rel_err(res.permanent, EXACT_N32)
+    print(f"auto n=32, auto_target=1e-30, no exact budget: "
+          f"{res.permanent!r} in {wall_b0:.4f} s, rel err {rel_b0:.3e} "
+          f"(limit {TF96_TOL:.0e}); {res.algo_name}, auto "
+          f"{res.meta['auto']}, {ryser_cuda.LAUNCHES} K1 launches, "
+          f"{ryser_cuda.AMP_LAUNCHES} amp")
+    if res.meta["auto"]["escalated"] != "tf96" \
+            or res.meta["auto"].get("low_confidence") is not True \
+            or "amp_walk_l2" not in res.meta["auto"] \
+            or ryser_cuda.LAUNCHES != 3 or ryser_cuda.AMP_LAUNCHES != 1 \
+            or modp_cuda.LAUNCHES != 0 or not rel_b0 <= TF96_TOL:
+        raise AssertionError("auto n=32, no exact budget: not the flagged "
+                             "tf96 rung")
+    t = time.perf_counter()
+    aw32, _ = amp_cond_walk_log2(a32.astype(np.float64), dev)
+    print(f"amp walk n=32, 2^31 indices: log2 amp {aw32:.4f} "
+          f"(amp_walk_l2 {res.meta['auto']['amp_walk_l2']} above the "
+          f"permanent's log2) in {time.perf_counter() - t:.4f} s wall")
+    # (c) a real-valued matrix whose lines cross zero mid-walk: no float
+    # tier above df64 exists for it, and without an exact budget the
+    # flagged bound must cover the true error
+    land = within_line_landmine(np.random.default_rng(24), 24)
+    truth = spt.permanent(land, calc="exact").meta["exact_fraction"]
+    zero_counts()
+    res = spt.permanent(land, calc="auto", auto_exact_budget_s=0.0)
+    am = res.meta["auto"]
+    rel_c = rel_err(res.permanent, truth)
+    print(f"auto n=24, within-line landmine, no exact budget: "
+          f"{res.permanent!r} vs the exact rational {float(truth)!r}: true "
+          f"rel err {rel_c:.3e}, err_est {am['err_est']:.3e}; "
+          f"{res.algo_name}, auto {am}, {ryser_cuda.LAUNCHES} K1 launches, "
+          f"{ryser_cuda.AMP_LAUNCHES} amp")
+    if am["escalated"] is not None or am.get("ladder") != "df64_max" \
+            or am.get("low_confidence") is not True \
+            or "cond_walk_l2" not in am or ryser_cuda.AMP_LAUNCHES != 1 \
+            or not 4.0 * float(am["err_est"]) >= rel_c:
+        raise AssertionError("auto on the landmine matrix: the flagged df64 "
+                             "bound does not hold")
+
     # ---- 4. times at the full n=32 main-path plan
     ids = torch.arange(plan.num_chunks, device=dev)
     k1 = {}
@@ -633,6 +943,45 @@ def main() -> int:
             k1_err[tier] = max(k1_err[tier], compare(kern, plain, ids))
         k1[tier] = (kernel_ms, plain_ms, walk_bound(
             1 << 31, 32, tier, nbytes_of(ids, x0, cols, kern)))
+
+    # the amp tier at the same plan; its plain version ran on the sampled
+    # ids of phase 2e, whose sums the full plan must repeat
+    def run_amp():
+        return ryser_cuda.ryser_amp(ids, x0, cols, n=32, r=plan.r)
+
+    run_amp()                                             # warm-up
+    amp_ms, kern = cuda_ms(run_amp, 3)
+    live = sampled_ids >= 0
+    if not torch.equal(kern[sampled_ids[live]], amp_kern[live]):
+        raise AssertionError("amp: the full plan's sums differ from the "
+                             "sampled run's")
+    print(f"ryser_walk_amp, full plan: kernel {amp_ms:.3f} ms "
+          f"({(1 << 31) / amp_ms / 1e6:.1f} G steps/s); plain "
+          f"{amp_plain_ms:.1f} ms on the {sampled_ids.numel()} sampled ids, "
+          f"whose sums the full plan repeats bit for bit")
+    amp_bnd = amp_bound(1 << 31, 32, nbytes_of(ids, x0, cols, kern))
+
+    # the reduced kernel on the whole n=36 plan of each tier, as the
+    # sparse path walks it
+    reduced = {}
+    for tier in TIERS:
+        s36 = sparse36[tier]
+
+        def run_reduced():
+            return ryser_cuda.ryser_reduced(s36["ids"], *s36["pack"], n=36,
+                                            r=s36["r"], tier=tier)
+        run_reduced()                                     # warm-up
+        red_ms, kern = cuda_ms(run_reduced, 5)
+        steps = s36["ids"].numel() << s36["r"]
+        n_alive = len(s36["sp"].alive_rows)
+        print(f"ryser_walk_reduced {tier}, the n=36 plan "
+              f"({s36['ids'].numel()} chunks of 2^{s36['r']}, {n_alive} "
+              f"alive rows): kernel {red_ms:.3f} ms "
+              f"({steps / red_ms / 1e6:.1f} G steps/s); plain "
+              f"{s36['plain_ms']:.1f} ms on {s36['plain_chunks']} ids")
+        reduced[tier] = (red_ms, s36["plain_ms"], walk_bound(
+            steps, n_alive, tier,
+            nbytes_of(s36["ids"], *s36["pack"], kern)))
 
     p = MOD_PRIMES[-1]
     mx0, mcols = (t.to(dev) for t in modp.pack_mod(
@@ -684,6 +1033,21 @@ def main() -> int:
                       plain_ms_n32_2=k2[tier]["n32_2"][1],
                       bound_ms_n32_2=k2[tier]["n32_2"][2][0])
                 for tier in TIERS]
+    # the reduced entry point at the n=36 sparse plan (launches: 4 calls
+    # of permanent); the weight and the block sum are a few hundred
+    # operations a chunk and are left out of the bound
+    kernels += [entry("ryser_walk_reduced",
+                      "superman_tpu_torch/csrc/ryser_walk.cu",
+                      "superman_tpu/ops/ryser_pallas.py:541",
+                      reduced_launches[tier], sparse36[tier]["err"],
+                      *reduced[tier], tier=tier,
+                      plain_ms_chunks=sparse36[tier]["plain_chunks"])
+                for tier in TIERS]
+    kernels.append(entry("ryser_walk_amp",
+                         "superman_tpu_torch/csrc/ryser_walk.cu",
+                         "superman_tpu/ops/ryser_pallas.py:541",
+                         amp_launches, amp_err, amp_ms, amp_plain_ms,
+                         amp_bnd, plain_ms_chunks=int(sampled_ids.numel())))
     kernels.append(entry("modp_walk", "superman_tpu_torch/csrc/modp_walk.cu",
                          "superman_tpu/ops/modp.py:413", mod_launches,
                          mod_err, mod_ms, mod_plain_ms, mod_bound))

@@ -98,12 +98,19 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(path)
     for fn in (lib.ryser_walk_df64, lib.ryser_walk_f32, lib.ryser_walk_f32k,
-               lib.ryser_walk_tf96):
+               lib.ryser_walk_tf96, lib.ryser_walk_amp):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = lib.ryser_walk_reduced
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     fn = lib.ryser_batch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

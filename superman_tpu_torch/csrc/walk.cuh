@@ -3,9 +3,11 @@
 // kernel (ryser_batch.cu).
 //
 // Replaces the walk bodies of superman_tpu/ops/ryser_pallas.py
-// (_walk_scalar / _walk_u16) for the tiers df64, f32, f32k and tf96 (the
-// arithmetic of superman_tpu/ops/tf96.py with them), and folds in their XLA
-// prologue (superman_tpu/ops/gray.py chunk_init).
+// (_walk_scalar / _walk_u16) for the tiers df64, f32, f32k, tf96 (the
+// arithmetic of superman_tpu/ops/tf96.py with them) and amp (_amp_terms),
+// folds in their XLA prologue (superman_tpu/ops/gray.py chunk_init), and
+// carries the sparse walk's epilogue: the per-chunk weight
+// (gray.py factor_weights, ryser_pallas.py _weight_out8).
 //
 // What it computes: the Nijenhuis-Wilf Gray-code Ryser sum is cut into
 // aligned chunks of 2^r steps.  A thread walks chunk l: it builds x from
@@ -25,6 +27,10 @@
 //          the accumulator a double-double sum (acc_merge).  The TPU
 //          carried this tier as float32 triples (~72 bits); the card has
 //          native double and FMA, so two doubles do better with less.
+//   kAmp   the diagnostic walk of calc="auto" (walk_chunk_amp): signs are
+//          dropped and two sums are kept, the amplitude |prod x| and the
+//          conditioned term prod(max(|x|, eps)) * sum(1 / max(|x|, eps));
+//          x, the products and both TwoSum accumulators IEEE double.
 //
 // What bounds it on this card: arithmetic of the tier's type, about n
 // multiplies for the product plus n adds for the x update per step, and no
@@ -43,7 +49,9 @@
 // is exact.  The tf96 tier does mix multiplies and adds (dd_mul), so every
 // operation of two_prod and dd_mul is an intrinsic (__dmul_rn, __dadd_rn,
 // __fma_rn), which the compiler never fuses or splits: the only FMA is the
-// one that TwoProd asks for, and its result is exact.
+// one that TwoProd asks for, and its result is exact.  The amp tier and the
+// chunk weight are written with the same intrinsics wherever a multiply
+// feeds an add.
 
 #pragma once
 
@@ -53,11 +61,12 @@ namespace walk {
 
 constexpr int kThreads = 128;
 
-enum Tier { kDf64 = 0, kF32 = 1, kF32k = 2, kTf96 = 3 };
+enum Tier { kDf64 = 0, kF32 = 1, kF32k = 2, kTf96 = 3, kAmp = 4 };
 
 template <int TIER> struct Real { using type = float; };
 template <> struct Real<kDf64> { using type = double; };
 template <> struct Real<kTf96> { using type = double; };
+template <> struct Real<kAmp> { using type = double; };
 
 // p[0] = product of p[0..S): fold the upper half onto the lower half,
 // p[i] *= p[i + ceil(S/2)], until one element is left.  The plain version
@@ -182,32 +191,59 @@ __device__ __forceinline__ void acc_merge(T& hi, T& lo, T bhi, T blo) {
   }
 }
 
+// Bit b of gray(l * 2^r), the Gray code of chunk l's base index, with
+// gl = l ^ (l >> 1): bit b >= r is gl >> (b - r), bit r-1 is l & 1, the
+// lower bits are 0.
+__device__ __forceinline__ unsigned long long base_gray_bit(
+    unsigned long long ul, unsigned long long gl, int b, int r) {
+  return b >= r ? (gl >> (b - r)) & 1ull : (b == r - 1 ? ul & 1ull : 0ull);
+}
+
+// The prologue (gray.chunk_init): x = x0 + the columns whose bit is set in
+// gray(l * 2^r), added in column order.
+template <int N_PAD, typename T>
+__device__ __forceinline__ void chunk_x(unsigned long long ul,
+                                        const T* __restrict__ x0,
+                                        const T* col_s, int ncol, int r,
+                                        T (&x)[N_PAD]) {
+#pragma unroll
+  for (int i = 0; i < N_PAD; ++i) x[i] = x0[i];
+  const unsigned long long gl = ul ^ (ul >> 1);
+  for (int b = 0; b < ncol; ++b) {
+    if (base_gray_bit(ul, gl, b, r)) {
+      const T* ck = col_s + b * N_PAD;
+#pragma unroll
+      for (int i = 0; i < N_PAD; ++i) x[i] += ck[i];
+    }
+  }
+}
+
+// Step m of a chunk: x += s * column k, k = ctz(m).  The x-sign s is +1 iff
+// bit k+1 of m is 0; at the mid step (k == r-1) it is the chunk parity
+// smid instead.
+template <int N_PAD, typename T>
+__device__ __forceinline__ void step_x(unsigned long long m, int r, T smid,
+                                       const T* col_s, T (&x)[N_PAD]) {
+  const int k = __ffsll((long long)m) - 1;
+  T s = ((m >> (k + 1)) & 1ull) ? T(-1) : T(1);
+  if (k == r - 1) s = smid;
+  const T* ck = col_s + k * N_PAD;
+#pragma unroll
+  for (int i = 0; i < N_PAD; ++i) x[i] += s * ck[i];
+}
+
 // Walk chunk l of 2^r steps.  x0 points at N_PAD values (padding rows 1),
 // col_s at the (n-1, N_PAD) column table in shared memory (padding 0).
+// Only the column count n-1 is read from n, so a factored walk hands in
+// the pack of fewer than n rows.
 template <int N_PAD, int TIER>
 __device__ __forceinline__ void walk_chunk(
     unsigned long long ul, const typename Real<TIER>::type* __restrict__ x0,
     const typename Real<TIER>::type* col_s, int n, int r,
     typename Real<TIER>::type& hi, typename Real<TIER>::type& lo) {
   using T = typename Real<TIER>::type;
-  const int ncol = n - 1;
-
-  // prologue (gray.chunk_init): x = x0 + the columns whose bit is set in
-  // gray(l * 2^r), added in column order; bit b >= r is gray(l) >> (b - r),
-  // bit r-1 is l & 1
   T x[N_PAD];
-#pragma unroll
-  for (int i = 0; i < N_PAD; ++i) x[i] = x0[i];
-  const unsigned long long gl = ul ^ (ul >> 1);
-  for (int b = 0; b < ncol; ++b) {
-    const unsigned long long bit =
-        b >= r ? (gl >> (b - r)) & 1ull : (b == r - 1 ? ul & 1ull : 0ull);
-    if (bit) {
-      const T* ck = col_s + b * N_PAD;
-#pragma unroll
-      for (int i = 0; i < N_PAD; ++i) x[i] += ck[i];
-    }
-  }
+  chunk_x<N_PAD, T>(ul, x0, col_s, n - 1, r, x);
   const T smid = (ul & 1ull) ? T(-1) : T(1);
 
   // m = 0: base index even, sign +1
@@ -221,14 +257,7 @@ __device__ __forceinline__ void walk_chunk(
   }
   const unsigned long long steps = 1ull << r;
   for (unsigned long long m = 1; m < steps; ++m) {
-    const int k = __ffsll((long long)m) - 1;
-    // x-sign +1 iff bit k+1 of m is 0; at the mid step (k == r-1) it is
-    // the chunk parity instead
-    T s = ((m >> (k + 1)) & 1ull) ? T(-1) : T(1);
-    if (k == r - 1) s = smid;
-    const T* ck = col_s + k * N_PAD;
-#pragma unroll
-    for (int i = 0; i < N_PAD; ++i) x[i] += s * ck[i];
+    step_x<N_PAD, T>(m, r, smid, col_s, x);
     // term sign (-1)^m
     if constexpr (TIER == kTf96) {
       const dd t = tree_prod_dd<N_PAD>(x);
@@ -241,6 +270,111 @@ __device__ __forceinline__ void walk_chunk(
       acc_add<TIER, T>(hi, lo, (m & 1ull) ? -t : t);
     }
   }
+}
+
+// ---- the amp tier
+
+// Within-line clamp of the conditioned term: |x| below 2^-45 (at the unit
+// row scale the engines give every row) reads as 2^-45, so a line's
+// condition saturates at 2^45.  The reference's figure; it walked x as a
+// float32 pair to resolve crossings this far, a double resolves further.
+constexpr double kAmpEps = 0x1p-45;
+
+// p[0] = product (MUL) or sum of p[0..S) in fold_prod's order, every
+// operation an intrinsic: the result feeds an add (TwoSum) that nvcc could
+// otherwise contract the last multiply into.
+template <int S, int N, bool MUL>
+__device__ __forceinline__ void fold_rn(double (&p)[N]) {
+  if constexpr (S > 1) {
+    constexpr int NS = (S + 1) / 2;
+#pragma unroll
+    for (int i = 0; i < S / 2; ++i)
+      p[i] = MUL ? __dmul_rn(p[i], p[i + NS]) : __dadd_rn(p[i], p[i + NS]);
+    fold_rn<NS, N, MUL>(p);
+  }
+}
+
+// One step's two terms: amp = prod |x_i| and
+// cond = prod max(|x_i|, eps) * sum_{i < n} 1 / max(|x_i|, eps), which is
+// sum_i prod_{j != i} of the clamped |x_j|: the weight of the walk's
+// within-line rounding error (a line at zero still contributes the product
+// of the others).  The padding rows (x = 1) multiply as identities and are
+// left out of the reciprocal sum: the kernel knows n, so it computes the
+// host formula (ops/ryser.py amp_cond_walk_log2) and not the reference
+// kernel's overcount of n_pad - n.  The products run in double: the rows
+// are scaled to |x| <~ 1, and a product of 32-64 such values, some clamped
+// to 2^-45, falls below float32's 2^-149 long before it leaves double's
+// range.  The reciprocal is IEEE (__drcp_rn, correctly rounded, the plain
+// version's 1 / x); products and the sum fold in tree_prod's order.
+template <int N_PAD>
+__device__ __forceinline__ void amp_terms(const double (&x)[N_PAD], int n,
+                                          double& amp, double& cond) {
+  double p[N_PAD], pc[N_PAD], inv[N_PAD];
+#pragma unroll
+  for (int i = 0; i < N_PAD; ++i) {
+    p[i] = fabs(x[i]);
+    pc[i] = fmax(p[i], kAmpEps);
+    inv[i] = i < n ? __drcp_rn(pc[i]) : 0.0;
+  }
+  fold_rn<N_PAD, N_PAD, true>(p);
+  fold_rn<N_PAD, N_PAD, true>(pc);
+  fold_rn<N_PAD, N_PAD, false>(inv);
+  amp = p[0];
+  cond = __dmul_rn(pc[0], inv[0]);
+}
+
+// The amp walk of chunk l: the steps of walk_chunk, the two terms of each
+// added without their sign into two TwoSum accumulators (hi the sum, lo
+// the running compensation, as in kF32k).  w = [amp hi, amp lo, cond hi,
+// cond lo].
+template <int N_PAD>
+__device__ __forceinline__ void walk_chunk_amp(
+    unsigned long long ul, const double* __restrict__ x0, const double* col_s,
+    int n, int r, double (&w)[4]) {
+  double x[N_PAD];
+  chunk_x<N_PAD, double>(ul, x0, col_s, n - 1, r, x);
+  const double smid = (ul & 1ull) ? -1.0 : 1.0;
+  amp_terms<N_PAD>(x, n, w[0], w[2]);
+  w[1] = w[3] = 0.0;
+  const unsigned long long steps = 1ull << r;
+  for (unsigned long long m = 1; m < steps; ++m) {
+    step_x<N_PAD, double>(m, r, smid, col_s, x);
+    double a, c, s, e;
+    amp_terms<N_PAD>(x, n, a, c);
+    two_sum(w[0], a, s, e);
+    w[0] = s;
+    w[1] += e;
+    two_sum(w[2], c, s, e);
+    w[2] = s;
+    w[3] += e;
+  }
+}
+
+// ---- the sparse walk's epilogue
+
+// The weight of chunk l in a factored walk: the product over the nf
+// factored rows z of x_z at the chunk's base, x_z = fx0[z] + the entries
+// fcol_s[b * nf + z] of the columns b whose bit is set in gray(l * 2^r),
+// added in column order (gray.factor_weights).  A factored row is constant
+// inside a chunk, so its x at the base is its x at every step.  nf is a
+// runtime count: the rows are looped over, not held in registers.  The
+// weight is a double-double: the first row's x, then a dd_mul by each
+// further row's (x, 0); on integer matrices every x is exact, and the
+// chain errs by a few 2^-106 a row (the reference chained float32-pair
+// products, ~2^-48).
+__device__ __forceinline__ dd chunk_weight(unsigned long long ul,
+                                           const double* fx0_s,
+                                           const double* fcol_s, int nf,
+                                           int ncol, int r) {
+  const unsigned long long gl = ul ^ (ul >> 1);
+  dd w = {1.0, 0.0};
+  for (int z = 0; z < nf; ++z) {
+    double xz = fx0_s[z];
+    for (int b = 0; b < ncol; ++b)
+      if (base_gray_bit(ul, gl, b, r)) xz = __dadd_rn(xz, fcol_s[b * nf + z]);
+    w = z == 0 ? dd{xz, 0.0} : dd_mul(w, dd{xz, 0.0});
+  }
+  return w;
 }
 
 // The block's dynamic shared memory as an array of T.

@@ -1,15 +1,21 @@
 """Orchestration: dispatch a (matrix, flags) pair to an engine.
 
 Port of ``superman_tpu/drivers/runner.py`` for what the port carries so
-far: the dense exact engine (ops/ryser.py) in the df64, f32, f32k, tf96 and
-f64 tiers, the Glynn engine (ops/glynn.py, perman_algo="glynn") in the same
-tiers, and the modular CRT exact engine (ops/exact.py, calc="exact").
-Every other feature the flags can ask for raises NotImplementedError
-naming the ROADMAP item that brings it; none is ignored, so no result
-differs quietly from what the JAX package would return.
+far: the exact engine (ops/ryser.py), dense and sparse (sparse=True, a
+SkipPer id, or by itself on clearly sparse matrices), in the df64, f32,
+f32k, tf96 and f64 tiers; the Glynn engine (ops/glynn.py,
+perman_algo="glynn") in the same tiers; the modular CRT exact engine
+(ops/exact.py, calc="exact"); and the accuracy-adaptive ladder over them
+(calc="auto").  Every other feature the flags can ask for raises
+NotImplementedError naming the ROADMAP item that brings it; none is
+ignored, so no result differs quietly from what the JAX package would
+return.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -20,8 +26,6 @@ from ..core.result import Result
 
 #: ROADMAP.md Queue 1 items that carry the features not ported yet
 ROADMAP_ITEMS = {
-    5: "sparse engine",
-    6: 'calc="auto" ladder',
     9: "estimators",
     10: "drivers, prep and rectangular",
     11: "multi-GPU and scheduling",
@@ -39,17 +43,18 @@ def run(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     # resolve the reference algorithm id up front (the same table as the
     # CLI); unknown ids raise here
     beh = id_behavior(flags.perman_algo, flags.sparse, flags.approximation)
+    # never mutate the caller's Flags: resolve into a private copy
+    if beh["sparse"] and not flags.sparse:
+        flags = dataclasses.replace(flags, sparse=True, dense=False)
     # calc="exact": modular-CRT integer permanent (ops/exact.py).  It
     # folds degree-1/2 lines in exact bigint arithmetic itself and must
-    # not run under the sparse, scaling or compression drivers (those
-    # round in f64), so it is routed before their guards.
+    # not run under the scaling or compression drivers (those round in
+    # f64), so it is routed before their guards.
     if flags.resolved_calc() == "exact" and not flags.approximation:
         from ..ops.exact import perman_exact
         return perman_exact(dense, flags, device)
     if flags.approximation:
         raise unported("approximation", 9)
-    if beh["sparse"]:
-        raise unported("the sparse walk (sparse=True or a SkipPer id)", 5)
     if beh["hybrid"] or flags.hybrid or flags.checkpoint_path:
         raise unported("the hybrid scheduler and checkpointing", 11)
     if beh["multi"] or (flags.mesh_shape is not None
@@ -70,14 +75,302 @@ def run_algo(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
         raise unported("the native CPU engine (cpu=True, calc='quad')", 12)
     if flags.dm_prune:
         raise unported("Dulmage-Mendelsohn pruning", 10)
+    from ..prep.orderings import apply_preprocessing
+    dm = apply_preprocessing(dense, flags.preprocessing) \
+        if flags.sparse else dense
+
     if calc == "auto":
-        raise unported('calc="auto"', 6)
+        return _run_auto(dm, flags, device)
+
     if str(flags.perman_algo) == "glynn":
         # independent second exact engine (cross-algorithm oracle)
         from ..ops.glynn import glynn_exact
-        res = glynn_exact(dense, flags, device)
-    else:
-        from ..ops.ryser import ryser_exact
-        res = ryser_exact(dense, flags, device)
+        res = glynn_exact(dm, flags, device)
+        flags.algo_name = res.algo_name
+        return res
+
+    # dead-chunk pruning (the SkipPer of the chunked walk) happens inside
+    # ryser_exact, which owns the chunk plan
+    from ..ops.ryser import ryser_exact
+    res = ryser_exact(dm, flags, device)
+    if flags.sparse:
+        res.algo_name = res.algo_name.replace("ryser", "sparyser")
     flags.algo_name = res.algo_name
     return res
+
+
+def _amp_probe_log2(a: np.ndarray, samples: int = 256,
+                    seed: int = 0xA3) -> float:
+    """log2 of (an estimate of) sum_m |prod_i x_i(m)| over the Ryser walk.
+
+    Monte-Carlo cancellation-amplitude probe: sample random Gray indices
+    m, evaluate log2|prod_i x_i(m)| exactly on the host (O(n^2) each),
+    and scale the sample mean |term| by the 2^(n-1) index count.  The
+    ratio of this to |per| is the walk's error AMPLIFICATION, which the
+    f32k/df64 difference under-measures when per-term rounding errors
+    are correlated across lanes (degenerate matrices); this probe
+    measures the amplitude itself, so correlation cannot hide it.
+    Heavy-tailed term distributions bias the sample
+    mean low, so callers should keep a few bits of slack.
+    """
+    a = np.asarray(a, dtype=np.float64)
+    n = a.shape[0]
+    rng = np.random.default_rng(seed)
+    x0 = a[:, -1] - a.sum(axis=1) / 2.0
+    cols = a[:, : n - 1]                                 # (n, n-1)
+    m = rng.integers(0, 1 << (n - 1), size=samples, dtype=np.uint64)
+    g = m ^ (m >> np.uint64(1))
+    bits = ((g[:, None] >> np.arange(n - 1, dtype=np.uint64)) &
+            np.uint64(1)).astype(np.float64)             # (S, n-1)
+    x = x0[None, :] + bits @ cols.T                      # (S, n)
+    with np.errstate(divide="ignore"):
+        logt = np.where(np.all(x != 0, axis=1),
+                        np.log2(np.abs(x)).sum(axis=1), -np.inf)
+    finite = logt[np.isfinite(logt)]
+    if finite.size == 0:
+        return -np.inf
+    mx = float(finite.max())
+    log_mean = mx + float(np.log2(np.exp2(finite - mx).sum() / samples))
+    return log_mean + (n - 1)
+
+
+def _cond_probe_log2(a: np.ndarray, samples: int = 256,
+                     seed: int = 0xA3) -> float:
+    """log2 of (an estimate of) the WITHIN-LINE conditioned amplitude
+    sum_m sum_i S_i * prod_{j!=i} |x_j(m)| over the Ryser walk, with
+    S_i = |x0_i| + sum_k |col_k(i)| (row i's x-amplitude bound).
+
+    The walk's x-vector carries absolute rounding error ~S_i * 2^-m_x
+    per row (m_x = the x-update mantissa: 48 for the df64 pair, absent
+    only on exact-f32 integer storage); a line passing near zero
+    mid-walk turns that into per-term error prod_{j!=i}|x_j| * S_i *
+    2^-m_x — invisible to the plain amplitude probe (measured 2^27
+    under-prediction on pores_1_r).  Same sampling
+    (and the same heavy-tail low bias — callers keep slack) as
+    _amp_probe_log2; rows are clamped at S_i * 2^-50 so a line AT zero
+    still contributes its residual error term.
+    """
+    a = np.asarray(a, dtype=np.float64)
+    n = a.shape[0]
+    rng = np.random.default_rng(seed)
+    x0 = a[:, -1] - a.sum(axis=1) / 2.0
+    cols = a[:, : n - 1]                                 # (n, n-1)
+    S = np.abs(x0) + np.abs(cols).sum(axis=1)
+    if not np.all(S > 0):
+        return float("-inf")                             # empty row
+    m = rng.integers(0, 1 << (n - 1), size=samples, dtype=np.uint64)
+    g = m ^ (m >> np.uint64(1))
+    bits = ((g[:, None] >> np.arange(n - 1, dtype=np.uint64)) &
+            np.uint64(1)).astype(np.float64)             # (S, n-1)
+    x = x0[None, :] + bits @ cols.T                      # (S, n)
+    axc = np.maximum(np.abs(x), S[None, :] * 2.0 ** -50)
+    logc = (np.log2(axc).sum(axis=1)
+            + np.log2((S[None, :] / axc).sum(axis=1)))
+    finite = logc[np.isfinite(logc)]
+    if finite.size == 0:
+        return float("-inf")
+    mx = float(finite.max())
+    log_mean = mx + float(np.log2(np.exp2(finite - mx).sum() / samples))
+    return log_mean + (n - 1)
+
+
+def _run_auto(dm: DenseMatrix, flags: Flags,
+              device: torch.device) -> Result:
+    """Accuracy-adaptive calc (calc="auto", target ~1e-9 relative).
+
+    The f32k and df64 tiers share the same error AMPLIFICATION (the
+    cancellation ratio sum|term| / |sum term|); their difference measures
+    f32k's realized error (~amp * 2^-24), which predicts df64's
+    (~amp * 2^-48).  When the prediction exceeds the target, escalate:
+    tf96 (~amp * 2^-70) where the tier is REAL — integer-exact storage
+    (f32-exact x updates) or the n < 19 host long-double walk — and the
+    exact CRT engine otherwise / beyond.  The ladder, its constants and
+    its decisions are the JAX package's, so both packages report the same
+    rung on the same matrix; the card's df64 tier walks x in native double
+    (2^-53, not the 2^-48 of an f32 pair), which the model's 48 bits only
+    overstate.
+
+    Two measured blind spots shape the model:
+    * degenerate matrices correlate per-term rounding across lanes, so
+      the f32k/df64 difference under-measures amplification — the
+      direct amplitude probe (_amp_probe_log2) closes it;
+    * real-valued (non-exact-storage) walks carry x as an f32 pair
+      whose ~2^-48 update error is amplified by WITHIN-LINE
+      cancellation (a line crossing zero mid-walk) beyond the plain
+      amplitude — the conditioned probe/walk (_cond_probe_log2,
+      ops/ryser.amp_cond_walk_log2) closes that (pores_1_r once
+      self-reported 3.9e-6 against a true 3.2e9).
+      On such matrices tf96 would silently fall back to df64 inside
+      ryser_exact (its product tree needs exact-f32 x), so the float
+      ladder STOPS at df64 and escalation goes straight to exact.
+    """
+    from ..ops.ryser import ryser_exact, _exact_storage
+
+    TARGET = float(flags.auto_target)
+    n = int(dm.mat.shape[0])
+    exactish = n < 19 or _exact_storage(dm)
+    res = ryser_exact(dm, dataclasses.replace(flags, calc="df64"), device)
+    scale = max(abs(res.permanent), 1e-300)
+    # correlated-rounding guard: amplification measured directly.
+    # amp_l2 can exceed 1000 bits (huge-entry cancellation-bound inputs
+    # — the probe's whole reason to exist), where a bare 2.0**e would
+    # raise OverflowError instead of escalating: saturate to inf.
+    def _exp2_sat(e: float) -> float:
+        return math.inf if e > 1023.0 else 2.0 ** e
+
+    a64 = np.asarray(dm.mat, dtype=np.float64)
+    lscale = float(np.log2(scale))
+    amp_l2 = _amp_probe_log2(a64) - lscale
+    # stat_l2: the l2 statistic that prices the df64 walk — the plain
+    # amplitude on exactish storage (x updates exact), the conditioned
+    # amplitude otherwise (x-pair update error dominates)
+    stat_l2 = amp_l2
+    if not exactish and np.isfinite(amp_l2):
+        cw = _cond_probe_log2(a64)
+        stat_l2 = max(amp_l2, cw - lscale) if np.isfinite(cw) else amp_l2
+    probe_err = _exp2_sat(stat_l2 - 48.0) if np.isfinite(stat_l2) else 0.0
+    # happy path: the probe alone predicts
+    # df64's error; when it sits 3+ bits under the target the f32k
+    # companion walk (the other ~1x of walk cost) cannot change the
+    # decision — skip it.  The probe's heavy-tail low bias is why the
+    # margin is TARGET/8, not TARGET; escalation candidates always run
+    # the companion measurement.  A NON-FINITE amp (every probe sample
+    # hit a zero factor -> -inf, or a term overflowed f64 -> +inf) is a
+    # FAILED measurement, not a zero-error prediction — such inputs must
+    # fall through to the companion walk that drove escalation before
+    # this fast path existed.
+    if np.isfinite(stat_l2) and probe_err < TARGET / 8.0:
+        res.meta["auto"] = {"escalated": None,
+                            "df64_err_est": float(f"{probe_err:.2e}"),
+                            "err_est": float(f"{probe_err:.2e}"),
+                            "probe_only": True}
+        return res
+    fast = ryser_exact(dm, dataclasses.replace(flags, calc="f32k"), device)
+    diff_rel = abs(res.permanent - fast.permanent) / scale
+    # f32k error ~ diff_rel; df64 error ~ diff_rel * 2^-24
+    est_df64_err = max(diff_rel * 2.0 ** -24, probe_err)
+    amp_walk_l2 = cond_walk_l2 = None
+    if est_df64_err > TARGET and n <= 41:
+        # escalation candidate: replace the SAMPLED statistics with the
+        # EXACT amp+cond walk (ops/ryser.amp_cond_walk_log2, the amp
+        # tier of the walk kernel).  The sampled probe's heavy-tail bias
+        # measured 55 bits low on pores_1_r, which made the
+        # low-confidence bound below dishonest by 2^55.  n <= 41 is the
+        # reference's limit for the full dense walk; larger cores keep
+        # the sampled floor (documented bias).  A +inf walk
+        # (unstabilizable after 4 shift retries — the most
+        # cancellation-bound inputs) saturates the estimate to inf so
+        # the ladder escalates conservatively, never falling back to the
+        # known-dishonest sampled bound.
+        from ..ops.ryser import amp_walk_log2, amp_cond_walk_log2
+        if exactish:
+            aw, cw = amp_walk_log2(a64, device), None
+        else:
+            aw, cw = amp_cond_walk_log2(a64, device)
+        if aw == float("inf"):
+            amp_l2 = stat_l2 = float("inf")
+            est_df64_err = float("inf")
+        elif np.isfinite(aw):
+            amp_walk_l2 = aw - lscale
+            amp_l2 = amp_walk_l2
+            stat_l2 = amp_l2
+            if cw is not None and np.isfinite(cw):
+                cond_walk_l2 = cw - lscale
+                stat_l2 = max(stat_l2, cond_walk_l2)
+            est_df64_err = max(diff_rel * 2.0 ** -24,
+                               _exp2_sat(stat_l2 - 48.0))
+    if est_df64_err <= TARGET:
+        res.meta["auto"] = {"escalated": None,
+                            "df64_err_est": float(f"{est_df64_err:.2e}"),
+                            "err_est": float(f"{est_df64_err:.2e}")}
+        res.time += fast.time
+        return res
+
+    # ---- escalation: df64 is predicted to miss the target ----
+    def _exact_price():
+        """(seconds, feasible) of the exact CRT engine for this matrix —
+        the ladder's last rung AND the price-of-truth attached to every
+        flagged result.  The port always has a device to walk on, so
+        the rung is feasible whenever its price fits the budget."""
+        from ..ops.exact import exact_cost_estimate
+        budget = float(flags.auto_exact_budget_s)
+        try:
+            secs, _, _ = exact_cost_estimate(a64, budget_s=budget)
+        except Exception:
+            secs = float("inf")
+        return secs, secs < budget
+
+    def _run_exact(est_tf96_err):
+        from ..ops.exact import perman_exact
+        ex = perman_exact(dm, flags, device)
+        ex.meta["auto"] = {
+            "escalated": "exact",
+            "df64_err_est": float(f"{est_df64_err:.2e}"),
+            "tf96_err_est": float(f"{est_tf96_err:.2e}")}
+        ex.time += res.time + fast.time
+        return ex
+
+    # tf96's predicted error from the same amplification measurements
+    # (eff. mantissa ~70 bits vs df64's ~48) — only where the tier is
+    # real; on non-exactish storage there is NO float tier above df64
+    if exactish:
+        est_tf96_err = max(diff_rel * 2.0 ** -46,
+                           _exp2_sat(amp_l2 - 70.0) if np.isfinite(amp_l2)
+                           else 0.0)
+    else:
+        est_tf96_err = float("inf")
+    exact_secs = None
+    if est_tf96_err > TARGET:
+        # the whole float ladder is predicted to miss: the last rung is
+        # the exact CRT engine (real-matrix cancellation can sit 100s of
+        # bits above ANY float tier — measured 2^280 on pores_1_r.mtx,
+        # pinned in EXACT_KNOWN.jsonl) — when its price fits the budget.
+        # Otherwise return the best float tier FLAGGED with its honest
+        # bound and the price of truth: a self-reported error bound
+        # beats silent noise.
+        exact_secs, feasible = _exact_price()
+        if feasible:
+            return _run_exact(est_tf96_err)
+    if not exactish:
+        # no tf96 rung here: the df64 result IS the best float tier.
+        # Its bound is already relative to its own magnitude.
+        est_rep = est_df64_err
+        res.meta["auto"] = {"escalated": None, "ladder": "df64_max",
+                            "df64_err_est": float(f"{est_df64_err:.2e}"),
+                            "err_est": float(f"{est_rep:.2e}")}
+        if amp_walk_l2 is not None:
+            res.meta["auto"]["amp_walk_l2"] = round(amp_walk_l2, 1)
+        if cond_walk_l2 is not None:
+            res.meta["auto"]["cond_walk_l2"] = round(cond_walk_l2, 1)
+        if est_rep > TARGET:
+            res.meta["auto"]["low_confidence"] = True
+            if exact_secs is not None and np.isfinite(exact_secs):
+                res.meta["auto"]["exact_feasible_s"] = round(exact_secs, 1)
+        res.time += fast.time
+        return res
+    hi = ryser_exact(dm, dataclasses.replace(flags, calc="tf96"), device)
+    # The bound so far is relative to the DF64 result's magnitude.
+    # On cancellation-bound inputs that scale is itself noise far
+    # above both the truth and the tf96 result, so a bound left on
+    # the df64 scale understates the error relative to the VALUE
+    # BEING RETURNED by exactly |df64|/|tf96|.  Renormalize the
+    # self-reported bound to the returned value.
+    est_rep = est_tf96_err * scale / max(abs(hi.permanent), 1e-300)
+    if est_rep > TARGET and exact_secs is None:
+        # the renormalized bound can exceed the pre-walk df64-scale one
+        # by orders; re-check the exact budget before returning a
+        # flagged result the user could have had exactly
+        exact_secs, feasible = _exact_price()
+        if feasible:
+            return _run_exact(est_tf96_err)
+    hi.meta["auto"] = {"escalated": "tf96",
+                       "df64_err_est": float(f"{est_df64_err:.2e}"),
+                       "err_est": float(f"{est_rep:.2e}")}
+    if amp_walk_l2 is not None:
+        hi.meta["auto"]["amp_walk_l2"] = round(amp_walk_l2, 1)
+    if est_rep > TARGET:
+        hi.meta["auto"]["low_confidence"] = True
+        if exact_secs is not None and np.isfinite(exact_secs):
+            hi.meta["auto"]["exact_feasible_s"] = round(exact_secs, 1)
+    hi.time += res.time + fast.time
+    return hi

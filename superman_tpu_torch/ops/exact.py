@@ -216,6 +216,46 @@ def _log2_bound(m: List[List[int]]) -> float:
     return best
 
 
+#: what one calc="exact" call costs beyond its walks, in seconds: dyadic
+#: lift, folds, bound, packing, one launch and one copy back per prime and
+#: the CRT.  Measured whole on a core too small for its walks to count:
+#: n=20, 4 walks of 2^19 steps, 5.2 ms (NVIDIA H100 80GB HBM3, 700.00 W)
+_EXACT_FIXED_S = 0.005
+
+#: what planning a core costs on its first call (modp.core_plan: candidate
+#: orderings, then the exact bigint live mask), in seconds, per
+#: 2^(n-1) / 2^31 of index space: 24 ms at n=32 (the same card's host)
+_PLAN_S_N32 = 0.024
+
+
+def exact_cost_estimate(a: np.ndarray,
+                        budget_s: float = None) -> Tuple[float, int, int]:
+    """(seconds, nprimes, core_n) for perman_exact_fraction on one card.
+
+    Every core with n >= 2 walks on the device: the price is the fixed
+    cost of a call, the plan, and (31-bit prime count + 1) walks of the
+    plan's live steps at the Z_p kernel's measured rate
+    (modp.card_cost_estimate).
+
+    budget_s: the caller's acceptance threshold, if it has one.  Pricing
+    the walks computes the real pruned plan (host bigint liveness over up
+    to 2^26-entry gray masks), so when the fixed cost alone is over the
+    budget it is skipped: the answer ("too expensive") is already known.
+    """
+    m, _ = dyadic_int_matrix(a)
+    core, mult = _fold_lines([row[:] for row in m])
+    if mult == 0 or not core:
+        return 0.0, 0, 0
+    n = len(core)
+    bits = _log2_bound(core) + 3
+    from .modp import PRIME_CEIL, card_cost_estimate
+    npr = max(1, math.ceil(bits / math.log2(PRIME_CEIL))) + 1
+    secs = _EXACT_FIXED_S + _PLAN_S_N32 * 2.0 ** (n - 32)
+    if budget_s is not None and budget_s <= secs:
+        return secs, npr, n         # already over budget; skip the plan
+    return secs + card_cost_estimate(core, bits), npr, n
+
+
 def perman_exact_fraction(a: np.ndarray, device: torch.device,
                           threads: int = 0, log=None,
                           engine: Optional[str] = None,

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .df64 import join_f64
+from .tf96 import dd_mul
 
 #: streaming multiprocessors of an H100 SXM; the planner's default when it
 #: is not handed a card (the CPU runs plan exactly as that card would)
@@ -28,6 +29,14 @@ DEFAULT_SMS = 132
 #: of its best over 2^13..2^20 chunks (2^16 and fewer leave SMs idle)
 #: while the per-chunk output stays 2 MB (NVIDIA H100 80GB HBM3, 700 W)
 RESIDENT_CHUNKS_PER_SM = 512
+#: chunks per SM that a pruned list is split up to before the reduced
+#: kernel walks it.  A pruned list has any length, so its last wave of
+#: blocks (an SM holds 5 of df64 at n_pad=32) is seldom full, and with few
+#: waves that costs much: the n=36 sparse plan of chip_smoke.py (5.64e9
+#: live steps, df64) walks in 40.2 ms as 86,112 chunks (652 an SM), 35.1 as
+#: 172,224, 32.6 as 344,448, 31.4 as 688,896 (5,219 an SM) and no faster
+#: beyond (tools/chunk_cost.py; NVIDIA H100 80GB HBM3, 700.00 W)
+SPLIT_CHUNKS_PER_SM = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,10 +146,64 @@ def chunk_init(chunk_ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
     return x, sign_mid
 
 
+def factor_weights(chunk_ids: torch.Tensor, fx0: torch.Tensor,
+                   fcols: torch.Tensor, n: int, r: int):
+    """Per-chunk weights of a factored walk: the product over the factored
+    rows of their x at the chunk's base.  The plain version of the
+    kernel's chunk_weight (csrc/walk.cuh) and the counterpart of
+    ``superman_tpu.ops.gray.factor_weights``.
+
+    chunk_ids: (C,) int64; a sentinel id < 0 gets weight 0.
+    fx0:       (nf,) float64, the factored rows' x0 (pack_matrix of those
+               rows with n_pad = nf: no padding rows).
+    fcols:     (n-1, nf) float64, their columns.
+    Returns (hi, lo), each (C,) float64: the weight as a double-double,
+    the first row's x, then a dd_mul by each further row's (x, 0), the
+    kernel's order.  A factored row is constant inside a chunk (it has no
+    entry in the columns below r), so the x that chunk_init builds for
+    the base is its x at every step.  With no factored row the weight is
+    1."""
+    x, _ = chunk_init(chunk_ids, fx0, fcols, n, r)           # (C, nf)
+    zero = torch.zeros(chunk_ids.shape, dtype=fx0.dtype, device=fx0.device)
+    if fx0.shape[0] == 0:
+        hi, lo = zero + 1.0, zero
+    else:
+        hi, lo = x[:, 0], zero
+        for z in range(1, fx0.shape[0]):
+            hi, lo = dd_mul(hi, lo, x[:, z], zero)
+    dead = chunk_ids < 0
+    return torch.where(dead, 0.0, hi), torch.where(dead, 0.0, lo)
+
+
+def split_shift(count: int, r: int, want: int) -> int:
+    """log2 of the pieces each of `count` chunks of 2^r steps is cut into
+    so that there are at least `want` of them: the least such shift, at
+    most r - 1, and 0 for an empty or already sufficient list."""
+    if not 0 < count < want:
+        return 0
+    return min(int(r) - 1, (-(-want // count) - 1).bit_length())
+
+
+def split_chunks(ids: torch.Tensor, r: int, want: int):
+    """Split each chunk of 2^r steps into 2^shift aligned chunks of
+    2^(r - shift) (shift from split_shift), which cover the same Gray
+    indices, so that a pruned list of fewer than `want` live chunks still
+    fills the card's thread slots.  A row that is constant inside a chunk
+    at r is constant at every smaller r, so pruning and factoring stay
+    valid.  ids: (C,) int64 without sentinels.  Returns (ids, r)."""
+    shift = split_shift(ids.numel(), r, want)
+    if shift:
+        sub = torch.arange(1 << shift, dtype=torch.int64, device=ids.device)
+        ids = ((ids[:, None] << shift) | sub).reshape(-1)
+    return ids, int(r) - shift
+
+
 def pack_matrix(a: np.ndarray, n_pad: int):
     """Host-side packing: (x0, cols) float64 with padding rows that are
     multiplicative identities (x0 pad = 1, column pad = 0).
-    x0 is (n_pad,), cols is (n-1, n_pad)."""
+    x0 is (n_pad,), cols is (n-1, n_pad).  a may be a (rows, n) row subset
+    of an order-n matrix: the factored walk packs its alive rows and its
+    factored rows apart."""
     a = np.asarray(a, dtype=np.float64)
     rows, n = a.shape
     x0 = np.ones(n_pad, dtype=np.float64)
@@ -150,16 +213,23 @@ def pack_matrix(a: np.ndarray, n_pad: int):
     return x0, cols
 
 
-def from_jax_pack(x0_pair, cols_pair):
+def from_jax_pack(x0_pair, cols_pair, rows=None):
     """The JAX package's f32-pair pack as this package's float64 pack:
     hi + lo, exact.  It takes the Ryser pack (``superman_tpu.ops.gray.
     pack_matrix``) and the Glynn pack (``superman_tpu.ops.glynn.
     _pack_glynn``), which share one layout: x0_pair (2, n_pad) and
     cols_pair (2, n-1, n_pad) become x0 (n_pad,) and cols (n-1, n_pad),
     what gray.pack_matrix and glynn._pack_glynn make here.
+    rows: keep the first `rows` rows only.  The reference pads its factor
+    pack (fx0_pair, fcols_pair) to a multiple of 8 with identity rows;
+    the port's factor pack has none, so the sparse walk's factor pack is
+    read with rows=len(factor_rows).
     A permanent engine has no weights; this is the one input format the
     two packages must agree on, so both walk identical inputs."""
     x0_pair = np.asarray(x0_pair)
     cols_pair = np.asarray(cols_pair)
-    return (join_f64(x0_pair[0], x0_pair[1]),
-            join_f64(cols_pair[0], cols_pair[1]))
+    x0 = join_f64(x0_pair[0], x0_pair[1])
+    cols = join_f64(cols_pair[0], cols_pair[1])
+    if rows is not None:
+        x0, cols = x0[:rows], np.ascontiguousarray(cols[:, :rows])
+    return x0, cols

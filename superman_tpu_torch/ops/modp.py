@@ -97,15 +97,9 @@ def _walk_sum(x0, cols, p: int, device: torch.device, n: int, ids=None,
         ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int64),
                                 device=device)
         # a pruned plan may leave fewer chunks than the card has thread
-        # slots: split each live chunk at r into 2^shift aligned chunks
-        # at r - shift, which cover the same Gray indices
-        want = sms * gray.RESIDENT_CHUNKS_PER_SM
-        if 0 < ids_t.numel() < want:
-            shift = min(int(r) - 1, (-(-want // ids_t.numel()) - 1)
-                        .bit_length())
-            sub = torch.arange(1 << shift, dtype=torch.int64, device=device)
-            ids_t = ((ids_t[:, None] << shift) | sub).reshape(-1)
-            r = int(r) - shift
+        # slots: split them into aligned sub-chunks
+        ids_t, r = gray.split_chunks(ids_t, r,
+                                     sms * gray.RESIDENT_CHUNKS_PER_SM)
     if ids_t.numel() >= 1 << 32:
         raise ValueError(f"{ids_t.numel()} chunks: the int64 residue sum "
                          f"needs fewer than 2^32")
@@ -281,6 +275,18 @@ def core_plan(core, *, giters: float = None):
         _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
     _PLAN_CACHE[key] = out
     return out
+
+
+def card_cost_estimate(core, bound_bits: float) -> float:
+    """Rough seconds of the walks of the full CRT run of this core on one
+    card: (31-bit primes for bound_bits, plus the verifier) times the live
+    steps of the plan the run would walk, at the Z_p kernel's measured
+    rate.  Computes (and caches) the real pruned plan."""
+    n = len(core)
+    nprimes = max(1, math.ceil(bound_bits / math.log2(PRIME_CEIL))) + 1
+    pl_ = core_plan(core)
+    live = (1 << max(0, n - 1)) if pl_ is None else (len(pl_[1]) << pl_[2])
+    return nprimes * live / (K3_GITERS * 1e9)
 
 
 # ------------------------------------------------------------ the driver

@@ -1,8 +1,8 @@
-"""Chunk-level dead-range pruning: the planning half.
+"""Chunk-level dead-range pruning: the SkipPer of the chunked walk.
 
-Port of the parts of ``superman_tpu/ops/pruning.py`` that the exact
-engine's planner (ops/modp.core_plan) needs; ``live_chunks`` and
-``chunk_factors`` come with the sparse walk.
+Port of ``superman_tpu/ops/pruning.py``: the planner of the sparse walk
+(ops/ryser.py) and of the exact engine (ops/modp.core_plan), the live
+chunk list and the host version of the factored rows' weights.
 
 A row z is *constant* within every aligned chunk of 2**r indices iff it
 has no nonzero among columns 0..r-1 (only those columns toggle inside a
@@ -27,7 +27,25 @@ import dataclasses
 
 import numpy as np
 
+from ..core.matrix import DenseMatrix
 from . import gray
+
+#: what a chunk costs a walk on the card beyond its 2^r steps, in seconds:
+#: its id going up from the host (8 bytes), the prologue that builds x from
+#: its Gray bits, its weight, its share of a block pair coming down.
+#: Measured by tools/chunk_cost.py on the n=36 sparse plan of
+#: chip_smoke.py: the same 5.64e9 live steps walked as 86,112 to
+#: 22,044,672 chunks (every level that fills the card), the slope of the
+#: wall time over the chunk count: 1.08 ns a chunk in df64, 1.24 ns in
+#: tf96; the kernel alone shows none (NVIDIA H100 80GB HBM3, 700.00 W)
+C_CHUNK_S = 1.1e-9
+
+#: what the exact dead mask (dead_mask_gray, then the live ids) costs the
+#: host per entry of the gray space, 2^(n-1-r) entries, in seconds.
+#: Measured by tools/chunk_cost.py on the same plan's matrix, host clock of
+#: the card's machine: 24 ns an entry at 2^17 entries, 14.7 at 2^19, 13.6
+#: at 2^21, 13.0 at 2^23 (beside an NVIDIA H100 80GB HBM3, 700.00 W)
+C_MASK_S = 1.5e-8
 
 #: largest constant-row outer support whose 2^k reachable-value pattern
 #: is materialized (8 MB f64 at 20); heavier rows are skipped by the
@@ -112,6 +130,52 @@ def _row_pat(a: np.ndarray, z: int, r: int, dtype=np.float64):
     return cols, pat
 
 
+def live_chunks(dense: DenseMatrix, flags=None, r: int = None):
+    """Live chunk-id list for the (ordered) matrix at chunk length 2**r.
+
+    Returns None when nothing can be pruned (the caller keeps the dense
+    plan); an empty array means the permanent is exactly 0.  Without r
+    the chunk length is flags.chunk_log2 or, failing that, the short-chunk
+    default r = max(5, n - 18) of direct callers (the engine's own sparse
+    plans come from plan_sparse, which picks r by cost).
+    """
+    a = np.asarray(dense.mat, dtype=np.float64)
+    n = a.shape[0]
+    if n < 19:
+        return None
+    if r is None:
+        r = flags.chunk_log2 if flags is not None else None
+        if r is None:
+            r = max(5, n - 18)
+        r = max(1, min(r, n - 2))
+    return _live_for(a, r)
+
+
+def chunk_factors(a_s: np.ndarray, factor_rows, ids, r: int,
+                  dtype=np.float64) -> np.ndarray:
+    """Per-chunk products of the factored-out constant rows, on the host.
+
+    Each term of chunk id is prod(all rows) = factor(id) * prod(alive
+    rows): the kernel walks only alive rows and weights each chunk's
+    partial by this factor (sentinel ids < 0 get weight 0).  The device
+    computes the same weights from the ids (gray.factor_weights, the
+    kernel's chunk_weight); this is their independent host version.
+    dtype=np.longdouble keeps the tf96 tier's extra bits.
+    """
+    ids = np.asarray(ids, dtype=np.int64)
+    g = (ids ^ (ids >> 1)).astype(np.int64)
+    f = np.ones(ids.shape, dtype=dtype)
+    for z in factor_rows:
+        cols, pat = _row_pat(a_s, int(z), r, dtype=dtype)
+        bits = cols - r
+        idx = np.zeros(ids.shape, dtype=np.int64)
+        for q, b in enumerate(bits):
+            idx |= ((g >> int(b)) & 1) << q
+        f *= pat[idx]
+    f[ids < 0] = 0
+    return f
+
+
 @dataclasses.dataclass
 class SparsePlan:
     col_perm: np.ndarray     # column permutation applied to the matrix
@@ -123,6 +187,13 @@ class SparsePlan:
     est_live: float          # the planner's live-fraction estimate
 
 
+def plan_from_jax(sp) -> SparsePlan:
+    """A ``superman_tpu.ops.pruning.SparsePlan`` as this package's: the
+    same fields, so both packages can walk one plan."""
+    return SparsePlan(**{f.name: getattr(sp, f.name)
+                         for f in dataclasses.fields(SparsePlan)})
+
+
 def plan_sparse(a: np.ndarray, *, giters: float, chunk_log2=None,
                 allow_factor: bool = True):
     """Choose (column order, chunk length, live set, row split) for the
@@ -131,12 +202,14 @@ def plan_sparse(a: np.ndarray, *, giters: float, chunk_log2=None,
     The candidate orderings come from prune_order; each (perm, r) pair
     is scored with a cheap independence estimate of the live fraction
     (product over constant rows of their nonzero-pattern fraction) and
-    a cost model: wall ~= live * (2^(n-1) * t_iter + chunks * c_chunk).
-    The exact dead mask is computed once, for the winner only.
+    a cost model: wall ~= live * (2^(n-1) * t_iter + chunks * C_CHUNK_S)
+    + chunks * C_MASK_S.  The exact dead mask is computed once, for the
+    winner only.
 
     giters: the walk's rate on the card, in G Gray steps per second.  It
     has no default: each caller passes the rate of the kernel that will
-    walk the plan (ops/modp.py for the Z_p walk).
+    walk the plan (ops/ryser.py for K1's tiers, ops/modp.py for the Z_p
+    walk).
     """
     a = np.asarray(a, dtype=np.float64)
     n = a.shape[0]
@@ -144,8 +217,6 @@ def plan_sparse(a: np.ndarray, *, giters: float, chunk_log2=None,
         return None
     from ..prep.orderings import prune_order
     t_iter = 1.0 / (giters * 1e9)
-    c_chunk = 80e-9          # init + residual transfer per chunk
-    c_mask = 5e-8            # host dead-mask cost per gray-space entry
     dense_iters = float(1 << (n - 1))
     dense_cost = dense_iters * t_iter
     if chunk_log2 is not None:
@@ -172,8 +243,8 @@ def plan_sparse(a: np.ndarray, *, giters: float, chunk_log2=None,
                 _, pat = _row_pat(ap, int(z), r)
                 live_p *= 1.0 - float((pat == 0.0).mean())
             chunks = float(1 << (n - 1 - r))
-            cost = (live_p * (dense_iters * t_iter + chunks * c_chunk)
-                    + chunks * c_mask)
+            cost = (live_p * (dense_iters * t_iter + chunks * C_CHUNK_S)
+                    + chunks * C_MASK_S)
             if best is None or cost < best[0]:
                 best = (cost, r, perm, live_p)
     # an explicit chunk_log2 is a user override: prune whenever anything

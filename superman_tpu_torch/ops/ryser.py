@@ -1,8 +1,9 @@
-"""Exact-permanent engine: planning, dispatch, reduction (dense, tiers
-df64, f32, f32k, tf96 and f64).
+"""Exact-permanent engine: planning, dispatch, reduction (dense and
+sparse, tiers df64, f32, f32k, tf96 and f64), and the amplitude walk that
+prices those tiers for calc="auto".
 
-Port of the dense branch of ``superman_tpu/ops/ryser.py``.  The host
-side (row scales, pack, underflow retry, sign and 2^E) is the
+Port of ``superman_tpu/ops/ryser.py`` for one device.  The host side (row
+scales, sparse plan, pack, underflow retry, sign and 2^E) is the
 reference's; the walk is the CUDA kernel of ops/ryser_cuda.py, or its
 plain version when the device is the CPU.
 """
@@ -10,6 +11,7 @@ plain version when the device is the CPU.
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -114,15 +116,123 @@ def _center_scales(a: np.ndarray, scales: np.ndarray) -> np.ndarray:
     return scales
 
 
+#: K1's rate per tier in G Gray steps per second, what the sparse planner
+#: prices a step at: 2^31 steps of the n=32 full plan in 14.4 ms (df64),
+#: 8.1 (f32), 8.8 (f32k) and 34.3 (tf96), kernel alone by CUDA events
+#: (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py, PERF.md)
+K1_GITERS = {"df64": 148.0, "f32": 265.0, "f32k": 244.0, "tf96": 62.6}
+
+
+def amp_cond_walk_log2(a: np.ndarray, device: torch.device) -> tuple:
+    """EXACT log2 of (amp, cond): the Ryser cancellation amplitude
+    sum_m |prod_i x_i(m)| and its WITHIN-LINE conditioned companion
+    sum_m sum_i S_i * prod_{j!=i} |x_j(m)| over the full 2^(n-1) walk
+    (S_i = row i's x-amplitude bound, the per-row error carrier scale).
+
+    Every fixed-precision walk tier's ACCUMULATION error is
+    ~amp * 2^-mantissa; its x-UPDATE error (absent only on exact-f32
+    integer storage) is ~cond * 2^-mantissa_x: a line passing near zero
+    mid-walk divides its carried error by |x_i|, which the plain
+    amplitude cannot see.  The sampled probe
+    (drivers/runner._amp_probe_log2) additionally underestimates
+    heavy-tailed term distributions by 50+ bits; this walk runs the amp
+    tier of the walk kernel (ops/ryser_cuda.ryser_amp) over every chunk.
+
+    Returns (log2 amp, log2 cond); (-inf, -inf) for a structurally zero
+    walk, (+inf, +inf) when the measurement could not be stabilized
+    (callers treat as worst case).  Per-line condition saturates at
+    2^45 on the kernel path (ryser_cuda.AMP_EPS) and 2^50 on the host
+    path, both far past any float tier's escape hatch (a bound >= 2^-3
+    relative already reads "no correct digits").
+    """
+    a = np.asarray(a, dtype=np.float64)
+    n = a.shape[0]
+    if n == 0 or not np.all(np.any(a != 0, axis=1)):
+        return float("-inf"), float("-inf")  # empty row: every x_i(m) = 0
+    if n < 19:
+        # host-exact: the full index space is tiny; same math as the
+        # sampled probe but exhaustive (and in log space, no overflow)
+        x0 = a[:, -1] - a.sum(axis=1) / 2.0
+        cols = a[:, : n - 1]
+        S = np.abs(x0) + np.abs(cols).sum(axis=1)    # row amplitude
+        m = np.arange(1 << (n - 1), dtype=np.uint64)
+        g = m ^ (m >> np.uint64(1))
+        bits = ((g[:, None] >> np.arange(n - 1, dtype=np.uint64))
+                & np.uint64(1)).astype(np.float64)
+        x = x0[None, :] + bits @ cols.T
+        ax = np.abs(x)
+        with np.errstate(divide="ignore"):
+            logt = np.where(np.all(ax != 0, axis=1),
+                            np.log2(ax).sum(axis=1), -np.inf)
+        axc = np.maximum(ax, S[None, :] * 2.0 ** -50)
+        logc = (np.log2(axc).sum(axis=1)
+                + np.log2((S[None, :] / axc).sum(axis=1)))
+
+        def _lse2(v):
+            fin = v[np.isfinite(v)]
+            if fin.size == 0:
+                return float("-inf")
+            mx = float(fin.max())
+            return mx + float(np.log2(np.exp2(fin - mx).sum()))
+
+        return _lse2(logt), _lse2(logc)
+    from ..parallel.sharding import compute_amp
+    plan = gray.make_plan(n, sms=_sm_count(device))
+    ids_blocks = np.arange(plan.num_chunks, dtype=np.int64)[None, :]
+    # The kernel's conditioned accumulator assumes every scaled row has
+    # amplitude ~1 (its effective S_i is 2^scale_i), so any centering or
+    # retry shift must be UNIFORM across rows: a per-row adjustment would
+    # silently shrink the S_i weights.  The uniform offset c is added
+    # back to the cond recovery below.
+    s_raw = _row_scales(a)
+    cs = _center_scales(a, s_raw)
+    c0 = int(np.ceil(np.mean(s_raw - cs)))   # uniform centering amount
+    shift = 0
+    for _ in range(4):
+        c = c0 + shift
+        scales = s_raw - c
+        a_s = np.ldexp(a, -scales[:, None])
+        x0, cols = gray.pack_matrix(a_s, plan.n_pad)
+        partials = compute_amp(ids_blocks, x0, cols, plan, device)
+        total = float(partials[0].sum(dtype=np.float64))
+        cond = float(partials[1].sum(dtype=np.float64))
+        if np.isfinite(total) and total > 0.0 and np.isfinite(cond):
+            # row scaling is exact powers of two; the amplitude recovers
+            # by 2^sum(scales), the conditioned total by an extra 2^c
+            # (each row's true amplitude weight is 2^s_raw_i = 2^c times
+            # the kernel's unit assumption)
+            ssum = int(scales.sum())
+            return (float(np.log2(total) + ssum),
+                    float(np.log2(cond) + ssum + c))
+        if total == 0.0:
+            shift += max(1, 64 // n)    # underflow: grow the terms
+        else:
+            shift -= max(1, 64 // n)    # overflow: shrink the terms
+    return float("inf"), float("inf")
+
+
+def amp_walk_log2(a: np.ndarray, device: torch.device) -> float:
+    """log2 of the exact Ryser amplitude alone (see amp_cond_walk_log2)."""
+    return amp_cond_walk_log2(a, device)[0]
+
+
 def _sm_count(device: torch.device) -> int:
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).multi_processor_count
     return gray.DEFAULT_SMS
 
 
-def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
+def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
+                chunk_ids: Optional[np.ndarray] = None) -> Result:
     """Exact permanent of `dense` on `device`, calc "df64", "f32",
-    "f32k", "tf96" or "f64"."""
+    "f32k", "tf96" or "f64".
+
+    chunk_ids: optional pruned live-chunk list at the dense plan's chunk
+    length (pruned chunks contribute exactly zero, so no correction term
+    exists).  Without it the engine prunes by itself under flags.sparse,
+    and on clearly sparse matrices (n >= 28, density < 0.30) unless
+    flags.skip_pruning is False.
+    """
     a = np.asarray(dense.mat)
     n = a.shape[0]
     calc = flags.resolved_calc()
@@ -176,14 +286,59 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
                       iterations=0, meta={"reason": "empty row/col"})
 
     from ..parallel.sharding import compute_total, pad_ids
-    plan = gray.make_plan(n, flags.lanes, flags.chunk_log2,
-                          sms=_sm_count(device),
-                          grid_multip=int(flags.grid_multip))
-    ids_blocks = pad_ids(np.arange(plan.num_chunks, dtype=np.int64),
-                         plan.lanes)
+    sms = _sm_count(device)
+    plan = None
+    factor_rows = None
+    alive_rows = None
+    sparse_meta = None
+    # auto-sparse: on clearly sparse inputs the pruned engine engages
+    # even without flags.sparse (the planner declines when unprofitable,
+    # and its candidate evaluation costs tens of milliseconds of host
+    # time, only worth it from n = 28).  skip_pruning=False forces the
+    # pure dense walk.
+    density = np.count_nonzero(a) / max(1, a.size)
+    auto_sparse = n >= 28 and density < 0.30
+    if chunk_ids is None and (flags.sparse or auto_sparse) \
+            and flags.skip_pruning:
+        from .pruning import plan_sparse
+        with trace.timer("sparse_plan"):
+            sp = plan_sparse(a, chunk_log2=flags.chunk_log2,
+                             giters=K1_GITERS[calc])
+        if sp is not None:
+            a = np.ascontiguousarray(a[:, sp.col_perm])
+            chunk_ids = sp.ids
+            if len(sp.factor_rows):
+                factor_rows, alive_rows = sp.factor_rows, sp.alive_rows
+            n_pad = (gray.pad_n(len(sp.alive_rows))
+                     if factor_rows is not None else gray.pad_n(n))
+            nchunks = 1 << (n - 1 - sp.r)
+            plan = gray.RyserPlan(n=n, n_pad=n_pad, r=sp.r,
+                                  lanes=min(flags.lanes or 1024, 512 if
+                                            calc in ("df64", "tf96")
+                                            else 1024, nchunks),
+                                  num_chunks=nchunks)
+            sparse_meta = {"dead_frac": round(sp.dead_frac, 4),
+                           "factored_rows": len(sp.factor_rows),
+                           "r": sp.r}
+    if plan is None:
+        plan = gray.make_plan(n, flags.lanes, flags.chunk_log2, sms=sms,
+                              grid_multip=int(flags.grid_multip))
+    # a pruned list goes through the weighted, block-reduced walk, which
+    # masks its own sentinels; the dense walk keeps per-chunk partials
+    pruned = chunk_ids is not None
+    if pruned:
+        chunk_ids = np.asarray(chunk_ids, dtype=np.int64)
+        live = len(chunk_ids)
+        if live == 0:
+            return Result(0.0, time.perf_counter() - t0, algo_name=name,
+                          iterations=0, meta={"reason": "all chunks pruned"})
+        ids_blocks = chunk_ids
+    else:
+        live = plan.num_chunks
+        ids_blocks = pad_ids(np.arange(live, dtype=np.int64), plan.lanes)
     trace.log(f"plan: n={n} n_pad={plan.n_pad} r={plan.r} "
-              f"lanes={plan.lanes} chunks={plan.num_chunks} calc={calc} "
-              f"device={device}", level=2)
+              f"lanes={plan.lanes} chunks={live}/{plan.num_chunks} "
+              f"calc={calc} device={device}", level=2)
 
     scales = _center_scales(a, _row_scales(a))
     best = None                 # (total, E) of the last FINITE attempt
@@ -193,12 +348,25 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
         # ldexp applies the per-row exponent exactly even when 2**-s
         # alone would overflow double (rows at 2^-500 scale fine)
         a_s = np.ldexp(a.astype(np.float64), -scales[:, None])
+        factors = None
         with trace.timer("pack"):
-            x0, cols = gray.pack_matrix(a_s, plan.n_pad)
+            if factor_rows is not None:
+                # factored constant rows: the kernel walks only
+                # alive_rows and weights each chunk by the product of the
+                # factored rows, which it rebuilds from this small pack;
+                # both packs come from the matrix as this attempt scales it
+                factors = gray.pack_matrix(a_s[factor_rows],
+                                           len(factor_rows))
+                a_pack = a_s[alive_rows]
+            else:
+                if pruned:
+                    factors = (np.empty(0), np.empty((n - 1, 0)))
+                a_pack = a_s
+            x0, cols = gray.pack_matrix(a_pack, plan.n_pad)
         with trace.timer("walk"):
             # a float; np.longdouble for tf96, kept until the last rounding
             total = compute_total(ids_blocks, x0, cols, plan, device,
-                                  tier=calc)
+                                  tier=calc, factors=factors, sms=sms)
         # scaled sums far below 1 may have lost underflowed terms; shift
         # the row scales to center the result near 2^0 and rerun (scaling
         # is exact, so a rerun is a pure exponent adjustment).  Shifts are
@@ -223,13 +391,15 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
         acc = np.longdouble(total) if tf else np.float64(total)
         p = float((4 * (n & 1) - 2) * np.ldexp(acc, E)) + 0.0
     dt = time.perf_counter() - t0
-    iters = plan.num_chunks << plan.r
-    meta = {"calc": calc, "chunks": plan.num_chunks, "r": plan.r,
+    iters = live << plan.r
+    meta = {"calc": calc, "chunks": live, "r": plan.r,
             "lanes": plan.lanes, "scale_log2": E,
             "iters_per_sec": iters / dt, "device": str(device),
             "exact_storage": exact_storage}
-    # where the reference would engage its pruned sparse walk on its own
-    # (n >= 28, density < 0.30), the port still walks dense: say so
-    if n >= 28 and np.count_nonzero(a) / a.size < 0.30 and flags.skip_pruning:
-        meta["sparse_pending"] = True
+    if pruned:
+        # the walked list: each live chunk cut into 2^split_log2 pieces
+        meta["split_log2"] = gray.split_shift(
+            live, plan.r, sms * gray.SPLIT_CHUNKS_PER_SM)
+    if sparse_meta is not None:
+        meta["sparse"] = sparse_meta
     return Result(p, dt, algo_name=name, iterations=iters, meta=meta)

@@ -1,5 +1,5 @@
-"""Ryser walk, tiers df64, f32, f32k and tf96: the CUDA kernels' wrappers
-and their plain versions.
+"""Ryser walk, tiers df64, f32, f32k, tf96 and amp: the CUDA kernels'
+wrappers and their plain versions.
 
 The counterpart of ``superman_tpu/ops/ryser_pallas.py``, whose two
 ``pl.pallas_call`` sites it replaces:
@@ -7,7 +7,14 @@ The counterpart of ``superman_tpu/ops/ryser_pallas.py``, whose two
 * ``ryser_partials`` (``_partials_jit``, bodies ``_walk_scalar`` and
   ``_walk_u16``) is ``csrc/ryser_walk.cu``: one thread walks one aligned
   chunk of 2^r Gray steps of ONE matrix and writes that chunk's signed
-  partial sum as a (hi, lo) pair.
+  partial sum as a (hi, lo) pair.  Two more entry points of that source
+  complete the site: ``ryser_reduced`` (``_partials_jit`` with
+  ``weighted``/``reduce``: ``_weight_out8``, ``_merge_out8``), the sparse
+  engine's walk of the alive rows over a pruned id list, each chunk
+  weighted by its factored rows and each block of 128 chunks reduced to
+  one pair; and ``ryser_amp`` (``amp=True``: ``_amp_terms``), the
+  unsigned amplitude and conditioned-amplitude sums that price the float
+  tiers for ``calc="auto"``.
 * ``batch_partials`` (``_ryser_kernel_batch`` and the ``_merge_out8`` lane
   reduction after it) is ``csrc/ryser_batch.cu``: a stack of B matrices of
   one order, each walked whole by its own blocks of 128 chunks, every
@@ -33,13 +40,20 @@ import torch
 
 from . import gray
 from .df64 import df_add_f64, quick_two_sum, two_sum
-from .tf96 import tree_prod_dd
+from .tf96 import dd_mul, tree_prod_dd
 
 #: kernel launches made by ryser_partials; a run reads it to show that the
 #: main path went through the kernel
 LAUNCHES = 0
 #: kernel launches made by batch_partials
 BATCH_LAUNCHES = 0
+#: kernel launches made by ryser_reduced, per tier
+REDUCED_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0, "tf96": 0}
+#: kernel launches made by ryser_amp
+AMP_LAUNCHES = 0
+
+#: the amp walk's within-line clamp (csrc/walk.cuh kAmpEps)
+AMP_EPS = 2.0 ** -45
 
 #: the chunk kernel is instantiated for n_pad = 8, 16, ..., MAX_N_PAD
 MAX_N_PAD = 64
@@ -61,9 +75,16 @@ def _tier_dtype(tier: str) -> torch.dtype:
     return TIERS[tier][0]
 
 
-def _check(ids, x0, cols, n: int, r: int) -> None:
-    for name, t, dt in (("ids", ids, torch.int64), ("x0", x0, torch.float64),
-                        ("cols", cols, torch.float64)):
+def _check(ids, x0, cols, n: int, r: int, factors=None) -> None:
+    """Raise on what the chunk kernels do not take.  factors: the
+    (fx0, fcols) pack of a factored walk, whose x0 and cols hold the alive
+    rows only, so n may exceed n_pad there."""
+    named = [("ids", ids, torch.int64), ("x0", x0, torch.float64),
+             ("cols", cols, torch.float64)]
+    if factors is not None:
+        named += [("fx0", factors[0], torch.float64),
+                  ("fcols", factors[1], torch.float64)]
+    for name, t, dt in named:
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
@@ -76,8 +97,21 @@ def _check(ids, x0, cols, n: int, r: int) -> None:
     if n_pad % 8 or not 8 <= n_pad <= MAX_N_PAD:
         raise ValueError(f"n_pad={n_pad} must be a multiple of 8 in "
                          f"[8, {MAX_N_PAD}]")
-    if not 3 <= n <= n_pad:
-        raise ValueError(f"n={n} must lie in [3, n_pad={n_pad}]")
+    if factors is None:
+        if not 3 <= n <= n_pad:
+            raise ValueError(f"n={n} must lie in [3, n_pad={n_pad}]")
+    else:
+        fx0, fcols = factors
+        nf = fx0.shape[0] if fx0.dim() == 1 else -1
+        if not 3 <= n <= MAX_N_PAD:
+            raise ValueError(f"n={n} must lie in [3, {MAX_N_PAD}]")
+        if nf < 0 or nf >= n or tuple(fcols.shape) != (n - 1, nf):
+            raise ValueError(f"fx0 must be (nf,) with nf < n and fcols "
+                             f"({n - 1}, nf), got {tuple(fx0.shape)} and "
+                             f"{tuple(fcols.shape)}")
+        if n_pad + nf > n + 7:
+            raise ValueError(f"n_pad={n_pad} alive and {nf} factored rows "
+                             f"are more than n={n} has")
     if tuple(cols.shape) != (n - 1, n_pad):
         raise ValueError(f"cols must be ({n - 1}, {n_pad}), got "
                          f"{tuple(cols.shape)}")
@@ -132,16 +166,27 @@ def _launch(ids, x0, cols, n: int, r: int, tier: str) -> torch.Tensor:
     return out
 
 
-def tree_prod(x: torch.Tensor) -> torch.Tensor:
-    """Product over the last dim in the kernel's order: fold the upper
-    half onto the lower (p[i] *= p[i + ceil(s/2)]) until one is left."""
+def _tree_fold(x: torch.Tensor, op) -> torch.Tensor:
+    """Reduce the last dim with `op` in the kernel's order: fold the upper
+    half onto the lower (p[i] = op(p[i], p[i + ceil(s/2)])) until one is
+    left."""
     s = x.shape[-1]
     while s > 1:
         ns, h = (s + 1) // 2, s // 2
-        p = x[..., :h] * x[..., ns:s]
+        p = op(x[..., :h], x[..., ns:s])
         x = p if h == ns else torch.cat([p, x[..., h:ns]], dim=-1)
         s = ns
     return x[..., 0]
+
+
+def tree_prod(x: torch.Tensor) -> torch.Tensor:
+    """Product over the last dim in the kernel's fold order."""
+    return _tree_fold(x, torch.mul)
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in tree_prod's fold order."""
+    return _tree_fold(x, torch.add)
 
 
 def acc_add(hi, lo, t, tier: str):
@@ -180,16 +225,11 @@ def _term(x, negate, tier: str):
     return -t if negate else t
 
 
-def _walk_ref(x, sign_mid, cols, r: int, tier: str):
-    """The walk body of both plain versions: x (..., C, n_pad) and
-    sign_mid (C,) from gray.chunk_init, cols (..., n-1, n_pad) with one
-    table per leading index of x.  One Python step per Gray index m, the
-    kernel's step rule and accumulator.  Returns (hi, lo), each (..., C)."""
-    if tier == "tf96":
-        hi, lo = _term(x, False, tier)
-    else:
-        hi = _term(x, False, tier)
-        lo = torch.zeros_like(hi)
+def _walk_steps(x, sign_mid, cols, r: int):
+    """The kernel's step rule: yields (m, x) for m = 1 .. 2^r - 1, x after
+    adding +-column ctz(m).  x (..., C, n_pad) and sign_mid (C,) from
+    gray.chunk_init, cols (..., n-1, n_pad) with one table per leading
+    index of x."""
     for m in range(1, 1 << r):
         k = (m & -m).bit_length() - 1
         if k == r - 1:
@@ -197,6 +237,19 @@ def _walk_ref(x, sign_mid, cols, r: int, tier: str):
         else:
             s = -1.0 if (m >> (k + 1)) & 1 else 1.0
         x = x + s * cols[..., k, None, :]
+        yield m, x
+
+
+def _walk_ref(x, sign_mid, cols, r: int, tier: str):
+    """The walk body of the plain versions: one Python step per Gray index
+    m, the kernel's step rule and accumulator.  Returns (hi, lo), each
+    (..., C)."""
+    if tier == "tf96":
+        hi, lo = _term(x, False, tier)
+    else:
+        hi = _term(x, False, tier)
+        lo = torch.zeros_like(hi)
+    for m, x in _walk_steps(x, sign_mid, cols, r):
         hi, lo = acc_add(hi, lo, _term(x, m & 1, tier), tier)
     return hi, lo
 
@@ -211,6 +264,166 @@ def ryser_partials_ref(ids: torch.Tensor, x0: torch.Tensor,
     x, sign_mid = gray.chunk_init(ids, x0, cols, n, r)
     hi, lo = _walk_ref(x, sign_mid, cols, r, tier)
     out = torch.stack([hi, lo], dim=1)
+    return torch.where((ids < 0)[:, None], 0.0, out)
+
+
+def _pad_to_block(ids: torch.Tensor) -> torch.Tensor:
+    """ids padded with -1 sentinels to a multiple of BLOCK."""
+    pad = -ids.shape[0] % BLOCK
+    if not pad:
+        return ids
+    return torch.cat([ids, ids.new_full((pad,), -1)])
+
+
+def ryser_reduced(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
+                  fx0: torch.Tensor, fcols: torch.Tensor, *, n: int, r: int,
+                  tier: str = "df64") -> torch.Tensor:
+    """Weighted, block-reduced partial sums of a factored Gray walk: the
+    sparse engine's walk.
+
+    ids:   (C,) int64 live chunk ids; ids < 0 are sentinels and count 0.
+           The list is padded here with sentinels to a multiple of 128.
+    x0:    (n_pad,) float64 and cols (n-1, n_pad): the pack of the ALIVE
+           rows of an order-n matrix (gray.pack_matrix of those rows), so
+           n_pad may be below n and a step multiplies fewer rows.
+    fx0:   (nf,) float64 and fcols (n-1, nf): the pack of the factored
+           rows, without padding; nf = 0 walks unweighted.
+    Each chunk's partial (in `tier`, as ryser_partials) is widened to a
+    double-double, multiplied by the chunk's weight
+    (gray.factor_weights), and each block of 128 chunks is added up in
+    the batch kernel's halving order with the double-double sum.
+    Returns (ceil(C / 128), 2) float64: the blocks' (hi, lo) pairs; the
+    walk's total is the float64 sum of hi + lo (tf96: tf96.sum_words).
+
+    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
+    tensor runs the plain version.
+    """
+    _check(ids, x0, cols, n, r, factors=(fx0, fcols))
+    _tier_dtype(tier)
+    ids = _pad_to_block(ids)
+    if ids.device.type == "cpu":
+        return ryser_reduced_ref(ids, x0, cols, fx0, fcols, n=n, r=r,
+                                 tier=tier)
+    if ids.device.type != "cuda":
+        raise ValueError(f"unsupported device {ids.device}")
+    from ..csrc.build import load
+    lib = load()
+    dtype, tier_no = TIERS[tier]
+    out = torch.empty((ids.shape[0] // BLOCK, 2), dtype=torch.float64,
+                      device=ids.device)
+    if ids.shape[0] == 0:
+        return out
+    x0, cols = x0.to(dtype), cols.to(dtype)
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    rc = lib.ryser_walk_reduced(
+        ids.data_ptr(), ids.shape[0], x0.data_ptr(), cols.data_ptr(),
+        fx0.data_ptr(), fcols.data_ptr(), fx0.shape[0], n, x0.shape[0], r,
+        tier_no, out.data_ptr(), ids.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"ryser_walk_reduced ({tier}) launch failed: "
+                           f"CUDA error {rc}")
+    REDUCED_LAUNCHES[tier] += 1
+    return out
+
+
+def ryser_weighted_ref(ids: torch.Tensor, x0: torch.Tensor,
+                       cols: torch.Tensor, fx0: torch.Tensor,
+                       fcols: torch.Tensor, *, n: int, r: int,
+                       tier: str = "df64") -> torch.Tensor:
+    """The factored walk before its block reduction: (C, 2) float64, each
+    chunk's weighted partial as a double-double, 0 for a sentinel.  Plain
+    PyTorch, the kernel's operations in its order: the tier's walk, the
+    f32 tiers' pair widened to one double (hi + lo), then a dd_mul by the
+    chunk's weight unless there is no factored row."""
+    dtype = _tier_dtype(tier)
+    x0_t, cols_t = x0.to(dtype), cols.to(dtype)
+    x, sign_mid = gray.chunk_init(ids, x0_t, cols_t, n, r)
+    hi, lo = _walk_ref(x, sign_mid, cols_t, r, tier)
+    if dtype == torch.float32:
+        hi = hi.double() + lo.double()
+        lo = torch.zeros_like(hi)
+    if fx0.shape[0]:
+        hi, lo = dd_mul(hi, lo, *gray.factor_weights(ids, fx0, fcols, n, r))
+    out = torch.stack([hi, lo], dim=1)
+    return torch.where((ids < 0)[:, None], 0.0, out)
+
+
+def ryser_reduced_ref(ids: torch.Tensor, x0: torch.Tensor,
+                      cols: torch.Tensor, fx0: torch.Tensor,
+                      fcols: torch.Tensor, *, n: int, r: int,
+                      tier: str = "df64") -> torch.Tensor:
+    """Plain PyTorch version of the reduced kernel: ryser_weighted_ref on
+    the padded id list, then each block of 128 in the kernel's halving
+    order with the double-double sum."""
+    out = ryser_weighted_ref(_pad_to_block(ids), x0, cols, fx0, fcols, n=n,
+                             r=r, tier=tier)
+    return block_reduce_ref(out[None, :, 0], out[None, :, 1], "df64")[0]
+
+
+def ryser_amp(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor, *,
+              n: int, r: int) -> torch.Tensor:
+    """Per-chunk amplitude sums of the Gray walk, the amp tier: every term
+    without its sign.
+
+    ids, x0, cols as in ryser_partials; x walks in float64.
+    Returns (C, 4) float64: [amp hi, amp lo, cond hi, cond lo], where
+    amp = sum over the chunk's steps of prod_i |x_i| and cond = sum of
+    prod_i max(|x_i|, eps) * sum_{i < n} 1 / max(|x_i|, eps), eps =
+    AMP_EPS; hi is a TwoSum-compensated sum and lo its compensation, so a
+    chunk's value is hi + lo.  Sentinels give 0.
+
+    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
+    tensor runs the plain version.
+    """
+    global AMP_LAUNCHES
+    _check(ids, x0, cols, n, r)
+    if ids.device.type == "cpu":
+        return ryser_amp_ref(ids, x0, cols, n=n, r=r)
+    if ids.device.type != "cuda":
+        raise ValueError(f"unsupported device {ids.device}")
+    from ..csrc.build import load
+    lib = load()
+    out = torch.empty((ids.shape[0], 4), dtype=torch.float64,
+                      device=ids.device)
+    if ids.shape[0] == 0:
+        return out
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    rc = lib.ryser_walk_amp(
+        ids.data_ptr(), ids.shape[0], x0.data_ptr(), cols.data_ptr(),
+        n, x0.shape[0], r, out.data_ptr(), ids.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"ryser_walk_amp launch failed: CUDA error {rc}")
+    AMP_LAUNCHES += 1
+    return out
+
+
+def amp_terms(x: torch.Tensor, n: int):
+    """(amp, cond) of one step (csrc/walk.cuh amp_terms): the product of
+    |x|, and the product of the clamped |x| times the sum of their
+    reciprocals over the n real rows; products and sum in tree_prod's
+    fold order, the padding rows' reciprocals replaced by 0."""
+    ax = x.abs()
+    axc = ax.clamp(min=AMP_EPS)
+    real = torch.arange(x.shape[-1], device=x.device) < n
+    inv = torch.where(real, 1.0 / axc, 0.0)
+    return tree_prod(ax), tree_prod(axc) * tree_sum(inv)
+
+
+def ryser_amp_ref(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
+                  *, n: int, r: int) -> torch.Tensor:
+    """Plain PyTorch version of the amp kernel: the walk's steps, both
+    terms added into TwoSum accumulators (hi the sum, lo the running
+    compensation)."""
+    x, sign_mid = gray.chunk_init(ids, x0, cols, n, r)
+    ahi, chi = amp_terms(x, n)
+    alo, clo = torch.zeros_like(ahi), torch.zeros_like(chi)
+    for _, x in _walk_steps(x, sign_mid, cols, r):
+        a, c = amp_terms(x, n)
+        ahi, e = two_sum(ahi, a)
+        alo = alo + e
+        chi, e = two_sum(chi, c)
+        clo = clo + e
+    out = torch.stack([ahi, alo, chi, clo], dim=1)
     return torch.where((ids < 0)[:, None], 0.0, out)
 
 

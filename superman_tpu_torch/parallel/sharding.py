@@ -3,8 +3,10 @@
 Port of the single-device branch of ``superman_tpu/parallel/sharding.py``.
 Every chunk costs exactly 2^r Gray steps, so an equal split is balanced by
 construction; the final, exactness-critical reduction happens on the host
-in float64, and in long double for the tf96 tier.  Multi-device runs come
-with the rest of the parallel layer.
+in float64, and in long double for the tf96 tier.  The sparse engine's
+pruned plan goes through the weighted, block-reduced walk
+(compute_total with factors).  Multi-device runs come with the rest of
+the parallel layer.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 
 from ..ops import gray
-from ..ops.ryser_cuda import ryser_partials
+from ..ops.ryser_cuda import ryser_amp, ryser_partials, ryser_reduced
 from ..ops.tf96 import sum_words
 
 
@@ -54,14 +56,60 @@ def compute_partials(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
     return (out[:, 0] + out[:, 1]).reshape(ids_blocks.shape)
 
 
+def _reduced_words(ids: np.ndarray, x0: np.ndarray, cols: np.ndarray,
+                   factors, plan: gray.RyserPlan, device: torch.device,
+                   tier: str, sms: int):
+    """The (blocks, 2) float64 host array of the block pairs of a pruned,
+    factored walk.  A list of fewer live chunks than the card has thread
+    slots is split into aligned sub-chunks first (gray.split_chunks), on
+    the device."""
+    def dev(v):
+        return torch.as_tensor(v, dtype=torch.float64).to(device)
+
+    ids_t, r = gray.split_chunks(
+        torch.as_tensor(ids, dtype=torch.int64).to(device), plan.r,
+        sms * gray.SPLIT_CHUNKS_PER_SM)
+    fx0, fcols = factors
+    out = ryser_reduced(ids_t, dev(x0), dev(cols), dev(fx0),
+                        dev(fcols).contiguous(), n=plan.n, r=r, tier=tier)
+    return out.cpu().numpy()
+
+
 def compute_total(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                   plan: gray.RyserPlan, device: torch.device,
-                  tier: str = "df64"):
+                  tier: str = "df64", factors=None,
+                  sms: int = gray.DEFAULT_SMS):
     """The scaled total of the walk: the sum of compute_partials over all
     chunks, a float, or for tf96 an np.longdouble summed from the words
     (tf96.sum_words: in long double, or exactly where long double is no
-    wider than double)."""
+    wider than double).
+
+    factors: None for the dense walk.  For the sparse engine's pruned
+    plan, the (fx0, fcols) pack of the factored rows ((0,) and (n-1, 0)
+    when no row is factored): ids_blocks is then the 1-D list of live
+    chunk ids, x0 and cols are the alive rows' pack, the walk goes
+    through ryser_reduced, split to fill `sms` SMs."""
+    if factors is not None:
+        words = _reduced_words(ids_blocks, x0, cols, factors, plan, device,
+                               tier, sms)
+        if tier == "tf96":
+            return sum_words(words)
+        return float(words.sum(axis=1).sum(dtype=np.float64))
     if tier == "tf96":
         return sum_words(_walk_words(ids_blocks, x0, cols, plan, device, tier))
     return float(compute_partials(ids_blocks, x0, cols, plan, device,
                                   tier).sum(dtype=np.float64))
+
+
+def compute_amp(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
+                plan: gray.RyserPlan, device: torch.device) -> np.ndarray:
+    """The amp walk over the (B, L) chunk ids: a (2, B, L) float64 host
+    array, [0] each chunk's amplitude sum and [1] its conditioned
+    amplitude sum (hi + lo of ryser_amp's words), 0 for sentinel ids."""
+    ids = torch.as_tensor(ids_blocks.reshape(-1), dtype=torch.int64)
+    out = ryser_amp(ids.to(device),
+                    torch.as_tensor(x0, dtype=torch.float64).to(device),
+                    torch.as_tensor(cols, dtype=torch.float64).to(device),
+                    n=plan.n, r=plan.r).cpu().numpy()
+    return np.stack([out[:, 0] + out[:, 1], out[:, 2] + out[:, 3]]
+                    ).reshape((2,) + ids_blocks.shape)

@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from superman_tpu_torch.ops import (batch, gray, modp, modp_cuda, ryser,
-                                    ryser_cuda)
+from superman_tpu_torch.ops import (batch, gray, modp, modp_cuda, pruning,
+                                    ryser, ryser_cuda)
 
 
 @pytest.mark.cuda
@@ -195,3 +195,143 @@ def test_pruned_walk_matches_dense_walk_on_card():
     dev = torch.device("cuda", 0)
     assert modp.perman_core_mod(work, p, dev, ids=ids, r=r) == \
         modp.perman_core_mod(core, p, dev)
+
+
+def _sparse_matrix(n, density, seed):
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < density) * rng.integers(1, 5, (n, n))
+    np.fill_diagonal(a, rng.integers(1, 4, n))
+    return a
+
+
+def _factored_packs(a, sp, dev):
+    """The alive rows' and the factored rows' packs of the plan's matrix,
+    row-scaled as the engine scales it, on `dev`."""
+    a = np.ascontiguousarray(a[:, sp.col_perm]).astype(np.float64)
+    a_s = np.ldexp(a, -ryser._row_scales(a)[:, None])
+    packs = (gray.pack_matrix(a_s[sp.alive_rows],
+                              gray.pad_n(len(sp.alive_rows)))
+             + gray.pack_matrix(a_s[sp.factor_rows], len(sp.factor_rows)))
+    return [torch.as_tensor(v).to(dev).contiguous() for v in packs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["df64", "f32", "f32k", "tf96"])
+@pytest.mark.parametrize("n,density,seed,chunk_log2,factor", [
+    (20, 0.2, 0, 6, True), (24, 0.2, 0, 9, True), (24, 0.2, 1, 9, True),
+    (24, 0.15, 0, 6, False), (36, 0.15, 36, 18, True)])
+def test_reduced_kernel_matches_plain_on_card(n, density, seed, chunk_log2,
+                                              factor, tier):
+    """The weighted, block-reduced walk on a pruned plan (factored rows or
+    none; n_pad == n with sentinels in the (24, 0.2, 1) case, n_pad < n in
+    the others): kernel and plain version walk, weight and reduce in one
+    order, so the block pairs must agree bitwise; the count is the
+    tier's.  The n=36 case walks the first 640 live ids after the split
+    the engine would make, with a ragged tail of sentinels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = _sparse_matrix(n, density, seed)
+    sp = pruning.plan_sparse(a, giters=ryser.K1_GITERS[tier],
+                             chunk_log2=chunk_log2, allow_factor=factor)
+    assert sp is not None and (len(sp.factor_rows) > 0) == (
+        factor and (n, seed) != (24, 1))
+    dev = torch.device("cuda", 0)
+    x0, cols, fx0, fcols = _factored_packs(a, sp, dev)
+    ids, r = torch.as_tensor(sp.ids).to(dev), sp.r
+    if n == 36:
+        ids, r = gray.split_chunks(ids[:5], r, 640)
+    ids = torch.cat([ids[:300], ids.new_full((3,), -1), ids[300:]])
+    before = ryser_cuda.REDUCED_LAUNCHES[tier]
+    got = ryser_cuda.ryser_reduced(ids, x0, cols, fx0, fcols, n=n, r=r,
+                                   tier=tier)
+    torch.cuda.synchronize()
+    assert ryser_cuda.REDUCED_LAUNCHES[tier] == before + 1
+    want = ryser_cuda.ryser_reduced_ref(ids, x0, cols, fx0, fcols, n=n, r=r,
+                                        tier=tier)
+    assert tuple(got.shape) == (-(-ids.shape[0] // 128), 2)
+    assert got.dtype == want.dtype == torch.float64
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int", "real"])
+@pytest.mark.parametrize("n,r", [(12, 3), (20, 5), (24, 5), (40, 2)])
+def test_amp_kernel_matches_plain_on_card(n, r, kind):
+    """The amp tier: kernel and plain version take the same IEEE steps
+    (the reciprocal is correctly rounded in both), so the four words of
+    every chunk agree bitwise; sentinels give 0; one launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(n)
+    a = (rng.random((n, n)) < 0.5) * (rng.integers(1, 5, (n, n))
+                                      if kind == "int"
+                                      else rng.uniform(-2, 2, (n, n)))
+    a_s = np.ldexp(a.astype(np.float64), -ryser._row_scales(a)[:, None])
+    dev = torch.device("cuda", 0)
+    x0, cols = (torch.as_tensor(v, device=dev)
+                for v in gray.pack_matrix(a_s, gray.pad_n(n)))
+    nchunks = 1 << (n - 1 - r)
+    ids = torch.cat([torch.arange(min(nchunks, 4096)), torch.full((5,), -1),
+                     torch.arange(nchunks - min(nchunks, 512), nchunks)]
+                    ).to(dev)
+    before = ryser_cuda.AMP_LAUNCHES
+    got = ryser_cuda.ryser_amp(ids, x0, cols, n=n, r=r)
+    torch.cuda.synchronize()
+    assert ryser_cuda.AMP_LAUNCHES == before + 1
+    want = ryser_cuda.ryser_amp_ref(ids, x0, cols, n=n, r=r)
+    assert torch.equal(got, want)
+    assert torch.equal(got[ids < 0], torch.zeros(5, 4, dtype=torch.float64,
+                                                 device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("calc,rel", [("tf96", 1e-15), ("df64", 1e-11),
+                                      ("f32k", 1e-3), ("f32", 5e-2)])
+def test_sparse_permanent_on_card_matches_exact(calc, rel):
+    """permanent(sparse=True) at n=26 on the card in every tier: the
+    pruned, factored walk through the reduced kernel, against the exact
+    integer and against the unpruned walk of the same tier.  The chunk
+    length is given: left to itself the planner declines at this order,
+    where the dense walk costs less than the mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import superman_tpu_torch as spt
+    a = _sparse_matrix(26, 0.2, 26)
+    want = spt.permanent(a, calc="exact").meta["exact_fraction"]
+    assert want != 0
+    before = ryser_cuda.REDUCED_LAUNCHES[calc]
+    got = spt.permanent(a, calc=calc, sparse=True, chunk_log2=10)
+    assert ryser_cuda.REDUCED_LAUNCHES[calc] > before
+    assert got.algo_name == f"sparyser_cuda_{calc}"
+    assert got.meta["sparse"]["dead_frac"] > 0
+    assert abs(got.permanent - want) <= rel * abs(want)
+    dense = spt.permanent(a, calc=calc, skip_pruning=False)
+    assert "sparse" not in dense.meta
+    assert abs(got.permanent - dense.permanent) <= 2 * rel * abs(want)
+
+
+@pytest.mark.cuda
+def test_auto_ladder_on_card():
+    """calc="auto" on the card at n=22: probe_only on a benign matrix;
+    with an impossible target the ladder runs the amp kernel and ends on
+    the exact rung, or with no exact budget on tf96 flagged
+    low_confidence."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import superman_tpu_torch as spt
+    rng = np.random.default_rng(22)
+    a = (rng.random((22, 22)) < 0.5) * rng.integers(1, 5, (22, 22))
+    want = spt.permanent(a, calc="exact").meta["exact_fraction"]
+    res = spt.permanent(a, calc="auto")
+    assert res.meta["auto"]["probe_only"] is True
+    assert abs(res.permanent - want) <= 1e-11 * abs(want)
+    before = ryser_cuda.AMP_LAUNCHES
+    res = spt.permanent(a, calc="auto", auto_target=1e-30)
+    assert ryser_cuda.AMP_LAUNCHES == before + 1
+    assert res.meta["auto"]["escalated"] == "exact"
+    assert res.meta["exact_fraction"] == want
+    res = spt.permanent(a, calc="auto", auto_target=1e-30,
+                        auto_exact_budget_s=0.0)
+    assert res.meta["auto"]["escalated"] == "tf96"
+    assert res.meta["auto"]["low_confidence"] is True
+    assert abs(res.permanent - want) <= 1e-15 * abs(want)

@@ -74,6 +74,14 @@ def test_fingerprint_and_live_exact_match_jax(seed):
             assert np.array_equal(got, want)
 
 
+@pytest.fixture
+def jax_costs(monkeypatch):
+    """Price chunks and mask entries as superman_tpu.ops.pruning.
+    plan_sparse does (its own constants; the port's are the card's)."""
+    monkeypatch.setattr(pruning, "C_CHUNK_S", 80e-9)
+    monkeypatch.setattr(pruning, "C_MASK_S", 5e-8)
+
+
 @pytest.mark.parametrize("n,r", [(20, 7), (26, 10), (30, 14)])
 def test_prune_order_and_dead_masks_match_jax(n, r):
     a = _float_image(np.random.default_rng(n), n, 0.25)
@@ -92,8 +100,10 @@ def test_prune_order_and_dead_masks_match_jax(n, r):
 
 @pytest.mark.parametrize("n,giters,chunk_log2", [
     (24, 0.01, None), (28, 10.0, None), (30, 10.0, None), (22, 1.0, 8)])
-def test_plan_sparse_matches_jax(n, giters, chunk_log2):
-    """The same rate gives the same plan in both packages."""
+def test_plan_sparse_matches_jax(n, giters, chunk_log2, jax_costs):
+    """The same rate and the same per-chunk and per-mask-entry costs (the
+    reference's own; the port's defaults are the card's) give the same
+    plan in both packages."""
     a = _float_image(np.random.default_rng(100 + n), n, 0.25)
     got = pruning.plan_sparse(a, giters=giters, chunk_log2=chunk_log2)
     want = jpruning.plan_sparse(a, giters=giters, chunk_log2=chunk_log2)
@@ -107,9 +117,9 @@ def test_plan_sparse_matches_jax(n, giters, chunk_log2):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_core_plan_matches_jax(seed):
-    """At the JAX package's rate (10 G steps/s) the port's planner makes
-    the JAX package's plan: order, r, live ids, live fraction."""
+def test_core_plan_matches_jax(seed, jax_costs):
+    """At the JAX package's rate (10 G steps/s) and costs the port's
+    planner makes the JAX package's plan: order, r, live ids, live fraction."""
     core = _int_core(np.random.default_rng(seed), 30, density=0.25, hi=9)
     want = jmodp.core_plan(core)
     got = modp.core_plan(core, giters=jmodp.MOD_GITERS / 1e9)

@@ -141,24 +141,50 @@ def test_empty_row_is_zero():
     assert res.permanent == 0.0 and res.meta["reason"] == "empty row/col"
 
 
-def test_auto_sparse_walks_dense_and_says_so(monkeypatch):
+def test_auto_sparse_gate_engages(monkeypatch):
     """Where the reference engages its pruned walk by itself (n >= 28,
-    density < 0.30) the port walks dense and sets meta["sparse_pending"].
-    The walk is stubbed: 2^27 steps are too many for the plain version on
-    the CPU, and only the engine's decision is under test."""
+    density < 0.30) so does the port, wherever its planner finds the
+    pruned walk cheaper at the card's rates (at n=30 it does; at n=28 the
+    dense walk takes under a millisecond and it declines): the planner
+    runs, the engine hands
+    the live ids and the factor pack to the reduced walk and reports the
+    plan in meta["sparse"]; a dense matrix and skip_pruning=False keep the
+    dense walk.  The walk is stubbed: 2^26 steps are too many for the
+    plain version on the CPU, and only the engine's decision is under
+    test."""
+    from superman_tpu_torch.ops import pruning, ryser
     from superman_tpu_torch.parallel import sharding
+    seen = []
 
-    def half(ids_blocks, x0, cols, plan, device, tier="df64"):
-        return np.full(ids_blocks.shape, 0.5 / ids_blocks.size)
+    def half(ids_blocks, x0, cols, plan, device, tier="df64", factors=None,
+             sms=0):
+        seen.append((ids_blocks, x0, factors, plan))
+        return 0.5
 
-    monkeypatch.setattr(sharding, "compute_partials", half)
-    sparse = random_int_matrix(np.random.default_rng(28), 28, 0.2) + \
-        np.eye(28, dtype=np.int64)
-    dense = random_int_matrix(np.random.default_rng(29), 28, 0.5)
-    assert spt.permanent(sparse, device="cpu").meta["sparse_pending"]
-    assert "sparse_pending" not in spt.permanent(dense, device="cpu").meta
-    assert "sparse_pending" not in spt.permanent(
-        sparse, device="cpu", skip_pruning=False).meta
+    monkeypatch.setattr(sharding, "compute_total", half)
+    n = 30
+    rng = np.random.default_rng(n)
+    sparse = (rng.random((n, n)) < 0.15) * rng.integers(1, 5, (n, n))
+    np.fill_diagonal(sparse, rng.integers(1, 4, n))
+    dense = random_int_matrix(np.random.default_rng(29), n, 0.5)
+    res = spt.permanent(sparse, device="cpu")
+    sp_plan = pruning.plan_sparse(sparse, giters=ryser.K1_GITERS["df64"])
+    assert sp_plan is not None and len(sp_plan.factor_rows) >= 1
+    assert res.meta["sparse"] == {
+        "dead_frac": round(sp_plan.dead_frac, 4),
+        "factored_rows": len(sp_plan.factor_rows), "r": sp_plan.r}
+    assert res.algo_name == "ryser_plain_df64"
+    assert "sparse_pending" not in res.meta
+    ids, x0, factors, plan = seen[-1]
+    assert np.array_equal(ids, sp_plan.ids)
+    assert x0.shape == (plan.n_pad,) and plan.n_pad == 24
+    assert factors[0].shape == (len(sp_plan.factor_rows),)
+    assert factors[1].shape == (n - 1, len(sp_plan.factor_rows))
+    assert res.iterations == len(sp_plan.ids) << sp_plan.r
+    for a, kw in ((dense, {}), (sparse, {"skip_pruning": False})):
+        res = spt.permanent(a, device="cpu", **kw)
+        assert "sparse" not in res.meta and seen[-1][2] is None
+        assert res.iterations == 1 << (n - 1)
 
 
 def test_device_none_without_cuda_raises(monkeypatch):
@@ -171,13 +197,10 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    {"sparse": True}, {"approximation": True},
-    {"calc": "auto"},
+    {"approximation": True},
     {"calc": "exact", "approximation": True},
-    {"calc": "quad"}, {"perman_algo": "14"},
-    {"perman_algo": "glynn", "calc": "auto"},
+    {"calc": "quad"},
     {"perman_algo": "glynn", "calc": "quad"},
-    {"perman_algo": "glynn", "sparse": True},
     {"calc": "tf96", "hybrid": True},
     {"perman_algo": "5"}, {"mesh_shape": (2,)}, {"hybrid": True},
     {"checkpoint_path": "journal"}, {"compression": True},
@@ -188,6 +211,23 @@ def test_unported_features_raise(flags):
     a = random_int_matrix(np.random.default_rng(2), 20, 0.5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         spt.permanent(a, device="cpu", **flags)
+
+
+@pytest.mark.parametrize("flags,algo", [
+    ({"sparse": True}, "sparyser_plain_df64"),
+    ({"calc": "auto"}, "ryser_plain_df64"),
+    ({"perman_algo": "14"}, "sparyser_plain_df64"),
+    ({"perman_algo": "glynn", "calc": "auto"}, "ryser_plain_df64"),
+    ({"perman_algo": "glynn", "sparse": True}, "glynn_plain_df64"),
+])
+def test_sparse_and_auto_flags_run(flags, algo):
+    """The flags of the sparse engine and of the ladder reach their
+    engines (they raised NotImplementedError before these were ported)."""
+    a = random_int_matrix(np.random.default_rng(2), 20, 0.5)
+    res = spt.permanent(a, device="cpu", chunk_log2=6, **flags)
+    assert res.algo_name == algo
+    assert res.permanent == pytest.approx(perman64(a), rel=1e-10)
+    assert ("auto" in res.meta) == (flags.get("calc") == "auto")
 
 
 def test_bad_input_raises():
