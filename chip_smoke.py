@@ -12,9 +12,12 @@ under the modular CRT engine), and superman_tpu_torch.permanent_batch
 (the serving batch, csrc/ryser_batch.cu) on 256 matrices of n=24, 16 of
 n=32 and a mixed list; the sparse engine (the pruned, factored walk,
 ryser_walk_reduced) through permanent() on seeded sparse matrices of n=36
-and n=40; and calc="auto" (the ladder, with the amp walk ryser_walk_amp)
-at n=32 and on a real-valued n=24 matrix built to defeat the float tiers.
-It checks their values, times kernels and plain versions, and prints:
+and n=40; calc="tf96" on a matrix whose chunk partials stand 1e7 above
+its permanent; and calc="auto" (the ladder, with the amp walk
+ryser_walk_amp: the amplitude alone on integer matrices, with the
+conditioned term beside it on real-valued ones) at n=32 and on a
+real-valued n=24 matrix built to defeat the float tiers.  It checks their
+values, times kernels and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
@@ -75,12 +78,9 @@ TIERS = ("df64", "f32", "f32k", "tf96")
 #: live steps, and tf96's last rounding with some room (its weights are
 #: double-doubles, so nothing is lost before the final double)
 SPARSE_TOL = {"df64": 1e-9, "f32": F32_TOL, "f32k": F32K_TOL, "tf96": 1e-13}
-#: operations of one step of the amp walk beyond its n adds to x: two
-#: product trees of n-1 multiplies, n reciprocals (each counted as one
-#: operation, the least a divider could need), their n-1 adds, one
-#: multiply, and two TwoSum accumulators of 6 adds plus the add that
-#: gathers each compensation
-AMP_ACC_OPS = 1 + 2 * 7
+#: operations of the amp walk's TwoSum accumulator: 6 adds and the add
+#: that gathers the compensation
+AMP_ACC_OPS = 7
 #: peak rates of one H100 SXM.  Memory (3.35 TB/s) and float32 (67
 #: TFLOP/s, a fused multiply-add counted as two) are NVIDIA's data-sheet
 #: figures; float64 outside the tensor cores runs on 64 of an SM's 128
@@ -98,10 +98,16 @@ FMA_SLOTS = 0.5
 #: tf96 adds double-doubles: TwoSum 6, two adds, FastTwoSum 3
 ACC_OPS = {"df64": 10, "f32": 1, "f32k": 7, "tf96": 11}
 #: operations of the tf96 product, an FMA counted as two: TwoProd is a
-#: multiply and an FMA; a double-double multiply is a TwoProd, two
-#: multiplies and two adds for the cross terms, and a FastTwoSum
+#: multiply and an FMA; a double-double multiply of the tree is a
+#: TwoProd, two multiplies and two adds for the cross terms (the tree
+#: renormalises once, at its root: FAST_TWO_SUM_OPS)
 TWO_PROD_OPS = 3
-DD_MUL_OPS = TWO_PROD_OPS + 4 + 3
+DD_MUL_OPS = TWO_PROD_OPS + 4
+FAST_TWO_SUM_OPS = 3
+#: the tf96 case whose chunk partials cancel: pairs of equal columns
+#: among the chunk-level ones, +-CANCEL_C added to one row at each pair
+CANCEL_PAIRS = 3
+CANCEL_C = 1 << 12
 #: the Z_p kernel is checked at the largest prime the TPU kernel took and
 #: at the largest the card's takes; residues must agree exactly
 MOD_PRIMES = (2039, (1 << 31) - 1)
@@ -139,6 +145,28 @@ def within_line_landmine(lrng, n):
         a[i, :] = np.round(lrng.uniform(-1, 1, n) / q) * q
         a[i, j], a[i, j + 1] = c, -c + q * float(lrng.integers(1, 5))
     return a
+
+
+def cancelling_matrix(seed, n, r, pairs=CANCEL_PAIRS, c=CANCEL_C):
+    """(a, base): an integer matrix whose Ryser chunk partials stand far
+    above its permanent, and the matrix with the same permanent it is
+    built from.  base is random_int_matrix with columns j + 1 = j for the
+    pairs j = n-3, n-5, ... (all >= r, so they toggle between chunks, not
+    inside one); a adds c at (k, j) and -c at (k, j + 1) of row k of pair
+    k.  Expanding per(a) along row k, the two c terms multiply minors
+    with equal columns and cancel, so per(a) = per(base), while every
+    chunk whose Gray bits differ at j and j + 1 walks a factor ~c."""
+    base = random_int_matrix(np.random.default_rng(seed), n, 0.5)
+    cols = [n - 3 - 2 * k for k in range(pairs)]
+    if min(cols) < r:
+        raise ValueError(f"the pairs reach column {min(cols)} < r={r}")
+    for j in cols:
+        base[:, j + 1] = base[:, j]
+    a = base.copy()
+    for k, j in enumerate(cols):
+        a[k, j] += c
+        a[k, j + 1] -= c
+    return a, base
 
 
 def amp_host_log2(a):
@@ -187,14 +215,16 @@ def walk_bound(steps: int, n: int, tier: str, nbytes: int):
     """(bound_ms, bound_by, issue_bound_ms) of a Ryser walk of `steps`
     Gray steps of an order-n matrix: a step does n-1 multiplies, n adds
     and the tier's accumulator; nbytes is every input read and output
-    written once.  In tf96 the first n // 2 multiplies are TwoProds and
-    the others double-double multiplies.  issue_bound_ms is the same
-    work at the rate its instructions issue: an unfusable multiply or add
-    takes the slot of an FMA, so all of them at half the peak, the one
-    FMA of each tf96 multiply counted once."""
+    written once.  In tf96 the first n // 2 multiplies are TwoProds, the
+    others un-normalised double-double multiplies, and the product is
+    normalised once.  issue_bound_ms is the same work at the rate its
+    instructions issue: an unfusable multiply or add takes the slot of an
+    FMA, so all of them at half the peak, the one FMA of each tf96
+    multiply counted once."""
     if tier == "tf96":
         per_step = (n + TWO_PROD_OPS * (n // 2)
-                    + DD_MUL_OPS * (n - 1 - n // 2) + ACC_OPS[tier])
+                    + DD_MUL_OPS * (n - 1 - n // 2) + FAST_TWO_SUM_OPS
+                    + ACC_OPS[tier])
         instr = per_step - (n - 1)
     else:
         per_step = instr = 2 * n - 1 + ACC_OPS[tier]
@@ -203,12 +233,17 @@ def walk_bound(steps: int, n: int, tier: str, nbytes: int):
     return ms, by, max(ms, steps * instr / (PEAK[kind] * FMA_SLOTS) * 1e3)
 
 
-def amp_bound(steps: int, n: int, nbytes: int):
+def amp_bound(steps: int, n: int, nbytes: int, cond: bool):
     """(bound_ms, bound_by, issue_bound_ms) of an amp walk of `steps` Gray
-    steps of an order-n matrix, all in float64: n adds to x, 2 (n-1)
-    multiplies, n reciprocals, n-1 adds and AMP_ACC_OPS more a step;
-    nothing of it can fuse."""
-    per_step = n + 2 * (n - 1) + n + (n - 1) + AMP_ACC_OPS
+    steps of an order-n matrix, all in float64: n adds to x, n-1
+    multiplies and AMP_ACC_OPS a step for the amplitude; with cond, n
+    clamps, the (P, C) fold (n // 2 pairs of leaves at a multiply and an
+    add, ceil(n/2) - 1 combines at 3 multiplies and an add) and a second
+    accumulator besides; nothing of it can fuse."""
+    per_step = n + (n - 1) + AMP_ACC_OPS
+    if cond:
+        per_step += (n + 2 * (n // 2) + 4 * ((n + 1) // 2 - 1)
+                     + AMP_ACC_OPS)
     ms, by = bound(nbytes, steps * per_step, "fp64")
     return ms, by, max(ms, steps * per_step / (PEAK["fp64"] * FMA_SLOTS) * 1e3)
 
@@ -246,6 +281,13 @@ def register_report(report: str) -> str:
     return "\n".join(lines)
 
 
+def registers(report: str) -> dict:
+    """{kernel<template arguments>: registers} from register_report."""
+    import re
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"^(\S+<[\d,]+>): (\d+) registers", register_report(report), re.M)}
+
+
 def compare(kern, plain, ids) -> float:
     """Largest |kernel - plain| of the partials hi + lo (per chunk, or per
     block of the batch kernel, where ids is None); raises past KERNEL_TOL
@@ -271,9 +313,9 @@ def compare(kern, plain, ids) -> float:
 
 
 def compare_amp(kern, plain, ids) -> float:
-    """Largest |kernel - plain| of the amp walk's two sums per chunk
-    (amp hi + lo, cond hi + lo); raises past KERNEL_TOL of the largest sum
-    or on a nonzero sentinel."""
+    """Largest |kernel - plain| of the amp walk's sums per chunk (amp
+    hi + lo, and cond hi + lo where there are four words); raises past
+    KERNEL_TOL of the largest sum or on a nonzero sentinel."""
     import torch
     if kern.shape != plain.shape or kern.dtype != plain.dtype:
         raise AssertionError(f"kernel {tuple(kern.shape)} {kern.dtype} vs "
@@ -283,7 +325,7 @@ def compare_amp(kern, plain, ids) -> float:
     if bool((kern[ids < 0] != 0).any()):
         raise AssertionError("a sentinel chunk wrote a nonzero amp sum")
     worst = 0.0
-    for name, c in (("amp", 0), ("cond", 2)):
+    for name, c in (("amp", 0), ("cond", 2))[:kern.shape[1] // 2]:
         pk, pp = kern[:, c] + kern[:, c + 1], plain[:, c] + plain[:, c + 1]
         err, scale = float((pk - pp).abs().max()), float(pp.abs().max())
         if err > KERNEL_TOL * scale:
@@ -355,11 +397,12 @@ def main() -> int:
     from superman_tpu_torch.ops import (batch, exact, gray, modp, modp_cuda,
                                         oracle, pruning, ryser_cuda, tf96)
     from superman_tpu_torch.ops.ryser import (K1_GITERS, _center_scales,
-                                              _row_scales, amp_cond_walk_log2)
+                                              _row_scales, amp_cond_walk_log2,
+                                              amp_walk_log2)
 
     def zero_counts():
         ryser_cuda.LAUNCHES = ryser_cuda.BATCH_LAUNCHES = 0
-        ryser_cuda.AMP_LAUNCHES = 0
+        ryser_cuda.AMP_LAUNCHES = ryser_cuda.AMP_COND_LAUNCHES = 0
         for tier in ryser_cuda.REDUCED_LAUNCHES:
             ryser_cuda.REDUCED_LAUNCHES[tier] = 0
         modp_cuda.LAUNCHES = 0
@@ -370,13 +413,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}")
     print(f"np.longdouble mantissa bits: {np.finfo(np.longdouble).nmant}; "
-          f"the tf96 host sum runs in "
-          f"{'long double' if tf96.LONGDOUBLE_WIDE else 'exact summation'}")
+          f"a tf96 total keeps bits below a double: {tf96.LONGDOUBLE_WIDE}")
     t = time.perf_counter()
     path, report = build.build()
     build.load()
     print(f"build: {time.perf_counter() - t:.1f} s -> {path}")
     print(register_report(report))
+    regs = registers(report)
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -507,25 +550,40 @@ def main() -> int:
                           "r": r_w, "err": err, "plain_ms": plain_ms,
                           "plain_chunks": int(cmp_ids.numel())}
 
-    # ---- 2e. the amp tier vs its plain version on the sampled ids of the
-    # n=32 plan, and its two sums over a whole n=20 walk against the
+    # ---- 2e. the amp tier, both variants (the amplitude alone, and with
+    # the conditioned term) vs their plain versions on the sampled ids of
+    # the n=32 plan, and their sums over a whole n=20 walk against the
     # exhaustive host formula
-    amp_kern = ryser_cuda.ryser_amp(sampled_ids, x0, cols, n=32, r=plan.r)
-    torch.cuda.synchronize()
-    amp_plain_ms, amp_plain = cuda_ms(lambda: ryser_cuda.ryser_amp_ref(
-        sampled_ids, x0, cols, n=32, r=plan.r), 1)
-    print(f"ryser_walk_amp vs plain, {sampled_ids.numel()} chunk ids (start, "
-          f"sentinels, end), plain {amp_plain_ms:.1f} ms:")
-    amp_err = compare_amp(amp_kern, amp_plain, sampled_ids)
+    amp_variants = {"amp": False, "cond": True}
+    amp_sampled = {}
+    for variant, cond in amp_variants.items():
+        kern = ryser_cuda.ryser_amp(sampled_ids, x0, cols, n=32, r=plan.r,
+                                    cond=cond)
+        torch.cuda.synchronize()
+        plain_ms, plain = cuda_ms(lambda: ryser_cuda.ryser_amp_ref(
+            sampled_ids, x0, cols, n=32, r=plan.r, cond=cond), 1)
+        print(f"ryser_walk_amp ({variant}) vs plain, {sampled_ids.numel()} "
+              f"chunk ids (start, sentinels, end), plain {plain_ms:.1f} ms:")
+        err = compare_amp(kern, plain, sampled_ids)
+        if not torch.equal(kern, plain):
+            raise AssertionError(f"ryser_walk_amp ({variant}): kernel and "
+                                 f"plain version differ")
+        amp_sampled[variant] = {"kern": kern, "err": err,
+                                "plain_ms": plain_ms}
+    if not torch.equal(amp_sampled["amp"]["kern"],
+                       amp_sampled["cond"]["kern"][:, :2]):
+        raise AssertionError("the two amp variants' amplitude words differ")
     rng20 = np.random.default_rng(20)
     a20 = (rng20.random((20, 20)) < 0.6) * rng20.random((20, 20)) * 5.0 - 0.5
     amp20, cond20 = amp_cond_walk_log2(a20, dev)
+    amp20_only = amp_walk_log2(a20, dev)
     host_amp20, host_cond20 = amp_host_log2(a20)
-    print(f"amp walk n=20 (real-valued): log2 amp {amp20:.9f} vs the "
-          f"exhaustive host sum {host_amp20:.9f}; log2 cond {cond20:.4f} vs "
-          f"the host formula {host_cond20:.4f} (band -1 .. +2: the kernel "
-          f"weights rows by their power-of-two scales, the host by S_i)")
-    if not (abs(amp20 - host_amp20) <= 1e-9
+    print(f"amp walk n=20 (real-valued): log2 amp {amp20:.9f} (amplitude "
+          f"alone {amp20_only:.9f}) vs the exhaustive host sum "
+          f"{host_amp20:.9f}; log2 cond {cond20:.4f} vs the host formula "
+          f"{host_cond20:.4f} (band -1 .. +2: the kernel weights rows by "
+          f"their power-of-two scales, the host by S_i)")
+    if not (abs(amp20 - host_amp20) <= 1e-9 and amp20_only == amp20
             and host_cond20 - 1.0 <= cond20 <= host_cond20 + 2.0):
         raise AssertionError("amp walk n=20 disagrees with the host formula")
 
@@ -573,7 +631,8 @@ def main() -> int:
         print(f"main path n=32 {tier}: {res.permanent!r} in {res.time:.4f} s "
               f"(best of 3), rel err {rel_t:.3e} vs the exact integer "
               f"(limit {tol:.0e}); {res.algo_name}, "
-              f"{k1_launches[tier]} launches")
+              f"{k1_launches[tier]} launches; spans "
+              f"{ {k: round(v * 1e3, 2) for k, v in res.meta['spans']} }")
         if res.algo_name != f"ryser_cuda_{tier}" or not rel_t <= tol:
             raise AssertionError(f"n=32 {tier}: {res.algo_name} "
                                  f"rel {rel_t:.3e}")
@@ -853,18 +912,24 @@ def main() -> int:
         raise AssertionError("auto n=32: not the probe-only df64 result")
     # (b) an impossible target: f32k companion, the amp walk over all 2^31
     # indices, then the exact rung, or with no exact budget tf96, flagged
+    # (the matrix is integer: the amp walk takes the amplitude alone)
+    def amp_counts():
+        return {"amp": ryser_cuda.AMP_LAUNCHES - ryser_cuda.AMP_COND_LAUNCHES,
+                "cond": ryser_cuda.AMP_COND_LAUNCHES}
+
     zero_counts()
     t = time.perf_counter()
     res = spt.permanent(a32, calc="auto", auto_target=1e-30)
     wall_b = time.perf_counter() - t
-    amp_launches = ryser_cuda.AMP_LAUNCHES
+    amp_launches = amp_counts()
     print(f"auto n=32, auto_target=1e-30: {res.meta['exact_fraction']} in "
           f"{wall_b:.4f} s; {res.algo_name}, auto {res.meta['auto']}, "
-          f"{ryser_cuda.LAUNCHES} K1 launches, {amp_launches} amp, "
-          f"{modp_cuda.LAUNCHES} modp_walk")
+          f"{ryser_cuda.LAUNCHES} K1 launches, amp walk launches "
+          f"{amp_launches}, {modp_cuda.LAUNCHES} modp_walk")
     if res.meta["auto"]["escalated"] != "exact" \
             or res.meta["exact_fraction"] != EXACT_N32 \
-            or ryser_cuda.LAUNCHES != 2 or amp_launches != 1 \
+            or ryser_cuda.LAUNCHES != 2 \
+            or amp_launches != {"amp": 1, "cond": 0} \
             or modp_cuda.LAUNCHES <= 0:
         raise AssertionError("auto n=32, impossible target: not the exact "
                              "rung")
@@ -877,20 +942,30 @@ def main() -> int:
     print(f"auto n=32, auto_target=1e-30, no exact budget: "
           f"{res.permanent!r} in {wall_b0:.4f} s, rel err {rel_b0:.3e} "
           f"(limit {TF96_TOL:.0e}); {res.algo_name}, auto "
-          f"{res.meta['auto']}, {ryser_cuda.LAUNCHES} K1 launches, "
-          f"{ryser_cuda.AMP_LAUNCHES} amp")
+          f"{res.meta['auto']}, {ryser_cuda.LAUNCHES} K1 launches, amp walk "
+          f"launches {amp_counts()}")
     if res.meta["auto"]["escalated"] != "tf96" \
             or res.meta["auto"].get("low_confidence") is not True \
             or "amp_walk_l2" not in res.meta["auto"] \
-            or ryser_cuda.LAUNCHES != 3 or ryser_cuda.AMP_LAUNCHES != 1 \
+            or ryser_cuda.LAUNCHES != 3 \
+            or amp_counts() != {"amp": 1, "cond": 0} \
             or modp_cuda.LAUNCHES != 0 or not rel_b0 <= TF96_TOL:
         raise AssertionError("auto n=32, no exact budget: not the flagged "
                              "tf96 rung")
-    t = time.perf_counter()
-    aw32, _ = amp_cond_walk_log2(a32.astype(np.float64), dev)
-    print(f"amp walk n=32, 2^31 indices: log2 amp {aw32:.4f} "
-          f"(amp_walk_l2 {res.meta['auto']['amp_walk_l2']} above the "
-          f"permanent's log2) in {time.perf_counter() - t:.4f} s wall")
+    walls = {}
+    for name, fn in (("amp_walk_log2", amp_walk_log2),
+                     ("amp_cond_walk_log2", amp_cond_walk_log2)):
+        t = time.perf_counter()
+        aw32 = fn(a32.astype(np.float64), dev)
+        walls[name] = (time.perf_counter() - t, aw32)
+    if walls["amp_walk_log2"][1] != walls["amp_cond_walk_log2"][1][0]:
+        raise AssertionError("n=32: the two amp walks' log2 amp differ")
+    print(f"amp walk n=32, 2^31 indices: log2 amp "
+          f"{walls['amp_walk_log2'][1]:.4f} (amp_walk_l2 "
+          f"{res.meta['auto']['amp_walk_l2']} above the permanent's log2); "
+          f"wall {walls['amp_walk_log2'][0]:.4f} s amplitude alone, "
+          f"{walls['amp_cond_walk_log2'][0]:.4f} s with the conditioned "
+          f"term (log2 cond {walls['amp_cond_walk_log2'][1][1]:.4f})")
     # (c) a real-valued matrix whose lines cross zero mid-walk: no float
     # tier above df64 exists for it, and without an exact budget the
     # flagged bound must cover the true error
@@ -904,13 +979,52 @@ def main() -> int:
           f"{res.permanent!r} vs the exact rational {float(truth)!r}: true "
           f"rel err {rel_c:.3e}, err_est {am['err_est']:.3e}; "
           f"{res.algo_name}, auto {am}, {ryser_cuda.LAUNCHES} K1 launches, "
-          f"{ryser_cuda.AMP_LAUNCHES} amp")
+          f"amp walk launches {amp_counts()}")
     if am["escalated"] is not None or am.get("ladder") != "df64_max" \
             or am.get("low_confidence") is not True \
-            or "cond_walk_l2" not in am or ryser_cuda.AMP_LAUNCHES != 1 \
+            or "cond_walk_l2" not in am \
+            or amp_counts() != {"amp": 0, "cond": 1} \
             or not 4.0 * float(am["err_est"]) >= rel_c:
         raise AssertionError("auto on the landmine matrix: the flagged df64 "
                              "bound does not hold")
+    amp_launches["cond"] = amp_counts()["cond"]
+
+    # ---- 3f. tf96 where the chunk partials stand far above the
+    # permanent: the host sum of their words has to keep what they cancel
+    canc, canc_base = cancelling_matrix(SEED, 32, plan.r)
+    exact_c = spt.permanent(canc, calc="exact").meta["exact_fraction"]
+    if spt.permanent(canc_base, calc="exact").meta["exact_fraction"] \
+            != exact_c:
+        raise AssertionError("the cancelling matrix changed the permanent")
+    cs = _center_scales(canc, _row_scales(canc))
+    cx0, ccols = (torch.as_tensor(v, device=dev) for v in gray.pack_matrix(
+        np.ldexp(canc.astype(np.float64), -cs[:, None]), plan.n_pad))
+    words = ryser_cuda.ryser_partials(
+        torch.arange(plan.num_chunks, device=dev), cx0, ccols, n=32,
+        r=plan.r, tier="tf96").cpu().numpy()
+    t = time.perf_counter()
+    total = tf96.sum_words(words)
+    sum_ms = (time.perf_counter() - t) * 1e3
+    ratio = float(np.abs(words.sum(axis=1)).sum() / abs(float(total)))
+    # what a long-double sum of the same words (the reference's host
+    # reduction) would return
+    t = time.perf_counter()
+    ld = words.astype(np.longdouble).sum()
+    ld_ms = (time.perf_counter() - t) * 1e3
+    ld = -2 * np.ldexp(ld, int(cs.sum()))
+    zero_counts()
+    res = spt.permanent(canc, calc="tf96")
+    rel_t = rel_err(res.permanent, exact_c)
+    print(f"tf96 n=32, partials {ratio:.3e} times the permanent "
+          f"({CANCEL_PAIRS} row pairs of +-{CANCEL_C}): {res.permanent!r} vs "
+          f"the exact integer {exact_c}: rel err {rel_t:.3e} (limit "
+          f"{TF96_TOL:.0e}); a long-double sum of the same words: "
+          f"{rel_err(float(ld), exact_c):.3e}; host sum of the "
+          f"{words.shape[0]} pairs {sum_ms:.2f} ms (long double "
+          f"{ld_ms:.2f}); {res.algo_name}, {ryser_cuda.LAUNCHES} launches")
+    if not ratio >= 1e6 or res.algo_name != "ryser_cuda_tf96" \
+            or ryser_cuda.LAUNCHES <= 0 or not rel_t <= TF96_TOL:
+        raise AssertionError("tf96 on the cancelling matrix")
 
     # ---- 4. times at the full n=32 main-path plan
     ids = torch.arange(plan.num_chunks, device=dev)
@@ -944,22 +1058,28 @@ def main() -> int:
         k1[tier] = (kernel_ms, plain_ms, walk_bound(
             1 << 31, 32, tier, nbytes_of(ids, x0, cols, kern)))
 
-    # the amp tier at the same plan; its plain version ran on the sampled
-    # ids of phase 2e, whose sums the full plan must repeat
-    def run_amp():
-        return ryser_cuda.ryser_amp(ids, x0, cols, n=32, r=plan.r)
-
-    run_amp()                                             # warm-up
-    amp_ms, kern = cuda_ms(run_amp, 3)
+    # the amp tier's variants at the same plan; their plain versions ran
+    # on the sampled ids of phase 2e, whose sums the full plan must repeat
     live = sampled_ids >= 0
-    if not torch.equal(kern[sampled_ids[live]], amp_kern[live]):
-        raise AssertionError("amp: the full plan's sums differ from the "
-                             "sampled run's")
-    print(f"ryser_walk_amp, full plan: kernel {amp_ms:.3f} ms "
-          f"({(1 << 31) / amp_ms / 1e6:.1f} G steps/s); plain "
-          f"{amp_plain_ms:.1f} ms on the {sampled_ids.numel()} sampled ids, "
-          f"whose sums the full plan repeats bit for bit")
-    amp_bnd = amp_bound(1 << 31, 32, nbytes_of(ids, x0, cols, kern))
+    for variant, cond in amp_variants.items():
+        def run_amp():
+            return ryser_cuda.ryser_amp(ids, x0, cols, n=32, r=plan.r,
+                                        cond=cond)
+
+        run_amp()                                         # warm-up
+        amp_ms, kern = cuda_ms(run_amp, 3)
+        if not torch.equal(kern[sampled_ids[live]],
+                           amp_sampled[variant]["kern"][live]):
+            raise AssertionError(f"amp ({variant}): the full plan's sums "
+                                 f"differ from the sampled run's")
+        reg = regs.get(f"ryser_amp_kernel<{plan.n_pad},{4 + cond}>")
+        print(f"ryser_walk_amp ({variant}), full plan: kernel {amp_ms:.3f} "
+              f"ms ({(1 << 31) / amp_ms / 1e6:.1f} G steps/s), {reg} "
+              f"registers; plain {amp_sampled[variant]['plain_ms']:.1f} ms on "
+              f"the {sampled_ids.numel()} sampled ids, whose sums the full "
+              f"plan repeats bit for bit")
+        amp_sampled[variant].update(ms=amp_ms, registers=reg, bound=amp_bound(
+            1 << 31, 32, nbytes_of(ids, x0, cols, kern), cond))
 
     # the reduced kernel on the whole n=36 plan of each tier, as the
     # sparse path walks it
@@ -1043,11 +1163,16 @@ def main() -> int:
                       *reduced[tier], tier=tier,
                       plain_ms_chunks=sparse36[tier]["plain_chunks"])
                 for tier in TIERS]
-    kernels.append(entry("ryser_walk_amp",
-                         "superman_tpu_torch/csrc/ryser_walk.cu",
-                         "superman_tpu/ops/ryser_pallas.py:541",
-                         amp_launches, amp_err, amp_ms, amp_plain_ms,
-                         amp_bnd, plain_ms_chunks=int(sampled_ids.numel())))
+    # the amp walk once per variant: launches on the auto path that runs
+    # it (the amplitude alone to the exact rung at n=32, the conditioned
+    # one on the landmine matrix), times at the n=32 full plan
+    kernels += [entry("ryser_walk_amp",
+                      "superman_tpu_torch/csrc/ryser_walk.cu",
+                      "superman_tpu/ops/ryser_pallas.py:541",
+                      amp_launches[variant], v["err"], v["ms"], v["plain_ms"],
+                      v["bound"], variant=variant, registers=v["registers"],
+                      plain_ms_chunks=int(sampled_ids.numel()))
+                for variant, v in amp_sampled.items()]
     kernels.append(entry("modp_walk", "superman_tpu_torch/csrc/modp_walk.cu",
                          "superman_tpu/ops/modp.py:413", mod_launches,
                          mod_err, mod_ms, mod_plain_ms, mod_bound))

@@ -98,7 +98,8 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(path)
     for fn in (lib.ryser_walk_df64, lib.ryser_walk_f32, lib.ryser_walk_f32k,
-               lib.ryser_walk_tf96, lib.ryser_walk_amp):
+               lib.ryser_walk_tf96, lib.ryser_walk_amp,
+               lib.ryser_walk_amp_cond):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,

@@ -17,9 +17,10 @@
 // emulation, 16-step unroll, lane vectorisation and multi-block programs
 // have no counterpart here.
 //
-// ryser_amp_kernel is the same launch over walk_chunk_amp and writes four
-// words a chunk.  ryser_reduced_kernel walks a pruned list of live chunks
-// of a factored matrix: the pack holds the alive rows only (N_PAD is their
+// ryser_amp_kernel is the same launch over walk_chunk_amp and writes two
+// words a chunk (the amplitude), or four (with the conditioned term).
+// ryser_reduced_kernel walks a pruned list of live chunks of a factored
+// matrix: the pack holds the alive rows only (N_PAD is their
 // count rounded up to 8, so a step multiplies fewer rows than the matrix
 // has), each thread multiplies its chunk's partial by the chunk's weight,
 // the product of the factored rows, which it computes from its id, and the
@@ -65,12 +66,16 @@ ryser_walk_kernel(const long long* __restrict__ ids, long long num_chunks,
   out[2 * c + 1] = lo;
 }
 
-template <int N_PAD>
+// TIER is kAmp (2 words a chunk: amp hi, lo) or kAmpCond (4: amp hi, lo,
+// cond hi, lo).
+template <int N_PAD, int TIER>
 __global__ void __launch_bounds__(kThreads)
 ryser_amp_kernel(const long long* __restrict__ ids, long long num_chunks,
                  const double* __restrict__ x0,
                  const double* __restrict__ cols, int n, int r,
                  double* __restrict__ out) {
+  constexpr bool COND = TIER == walk::kAmpCond;
+  constexpr int W = COND ? 4 : 2;
   double* col_s = walk::shared_as<double>();
   for (int i = threadIdx.x; i < (n - 1) * N_PAD; i += blockDim.x)
     col_s[i] = cols[i];
@@ -79,11 +84,12 @@ ryser_amp_kernel(const long long* __restrict__ ids, long long num_chunks,
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= num_chunks) return;
   const long long l = ids[c];
-  double w[4] = {0.0, 0.0, 0.0, 0.0};
+  double w[W] = {};
   if (l >= 0)
-    walk::walk_chunk_amp<N_PAD>((unsigned long long)l, x0, col_s, n, r, w);
+    walk::walk_chunk_amp<N_PAD, COND>((unsigned long long)l, x0, col_s, n, r,
+                                      w);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) out[4 * c + i] = w[i];
+  for (int i = 0; i < W; ++i) out[W * c + i] = w[i];
 }
 
 // num_chunks is a multiple of kThreads (the wrapper pads with sentinels).
@@ -157,8 +163,8 @@ cudaError_t launch(const long long* ids, long long num_chunks, const void* x0,
   using T = typename walk::Real<TIER>::type;
   const long long blocks = (num_chunks + kThreads - 1) / kThreads;
   const size_t smem = (size_t)(n - 1) * N_PAD * sizeof(T);
-  if constexpr (TIER == walk::kAmp)
-    ryser_amp_kernel<N_PAD><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  if constexpr (TIER == walk::kAmp || TIER == walk::kAmpCond)
+    ryser_amp_kernel<N_PAD, TIER><<<(unsigned)blocks, kThreads, smem, stream>>>(
         ids, num_chunks, (const T*)x0, (const T*)cols, n, r, (T*)out);
   else
     ryser_walk_kernel<N_PAD, TIER><<<(unsigned)blocks, kThreads, smem,
@@ -255,13 +261,22 @@ extern "C" int ryser_walk_tf96(const long long* ids, long long num_chunks,
                           stream);
 }
 
-// The amp walk: x0 and cols double, out (num_chunks, 4) double.
+// The amp walk: x0 and cols double, out (num_chunks, 2) double; with the
+// conditioned term (_cond) out (num_chunks, 4).
 extern "C" int ryser_walk_amp(const long long* ids, long long num_chunks,
                               const double* x0, const double* cols, int n,
                               int n_pad, int r, double* out, int device,
                               void* stream) {
   return run<walk::kAmp>(ids, num_chunks, x0, cols, n, n_pad, r, out, device,
                          stream);
+}
+
+extern "C" int ryser_walk_amp_cond(const long long* ids, long long num_chunks,
+                                   const double* x0, const double* cols,
+                                   int n, int n_pad, int r, double* out,
+                                   int device, void* stream) {
+  return run<walk::kAmpCond>(ids, num_chunks, x0, cols, n, n_pad, r, out,
+                             device, stream);
 }
 
 // The weighted, block-reduced walk.  tier is 0 (df64), 1 (f32), 2 (f32k) or

@@ -23,14 +23,18 @@
 //   kTf96  x and the column table IEEE double, holding values that are
 //          exact in float32, so every x update is one exact add; each
 //          product a double-double (two doubles, ~104 bits): the first
-//          level of the tree is an exact TwoProd by FMA, the rest dd_mul;
-//          the accumulator a double-double sum (acc_merge).  The TPU
-//          carried this tier as float32 triples (~72 bits); the card has
-//          native double and FMA, so two doubles do better with less.
+//          level of the tree is an exact TwoProd by FMA, the rest
+//          double-double multiplies that skip the renormalisation, which
+//          is done once at the root; the accumulator a double-double sum
+//          (acc_merge).  The TPU carried this tier as float32 triples (~72
+//          bits); the card has native double and FMA, so two doubles do
+//          better with less.
 //   kAmp   the diagnostic walk of calc="auto" (walk_chunk_amp): signs are
-//          dropped and two sums are kept, the amplitude |prod x| and the
-//          conditioned term prod(max(|x|, eps)) * sum(1 / max(|x|, eps));
-//          x, the products and both TwoSum accumulators IEEE double.
+//          dropped and the amplitude |prod x| is summed in a TwoSum
+//          accumulator, x and the products IEEE double;
+//   kAmpCond  kAmp plus a second sum, the conditioned term
+//          sum_{i<n} prod_{j != i} max(|x_j|, eps), folded without a
+//          division (cond_fold).
 //
 // What bounds it on this card: arithmetic of the tier's type, about n
 // multiplies for the product plus n adds for the x update per step, and no
@@ -61,12 +65,14 @@ namespace walk {
 
 constexpr int kThreads = 128;
 
-enum Tier { kDf64 = 0, kF32 = 1, kF32k = 2, kTf96 = 3, kAmp = 4 };
+enum Tier { kDf64 = 0, kF32 = 1, kF32k = 2, kTf96 = 3, kAmp = 4,
+            kAmpCond = 5 };
 
 template <int TIER> struct Real { using type = float; };
 template <> struct Real<kDf64> { using type = double; };
 template <> struct Real<kTf96> { using type = double; };
 template <> struct Real<kAmp> { using type = double; };
+template <> struct Real<kAmpCond> { using type = double; };
 
 // p[0] = product of p[0..S): fold the upper half onto the lower half,
 // p[i] *= p[i + ceil(S/2)], until one element is left.  The plain version
@@ -104,31 +110,50 @@ __device__ __forceinline__ dd two_prod(double a, double b) {
   return {p, __fma_rn(a, b, -p)};
 }
 
-// a * b for double-doubles, relative error a few 2^-106: the exact product
-// of the high words, the two cross terms rounded, a.lo * b.lo dropped,
-// then a FastTwoSum.  ops/tf96.py dd_mul repeats it operation by operation.
-__device__ __forceinline__ dd dd_mul(dd a, dd b) {
+// Dekker's FastTwoSum, |a| >= |b|: a + b = hi + lo exactly, |lo| <=
+// ulp(hi) / 2.
+__device__ __forceinline__ dd fast_two_sum(double a, double b) {
+  const double hi = __dadd_rn(a, b);
+  return {hi, __dsub_rn(b, __dsub_rn(hi, a))};
+}
+
+// a * b for double-doubles, left un-normalised: the exact product of the
+// high words (hi, its error), the two cross terms rounded and added to
+// the error, a.lo * b.lo dropped.  Relative error a few 2^-106 whether or
+// not a and b are normalised: the next TwoProd takes the high words
+// exactly, and the cross terms carry a low word of a few ulp(hi) as well
+// as one of half an ulp.  ops/tf96.py dd_mul_unnorm repeats it.
+__device__ __forceinline__ dd dd_mul_unnorm(dd a, dd b) {
   const dd p = two_prod(a.hi, b.hi);
   const double cross =
       __dadd_rn(__dmul_rn(a.hi, b.lo), __dmul_rn(a.lo, b.hi));
-  const double e = __dadd_rn(p.lo, cross);
-  const double hi = __dadd_rn(p.hi, e);
-  return {hi, __dsub_rn(e, __dsub_rn(hi, p.hi))};
+  return {p.hi, __dadd_rn(p.lo, cross)};
 }
 
-// p[0] = product of p[0..S) in fold_prod's order, on double-doubles.
+// a * b for double-doubles, normalised: dd_mul_unnorm, then a FastTwoSum.
+// ops/tf96.py dd_mul repeats it operation by operation.
+__device__ __forceinline__ dd dd_mul(dd a, dd b) {
+  const dd p = dd_mul_unnorm(a, b);
+  return fast_two_sum(p.hi, p.lo);
+}
+
+// p[0] = product of p[0..S) in fold_prod's order, on double-doubles,
+// un-normalised.
 template <int S, int N>
 __device__ __forceinline__ void fold_prod_dd(dd (&p)[N]) {
   if constexpr (S > 1) {
     constexpr int NS = (S + 1) / 2;
 #pragma unroll
-    for (int i = 0; i < S / 2; ++i) p[i] = dd_mul(p[i], p[i + NS]);
+    for (int i = 0; i < S / 2; ++i) p[i] = dd_mul_unnorm(p[i], p[i + NS]);
     fold_prod_dd<NS, N>(p);
   }
 }
 
 // The tf96 tier's product of x[0..N_PAD): fold_prod's order, the first
-// level (x[i] * x[i + N_PAD/2], plain doubles) exact by TwoProd.
+// level (x[i] * x[i + N_PAD/2], plain doubles) exact by TwoProd, the rest
+// un-normalised (6 operations a multiply where a normalised one takes 9),
+// and one FastTwoSum at the root, so the accumulator sees a normalised
+// pair.
 template <int N_PAD>
 __device__ __forceinline__ dd tree_prod_dd(const double (&x)[N_PAD]) {
   static_assert(N_PAD % 2 == 0, "the first fold pairs all of x");
@@ -137,7 +162,7 @@ __device__ __forceinline__ dd tree_prod_dd(const double (&x)[N_PAD]) {
 #pragma unroll
   for (int i = 0; i < H; ++i) p[i] = two_prod(x[i], x[i + H]);
   fold_prod_dd<H, H>(p);
-  return p[0];
+  return fast_two_sum(p[0].hi, p[0].lo);
 }
 
 // Knuth TwoSum: a + b = s + e exactly.
@@ -280,73 +305,117 @@ __device__ __forceinline__ void walk_chunk(
 // float32 pair to resolve crossings this far, a double resolves further.
 constexpr double kAmpEps = 0x1p-45;
 
-// p[0] = product (MUL) or sum of p[0..S) in fold_prod's order, every
-// operation an intrinsic: the result feeds an add (TwoSum) that nvcc could
-// otherwise contract the last multiply into.
-template <int S, int N, bool MUL>
-__device__ __forceinline__ void fold_rn(double (&p)[N]) {
-  if constexpr (S > 1) {
-    constexpr int NS = (S + 1) / 2;
-#pragma unroll
-    for (int i = 0; i < S / 2; ++i)
-      p[i] = MUL ? __dmul_rn(p[i], p[i + NS]) : __dadd_rn(p[i], p[i + NS]);
-    fold_rn<NS, N, MUL>(p);
+// The two folds below evaluate fold_prod's tree depth first: node I of
+// level K (level 0 the leaves, level K has fold_size(N, K) nodes) is the
+// product of nodes I and I + fold_size(N, K) of level K-1, or node I
+// itself where level K-1 has an odd middle one.  Every node takes the
+// operations it takes in fold_prod, so the result is the same, but at most
+// one partial product a level is live at once: the walk keeps x (N_PAD
+// doubles) in registers besides.  Every multiply is an intrinsic, since
+// the results feed adds that nvcc could otherwise contract a multiply
+// into.
+__host__ __device__ constexpr int fold_size(int s, int k) {
+  return k == 0 ? s : fold_size((s + 1) / 2, k - 1);
+}
+
+__host__ __device__ constexpr int fold_depth(int s) {
+  return s <= 1 ? 0 : 1 + fold_depth((s + 1) / 2);
+}
+
+// prod |x[0..N)| in fold_prod's order.
+template <int N, int K, int I>
+__device__ __forceinline__ double abs_prod(const double (&x)[N]) {
+  if constexpr (K == 0) {
+    return fabs(x[I]);
+  } else if constexpr (I < fold_size(N, K - 1) / 2) {
+    return __dmul_rn(abs_prod<N, K - 1, I>(x),
+                     abs_prod<N, K - 1, I + fold_size(N, K)>(x));
+  } else {
+    return abs_prod<N, K - 1, I>(x);
   }
 }
 
-// One step's two terms: amp = prod |x_i| and
-// cond = prod max(|x_i|, eps) * sum_{i < n} 1 / max(|x_i|, eps), which is
-// sum_i prod_{j != i} of the clamped |x_j|: the weight of the walk's
-// within-line rounding error (a line at zero still contributes the product
-// of the others).  The padding rows (x = 1) multiply as identities and are
-// left out of the reciprocal sum: the kernel knows n, so it computes the
-// host formula (ops/ryser.py amp_cond_walk_log2) and not the reference
-// kernel's overcount of n_pad - n.  The products run in double: the rows
-// are scaled to |x| <~ 1, and a product of 32-64 such values, some clamped
-// to 2^-45, falls below float32's 2^-149 long before it leaves double's
-// range.  The reciprocal is IEEE (__drcp_rn, correctly rounded, the plain
-// version's 1 / x); products and the sum fold in tree_prod's order.
-template <int N_PAD>
+// The conditioned term: sum_{i<n} prod_{j != i} pc_j with pc_j =
+// max(|x_j|, eps), as one fold of (P, C) pairs in fold_prod's order.  A
+// leaf is (pc_i, 1) for a row i < n and (pc_i, 0) = (1, 0) for a padding
+// row (x = 1); two pairs combine as (P1 P2, C1 P2 + C2 P1), so a node's P
+// is the product of its leaves' pc and its C the sum over its real leaves
+// of the product of the others.  No division, no reciprocal.  At level 1
+// both children are leaves, whose C of 0 or 1 makes C1 P2 a choice
+// between 0 and P2.
+template <int N, int K, int I>
+__device__ __forceinline__ void cond_fold(const double (&x)[N], int n,
+                                          double& P, double& C) {
+  constexpr int S = fold_size(N, K);
+  if constexpr (K == 1) {
+    constexpr int J = I + S;       // N is even: every level-1 node pairs
+    const double a = fmax(fabs(x[I]), kAmpEps), b = fmax(fabs(x[J]), kAmpEps);
+    P = __dmul_rn(a, b);
+    C = __dadd_rn(I < n ? b : 0.0, J < n ? a : 0.0);
+  } else if constexpr (I < fold_size(N, K - 1) / 2) {
+    double P1, C1, P2, C2;
+    cond_fold<N, K - 1, I>(x, n, P1, C1);
+    cond_fold<N, K - 1, I + S>(x, n, P2, C2);
+    P = __dmul_rn(P1, P2);
+    C = __dadd_rn(__dmul_rn(C1, P2), __dmul_rn(C2, P1));
+  } else {
+    cond_fold<N, K - 1, I>(x, n, P, C);
+  }
+}
+
+// One step's terms: w-slot 0 gets amp = prod |x_i|; with COND, slot 2 gets
+// cond = sum_{i < n} prod_{j != i} of the clamped |x_j|: the weight of
+// the walk's within-line rounding error (a line at zero still contributes
+// the product of the others).  The padding rows multiply as identities
+// and are left out of the sum: the kernel knows n, so it computes the host
+// formula (ops/ryser.py amp_cond_walk_log2) and not the reference kernel's
+// overcount of n_pad - n.  The products run in double: the rows are
+// scaled to |x| <~ 1, and a product of 32-64 such values, some clamped to
+// 2^-45, falls below float32's 2^-149 long before it leaves double's
+// range.
+template <int N_PAD, bool COND>
 __device__ __forceinline__ void amp_terms(const double (&x)[N_PAD], int n,
                                           double& amp, double& cond) {
-  double p[N_PAD], pc[N_PAD], inv[N_PAD];
-#pragma unroll
-  for (int i = 0; i < N_PAD; ++i) {
-    p[i] = fabs(x[i]);
-    pc[i] = fmax(p[i], kAmpEps);
-    inv[i] = i < n ? __drcp_rn(pc[i]) : 0.0;
+  static_assert(N_PAD % 2 == 0, "the first fold pairs all of x");
+  constexpr int D = fold_depth(N_PAD);
+  amp = abs_prod<N_PAD, D, 0>(x);
+  if constexpr (COND) {
+    double P;
+    cond_fold<N_PAD, D, 0>(x, n, P, cond);
   }
-  fold_rn<N_PAD, N_PAD, true>(p);
-  fold_rn<N_PAD, N_PAD, true>(pc);
-  fold_rn<N_PAD, N_PAD, false>(inv);
-  amp = p[0];
-  cond = __dmul_rn(pc[0], inv[0]);
 }
 
-// The amp walk of chunk l: the steps of walk_chunk, the two terms of each
-// added without their sign into two TwoSum accumulators (hi the sum, lo
-// the running compensation, as in kF32k).  w = [amp hi, amp lo, cond hi,
-// cond lo].
-template <int N_PAD>
+// The amp walk of chunk l: the steps of walk_chunk, each step's terms
+// added without their sign into TwoSum accumulators (hi the sum, lo the
+// running compensation, as in kF32k).  w = [amp hi, amp lo] and with
+// COND [.., cond hi, cond lo].
+template <int N_PAD, bool COND>
 __device__ __forceinline__ void walk_chunk_amp(
     unsigned long long ul, const double* __restrict__ x0, const double* col_s,
-    int n, int r, double (&w)[4]) {
+    int n, int r, double (&w)[COND ? 4 : 2]) {
   double x[N_PAD];
   chunk_x<N_PAD, double>(ul, x0, col_s, n - 1, r, x);
   const double smid = (ul & 1ull) ? -1.0 : 1.0;
-  amp_terms<N_PAD>(x, n, w[0], w[2]);
-  w[1] = w[3] = 0.0;
+  double c0 = 0.0;
+  amp_terms<N_PAD, COND>(x, n, w[0], c0);
+  w[1] = 0.0;
+  if constexpr (COND) {
+    w[2] = c0;
+    w[3] = 0.0;
+  }
   const unsigned long long steps = 1ull << r;
   for (unsigned long long m = 1; m < steps; ++m) {
     step_x<N_PAD, double>(m, r, smid, col_s, x);
-    double a, c, s, e;
-    amp_terms<N_PAD>(x, n, a, c);
+    double a, c = 0.0, s, e;
+    amp_terms<N_PAD, COND>(x, n, a, c);
     two_sum(w[0], a, s, e);
     w[0] = s;
     w[1] += e;
-    two_sum(w[2], c, s, e);
-    w[2] = s;
-    w[3] += e;
+    if constexpr (COND) {
+      two_sum(w[2], c, s, e);
+      w[2] = s;
+      w[3] += e;
+    }
   }
 }
 

@@ -3,13 +3,13 @@
 Port of ``superman_tpu/drivers/runner.py`` for what the port carries so
 far: the exact engine (ops/ryser.py), dense and sparse (sparse=True, a
 SkipPer id, or by itself on clearly sparse matrices), in the df64, f32,
-f32k, tf96 and f64 tiers; the Glynn engine (ops/glynn.py,
-perman_algo="glynn") in the same tiers; the modular CRT exact engine
-(ops/exact.py, calc="exact"); and the accuracy-adaptive ladder over them
-(calc="auto").  Every other feature the flags can ask for raises
-NotImplementedError naming the ROADMAP item that brings it; none is
-ignored, so no result differs quietly from what the JAX package would
-return.
+f32k, tf96 and f64 tiers and the host's quad; the Glynn engine
+(ops/glynn.py, perman_algo="glynn") in the same tiers; the modular CRT
+exact engine (ops/exact.py, calc="exact"); and the accuracy-adaptive
+ladder over them (calc="auto").  Every other feature the flags can ask
+for raises NotImplementedError naming the ROADMAP item that brings it;
+none is ignored, so no result differs quietly from what the JAX package
+would return.
 """
 
 from __future__ import annotations
@@ -71,8 +71,10 @@ def run_algo(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     if flags.approximation:
         raise unported("approximation", 9)
     calc = flags.resolved_calc()
-    if calc == "quad" or (flags.cpu and not flags.gpu):
-        raise unported("the native CPU engine (cpu=True, calc='quad')", 12)
+    # calc="quad" needs no native library: the engines walk it on the
+    # host in long double, as the JAX package does without one
+    if flags.cpu and not flags.gpu:
+        raise unported("the native CPU engine (cpu=True)", 12)
     if flags.dm_prune:
         raise unported("Dulmage-Mendelsohn pruning", 10)
     from ..prep.orderings import apply_preprocessing
@@ -291,11 +293,12 @@ def _run_auto(dm: DenseMatrix, flags: Flags,
         """(seconds, feasible) of the exact CRT engine for this matrix —
         the ladder's last rung AND the price-of-truth attached to every
         flagged result.  The port always has a device to walk on, so
-        the rung is feasible whenever its price fits the budget."""
+        the rung is feasible whenever its price on that device fits the
+        budget."""
         from ..ops.exact import exact_cost_estimate
         budget = float(flags.auto_exact_budget_s)
         try:
-            secs, _, _ = exact_cost_estimate(a64, budget_s=budget)
+            secs, _, _ = exact_cost_estimate(a64, device, budget_s=budget)
         except Exception:
             secs = float("inf")
         return secs, secs < budget

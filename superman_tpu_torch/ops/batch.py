@@ -139,7 +139,7 @@ def permanent_batch_kernel(mats: np.ndarray, calc: str = "df64", device=None,
                              n=n, r=r, tier=calc)       # (B, blocks, 2)
         # one small copy per group; a matrix's few blocks are summed as
         # the single-matrix path sums its chunks: hi + lo, then float64
-        # (tf96: all the words in long double)
+        # (tf96: all the words as double-doubles, tf96.sum_words)
         o = out.cpu().numpy().astype(np.float64)
     if calc == "tf96":
         tot = sum_words(o)

@@ -228,13 +228,14 @@ _EXACT_FIXED_S = 0.005
 _PLAN_S_N32 = 0.024
 
 
-def exact_cost_estimate(a: np.ndarray,
+def exact_cost_estimate(a: np.ndarray, device: torch.device,
                         budget_s: float = None) -> Tuple[float, int, int]:
-    """(seconds, nprimes, core_n) for perman_exact_fraction on one card.
+    """(seconds, nprimes, core_n) for perman_exact_fraction on `device`.
 
     Every core with n >= 2 walks on the device: the price is the fixed
     cost of a call, the plan, and (31-bit prime count + 1) walks of the
-    plan's live steps at the Z_p kernel's measured rate
+    plan's live steps at the Z_p walk's measured rate on that device, the
+    kernel's on a card and the plain version's on the CPU
     (modp.card_cost_estimate).
 
     budget_s: the caller's acceptance threshold, if it has one.  Pricing
@@ -253,7 +254,7 @@ def exact_cost_estimate(a: np.ndarray,
     secs = _EXACT_FIXED_S + _PLAN_S_N32 * 2.0 ** (n - 32)
     if budget_s is not None and budget_s <= secs:
         return secs, npr, n         # already over budget; skip the plan
-    return secs + card_cost_estimate(core, bits), npr, n
+    return secs + card_cost_estimate(core, bits, device), npr, n
 
 
 def perman_exact_fraction(a: np.ndarray, device: torch.device,

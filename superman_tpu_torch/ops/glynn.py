@@ -61,18 +61,20 @@ def _pack_glynn(a_s: np.ndarray, n_pad: int):
 
 def glynn_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
     """Exact permanent of `dense` on `device` by the Glynn formula, calc
-    "df64", "f32", "f32k", "tf96" or "f64"."""
+    "df64", "f32", "f32k", "tf96" or "f64"; calc "quad" walks on the host
+    in long double whatever the device (single-threaded, practical up to
+    n ~ 24)."""
     a = np.asarray(dense.mat)
     n = a.shape[0]
     calc = flags.resolved_calc()
-    if calc not in ("df64", "f32", "f32k", "tf96", "f64"):
+    if calc not in ("df64", "f32", "f32k", "tf96", "f64", "quad"):
         raise ValueError(f"glynn_exact has no {calc!r} tier")
     t0 = time.perf_counter()
-    if n <= 2 or calc == "f64" or n < 19:
+    if n <= 2 or calc in ("quad", "f64") or n < 19:
         from .oracle import perman_glynn
-        # small-n tf96 keeps long-double precision on the host walk, the
-        # same contract as ryser_exact's host route
-        dt = np.longdouble if calc == "tf96" else np.float64
+        # quad (and small-n tf96) keep long-double precision on the host
+        # walk, the same contract as ryser_exact's host route
+        dt = np.longdouble if calc in ("quad", "tf96") else np.float64
         p = perman_glynn(a, dtype=dt)
         return Result(float(p), time.perf_counter() - t0,
                       algo_name="glynn_host", iterations=1 << max(n - 1, 0))

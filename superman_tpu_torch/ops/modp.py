@@ -35,6 +35,13 @@ PRIME_CEIL = (1 << 31) - 1
 #: dense plan (2^17 chunks of 2^14 steps, one 31-bit prime): 46.1-47.7 ms,
 #: 45-47 G steps/s (NVIDIA H100 80GB HBM3, 700.00 W)
 K3_GITERS = 45.0
+#: the plain Z_p walk's rate on the CPU in G Gray steps per second, what
+#: calc="auto" prices the exact rung at on device="cpu".  Measured by
+#: tools/kernel_time.py --tier modp --device cpu --n 24 (2^23 steps, one
+#: prime, 8 torch threads, median of 3): 0.0032 on the x86_64 host of an
+#: NVIDIA H100 80GB HBM3 machine, 0.0042 on another x86_64 host; some
+#: 14,000 times below K3
+PLAIN_GITERS = 0.003
 
 
 # --------------------------------------------------------- host packing
@@ -277,16 +284,19 @@ def core_plan(core, *, giters: float = None):
     return out
 
 
-def card_cost_estimate(core, bound_bits: float) -> float:
-    """Rough seconds of the walks of the full CRT run of this core on one
-    card: (31-bit primes for bound_bits, plus the verifier) times the live
-    steps of the plan the run would walk, at the Z_p kernel's measured
-    rate.  Computes (and caches) the real pruned plan."""
+def card_cost_estimate(core, bound_bits: float,
+                       device: torch.device) -> float:
+    """Rough seconds of the walks of the full CRT run of this core on
+    `device`: (31-bit primes for bound_bits, plus the verifier) times the
+    live steps of the plan the run would walk, at the Z_p kernel's
+    measured rate on a card (K3_GITERS) and the plain version's on the CPU
+    (PLAIN_GITERS).  Computes (and caches) the real pruned plan."""
     n = len(core)
     nprimes = max(1, math.ceil(bound_bits / math.log2(PRIME_CEIL))) + 1
     pl_ = core_plan(core)
     live = (1 << max(0, n - 1)) if pl_ is None else (len(pl_[1]) << pl_[2])
-    return nprimes * live / (K3_GITERS * 1e9)
+    giters = K3_GITERS if device.type == "cuda" else PLAIN_GITERS
+    return nprimes * live / (giters * 1e9)
 
 
 # ------------------------------------------------------------ the driver

@@ -1,6 +1,6 @@
 """Exact-permanent engine: planning, dispatch, reduction (dense and
-sparse, tiers df64, f32, f32k, tf96 and f64), and the amplitude walk that
-prices those tiers for calc="auto".
+sparse, tiers df64, f32, f32k, tf96 and f64; quad on the host), and the
+amplitude walk that prices those tiers for calc="auto".
 
 Port of ``superman_tpu/ops/ryser.py`` for one device.  The host side (row
 scales, sparse plan, pack, underflow retry, sign and 2^E) is the
@@ -135,8 +135,9 @@ def amp_cond_walk_log2(a: np.ndarray, device: torch.device) -> tuple:
     mid-walk divides its carried error by |x_i|, which the plain
     amplitude cannot see.  The sampled probe
     (drivers/runner._amp_probe_log2) additionally underestimates
-    heavy-tailed term distributions by 50+ bits; this walk runs the amp
-    tier of the walk kernel (ops/ryser_cuda.ryser_amp) over every chunk.
+    heavy-tailed term distributions by 50+ bits; this walk runs the
+    conditioned variant of the walk kernel's amp tier
+    (ops/ryser_cuda.ryser_amp, cond=True) over every chunk.
 
     Returns (log2 amp, log2 cond); (-inf, -inf) for a structurally zero
     walk, (+inf, +inf) when the measurement could not be stabilized
@@ -145,10 +146,24 @@ def amp_cond_walk_log2(a: np.ndarray, device: torch.device) -> tuple:
     path, both far past any float tier's escape hatch (a bound >= 2^-3
     relative already reads "no correct digits").
     """
+    return _amp_walk_log2(a, device, cond=True)
+
+
+def amp_walk_log2(a: np.ndarray, device: torch.device) -> float:
+    """log2 of the exact Ryser amplitude alone (see amp_cond_walk_log2):
+    the amplitude-only variant of the amp tier, which skips the
+    conditioned term."""
+    return _amp_walk_log2(a, device, cond=False)[0]
+
+
+def _amp_walk_log2(a: np.ndarray, device: torch.device, cond: bool) -> tuple:
+    """(log2 amp, log2 cond) as amp_cond_walk_log2 gives them; without
+    cond, (log2 amp, None)."""
     a = np.asarray(a, dtype=np.float64)
     n = a.shape[0]
     if n == 0 or not np.all(np.any(a != 0, axis=1)):
-        return float("-inf"), float("-inf")  # empty row: every x_i(m) = 0
+        # empty row: every x_i(m) = 0
+        return float("-inf"), float("-inf") if cond else None
     if n < 19:
         # host-exact: the full index space is tiny; same math as the
         # sampled probe but exhaustive (and in log space, no overflow)
@@ -164,9 +179,6 @@ def amp_cond_walk_log2(a: np.ndarray, device: torch.device) -> tuple:
         with np.errstate(divide="ignore"):
             logt = np.where(np.all(ax != 0, axis=1),
                             np.log2(ax).sum(axis=1), -np.inf)
-        axc = np.maximum(ax, S[None, :] * 2.0 ** -50)
-        logc = (np.log2(axc).sum(axis=1)
-                + np.log2((S[None, :] / axc).sum(axis=1)))
 
         def _lse2(v):
             fin = v[np.isfinite(v)]
@@ -175,6 +187,11 @@ def amp_cond_walk_log2(a: np.ndarray, device: torch.device) -> tuple:
             mx = float(fin.max())
             return mx + float(np.log2(np.exp2(fin - mx).sum()))
 
+        if not cond:
+            return _lse2(logt), None
+        axc = np.maximum(ax, S[None, :] * 2.0 ** -50)
+        logc = (np.log2(axc).sum(axis=1)
+                + np.log2((S[None, :] / axc).sum(axis=1)))
         return _lse2(logt), _lse2(logc)
     from ..parallel.sharding import compute_amp
     plan = gray.make_plan(n, sms=_sm_count(device))
@@ -193,27 +210,22 @@ def amp_cond_walk_log2(a: np.ndarray, device: torch.device) -> tuple:
         scales = s_raw - c
         a_s = np.ldexp(a, -scales[:, None])
         x0, cols = gray.pack_matrix(a_s, plan.n_pad)
-        partials = compute_amp(ids_blocks, x0, cols, plan, device)
+        partials = compute_amp(ids_blocks, x0, cols, plan, device, cond)
         total = float(partials[0].sum(dtype=np.float64))
-        cond = float(partials[1].sum(dtype=np.float64))
-        if np.isfinite(total) and total > 0.0 and np.isfinite(cond):
+        cw = float(partials[1].sum(dtype=np.float64)) if cond else 0.0
+        if np.isfinite(total) and total > 0.0 and np.isfinite(cw):
             # row scaling is exact powers of two; the amplitude recovers
             # by 2^sum(scales), the conditioned total by an extra 2^c
             # (each row's true amplitude weight is 2^s_raw_i = 2^c times
             # the kernel's unit assumption)
             ssum = int(scales.sum())
             return (float(np.log2(total) + ssum),
-                    float(np.log2(cond) + ssum + c))
+                    float(np.log2(cw) + ssum + c) if cond else None)
         if total == 0.0:
             shift += max(1, 64 // n)    # underflow: grow the terms
         else:
             shift -= max(1, 64 // n)    # overflow: shrink the terms
-    return float("inf"), float("inf")
-
-
-def amp_walk_log2(a: np.ndarray, device: torch.device) -> float:
-    """log2 of the exact Ryser amplitude alone (see amp_cond_walk_log2)."""
-    return amp_cond_walk_log2(a, device)[0]
+    return float("inf"), float("inf") if cond else None
 
 
 def _sm_count(device: torch.device) -> int:
@@ -225,7 +237,9 @@ def _sm_count(device: torch.device) -> int:
 def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                 chunk_ids: Optional[np.ndarray] = None) -> Result:
     """Exact permanent of `dense` on `device`, calc "df64", "f32",
-    "f32k", "tf96" or "f64".
+    "f32k", "tf96" or "f64"; calc "quad" walks on the host in long
+    double whatever the device (single-threaded, practical up to
+    n ~ 24).
 
     chunk_ids: optional pruned live-chunk list at the dense plan's chunk
     length (pruned chunks contribute exactly zero, so no correction term
@@ -236,7 +250,7 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
     a = np.asarray(dense.mat)
     n = a.shape[0]
     calc = flags.resolved_calc()
-    if calc not in ("df64", "f32", "f32k", "tf96", "f64"):
+    if calc not in ("df64", "f32", "f32k", "tf96", "f64", "quad"):
         raise ValueError(f"ryser_exact has no {calc!r} tier")
     t0 = time.perf_counter()
 
@@ -246,14 +260,17 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
         return Result(float(p), time.perf_counter() - t0,
                       algo_name="ryser_exact", iterations=1)
 
-    if calc == "tf96" and n < 19:
-        # small n: the host long-double walk, which meets the tier's
-        # contract; the float64 walk below would quietly degrade it
+    if calc == "quad" or (calc == "tf96" and n < 19):
+        # quad: the host long-double walk, as the JAX package serves it
+        # without its native library (single-threaded host work,
+        # practical up to n ~ 24).  Small-n tf96 lands here too: the walk
+        # meets the tier's contract, the float64 walk below would quietly
+        # degrade it
         from .oracle import perman64
         p = perman64(a, dtype=np.longdouble)
         return Result(float(p), time.perf_counter() - t0,
-                      algo_name="ryser_tf96_host", iterations=1 << (n - 1),
-                      meta={"calc": calc})
+                      algo_name=f"ryser_{calc}_host",
+                      iterations=1 << (n - 1), meta={"calc": calc})
 
     if calc == "f64" or n < 19:
         from .ryser_walk import ryser_walk

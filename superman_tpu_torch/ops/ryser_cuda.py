@@ -13,8 +13,8 @@ The counterpart of ``superman_tpu/ops/ryser_pallas.py``, whose two
   engine's walk of the alive rows over a pruned id list, each chunk
   weighted by its factored rows and each block of 128 chunks reduced to
   one pair; and ``ryser_amp`` (``amp=True``: ``_amp_terms``), the
-  unsigned amplitude and conditioned-amplitude sums that price the float
-  tiers for ``calc="auto"``.
+  unsigned amplitude sum that prices the float tiers for ``calc="auto"``,
+  and, as a second variant, the conditioned-amplitude sum beside it.
 * ``batch_partials`` (``_ryser_kernel_batch`` and the ``_merge_out8`` lane
   reduction after it) is ``csrc/ryser_batch.cu``: a stack of B matrices of
   one order, each walked whole by its own blocks of 128 chunks, every
@@ -49,8 +49,10 @@ LAUNCHES = 0
 BATCH_LAUNCHES = 0
 #: kernel launches made by ryser_reduced, per tier
 REDUCED_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0, "tf96": 0}
-#: kernel launches made by ryser_amp
+#: kernel launches made by ryser_amp, both variants; AMP_COND_LAUNCHES
+#: counts those with the conditioned term
 AMP_LAUNCHES = 0
+AMP_COND_LAUNCHES = 0
 
 #: the amp walk's within-line clamp (csrc/walk.cuh kAmpEps)
 AMP_EPS = 2.0 ** -45
@@ -182,11 +184,6 @@ def _tree_fold(x: torch.Tensor, op) -> torch.Tensor:
 def tree_prod(x: torch.Tensor) -> torch.Tensor:
     """Product over the last dim in the kernel's fold order."""
     return _tree_fold(x, torch.mul)
-
-
-def tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last dim in tree_prod's fold order."""
-    return _tree_fold(x, torch.add)
 
 
 def acc_add(hi, lo, t, tier: str):
@@ -361,69 +358,88 @@ def ryser_reduced_ref(ids: torch.Tensor, x0: torch.Tensor,
 
 
 def ryser_amp(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor, *,
-              n: int, r: int) -> torch.Tensor:
+              n: int, r: int, cond: bool = True) -> torch.Tensor:
     """Per-chunk amplitude sums of the Gray walk, the amp tier: every term
     without its sign.
 
     ids, x0, cols as in ryser_partials; x walks in float64.
-    Returns (C, 4) float64: [amp hi, amp lo, cond hi, cond lo], where
-    amp = sum over the chunk's steps of prod_i |x_i| and cond = sum of
-    prod_i max(|x_i|, eps) * sum_{i < n} 1 / max(|x_i|, eps), eps =
-    AMP_EPS; hi is a TwoSum-compensated sum and lo its compensation, so a
-    chunk's value is hi + lo.  Sentinels give 0.
+    Returns (C, 2) float64, [amp hi, amp lo], where amp = sum over the
+    chunk's steps of prod_i |x_i|; with cond, (C, 4): [amp hi, amp lo,
+    cond hi, cond lo], where cond = sum of sum_{i < n} prod_{j != i}
+    max(|x_j|, eps), eps = AMP_EPS.  hi is a TwoSum-compensated sum and
+    lo its compensation, so a chunk's value is hi + lo.  Sentinels give 0.
 
     A CUDA tensor launches the kernel (and raises if it cannot); a CPU
     tensor runs the plain version.
     """
-    global AMP_LAUNCHES
+    global AMP_LAUNCHES, AMP_COND_LAUNCHES
     _check(ids, x0, cols, n, r)
     if ids.device.type == "cpu":
-        return ryser_amp_ref(ids, x0, cols, n=n, r=r)
+        return ryser_amp_ref(ids, x0, cols, n=n, r=r, cond=cond)
     if ids.device.type != "cuda":
         raise ValueError(f"unsupported device {ids.device}")
     from ..csrc.build import load
     lib = load()
-    out = torch.empty((ids.shape[0], 4), dtype=torch.float64,
+    name = "ryser_walk_amp_cond" if cond else "ryser_walk_amp"
+    out = torch.empty((ids.shape[0], 4 if cond else 2), dtype=torch.float64,
                       device=ids.device)
     if ids.shape[0] == 0:
         return out
     stream = torch.cuda.current_stream(ids.device).cuda_stream
-    rc = lib.ryser_walk_amp(
+    rc = getattr(lib, name)(
         ids.data_ptr(), ids.shape[0], x0.data_ptr(), cols.data_ptr(),
         n, x0.shape[0], r, out.data_ptr(), ids.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"ryser_walk_amp launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     AMP_LAUNCHES += 1
+    AMP_COND_LAUNCHES += cond
     return out
 
 
-def amp_terms(x: torch.Tensor, n: int):
-    """(amp, cond) of one step (csrc/walk.cuh amp_terms): the product of
-    |x|, and the product of the clamped |x| times the sum of their
-    reciprocals over the n real rows; products and sum in tree_prod's
-    fold order, the padding rows' reciprocals replaced by 0."""
-    ax = x.abs()
-    axc = ax.clamp(min=AMP_EPS)
-    real = torch.arange(x.shape[-1], device=x.device) < n
-    inv = torch.where(real, 1.0 / axc, 0.0)
-    return tree_prod(ax), tree_prod(axc) * tree_sum(inv)
+def cond_fold(x: torch.Tensor, n: int) -> torch.Tensor:
+    """sum_{i < n} prod_{j != i} max(|x_j|, AMP_EPS) over the last dim
+    (csrc/walk.cuh cond_fold): a fold of (P, C) pairs in tree_prod's
+    order, leaves (pc_i, 1) for the n real rows and (pc_i, 0) for the
+    padding, pairs combined as (P1 P2, C1 P2 + C2 P1).  The last dim must
+    be even."""
+    pc = x.abs().clamp(min=AMP_EPS)
+    s = pc.shape[-1]
+    if s % 2:
+        raise ValueError(f"the last dim must be even, got {s}")
+    real = (torch.arange(s, device=x.device) < n).to(pc.dtype)
+    s //= 2
+    p = pc[..., :s] * pc[..., s:]
+    c = real[:s] * pc[..., s:] + real[s:] * pc[..., :s]
+    while s > 1:
+        ns, h = (s + 1) // 2, s // 2
+        p1, p2, c1, c2 = p[..., :h], p[..., ns:s], c[..., :h], c[..., ns:s]
+        pn, cn = p1 * p2, c1 * p2 + c2 * p1
+        if h != ns:                     # odd level: the middle one waits
+            pn = torch.cat([pn, p[..., h:ns]], dim=-1)
+            cn = torch.cat([cn, c[..., h:ns]], dim=-1)
+        p, c, s = pn, cn, ns
+    return c[..., 0]
+
+
+def amp_terms(x: torch.Tensor, n: int, cond: bool = True) -> list:
+    """One step's terms (csrc/walk.cuh amp_terms): [prod |x|] in
+    tree_prod's order, and with cond the conditioned term cond_fold."""
+    amp = tree_prod(x.abs())
+    return [amp, cond_fold(x, n)] if cond else [amp]
 
 
 def ryser_amp_ref(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
-                  *, n: int, r: int) -> torch.Tensor:
-    """Plain PyTorch version of the amp kernel: the walk's steps, both
-    terms added into TwoSum accumulators (hi the sum, lo the running
-    compensation)."""
+                  *, n: int, r: int, cond: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the amp kernel: the walk's steps, each
+    step's terms added into TwoSum accumulators (hi the sum, lo the
+    running compensation)."""
     x, sign_mid = gray.chunk_init(ids, x0, cols, n, r)
-    ahi, chi = amp_terms(x, n)
-    alo, clo = torch.zeros_like(ahi), torch.zeros_like(chi)
+    acc = [(t, torch.zeros_like(t)) for t in amp_terms(x, n, cond)]
     for _, x in _walk_steps(x, sign_mid, cols, r):
-        a, c = amp_terms(x, n)
-        ahi, e = two_sum(ahi, a)
-        alo = alo + e
-        chi, e = two_sum(chi, c)
-        clo = clo + e
-    out = torch.stack([ahi, alo, chi, clo], dim=1)
+        for k, t in enumerate(amp_terms(x, n, cond)):
+            hi, e = two_sum(acc[k][0], t)
+            acc[k] = (hi, acc[k][1] + e)
+    out = torch.stack([w for pair in acc for w in pair], dim=1)
     return torch.where((ids < 0)[:, None], 0.0, out)
 
 

@@ -9,10 +9,10 @@ its running sum to better than 2^-70 on exact x) and is not the
 reference's word layout.
 
 These are the plain versions of what the CUDA walk does per thread in
-its tf96 tier (csrc/walk.cuh: two_prod, dd_mul, tree_prod_dd, and
-acc_merge for the sum).  They take torch tensors, on the CPU or a card,
-and repeat the kernel's operations one by one, so kernel and plain
-version agree to the last bit:
+its tf96 tier (csrc/walk.cuh: two_prod, dd_mul_unnorm, dd_mul,
+tree_prod_dd, and acc_merge for the sum).  They take torch tensors, on
+the CPU or a card, and repeat the kernel's operations one by one, so
+kernel and plain version agree to the last bit:
 
 * The kernel forms the error of a product with one fused multiply-add,
   e = fma(a, b, -p).  PyTorch has none on the CPU, so two_prod here
@@ -28,8 +28,6 @@ version agree to the last bit:
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
@@ -38,7 +36,8 @@ from .df64 import quick_two_sum, two_sum
 #: Veltkamp's splitter for float64: 2^27 + 1
 SPLITTER = 134217729.0
 #: whether np.longdouble carries more than a double (x87: 63 explicit
-#: mantissa bits).  Where it does not, sum_words adds exactly instead.
+#: mantissa bits), so that a total keeps bits below a double until the
+#: engine's last rounding
 LONGDOUBLE_WIDE = np.finfo(np.longdouble).nmant > 52
 
 
@@ -58,13 +57,19 @@ def two_prod(a, b):
     return p, e
 
 
-def dd_mul(ahi, alo, bhi, blo):
-    """(ahi, alo) * (bhi, blo) -> (hi, lo), relative error a few 2^-106:
-    the exact product of the high words, the two cross terms rounded,
-    alo * blo dropped, then a FastTwoSum."""
+def dd_mul_unnorm(ahi, alo, bhi, blo):
+    """(ahi, alo) * (bhi, blo) -> (hi, lo) left un-normalised, relative
+    error a few 2^-106 on normalised or un-normalised operands: the exact
+    product of the high words, the two cross terms rounded and added to
+    its error, alo * blo dropped.  lo may exceed ulp(hi) / 2."""
     p, e = two_prod(ahi, bhi)
-    e = e + (ahi * blo + alo * bhi)
-    return quick_two_sum(p, e)
+    return p, e + (ahi * blo + alo * bhi)
+
+
+def dd_mul(ahi, alo, bhi, blo):
+    """(ahi, alo) * (bhi, blo) -> (hi, lo), normalised: dd_mul_unnorm,
+    then a FastTwoSum."""
+    return quick_two_sum(*dd_mul_unnorm(ahi, alo, bhi, blo))
 
 
 def dd_add(ahi, alo, bhi, blo):
@@ -79,8 +84,9 @@ def tree_prod_dd(x: torch.Tensor):
     """Product over the last dim of exact float64 values as a (hi, lo)
     pair, in the kernel's order: fold the upper half onto the lower
     (p[i] *= p[i + ceil(s/2)]) until one is left.  The first level
-    multiplies plain doubles, exactly (two_prod); the rest are dd_mul.
-    The last dim must be even (the packs' n_pad is a multiple of 8)."""
+    multiplies plain doubles, exactly (two_prod); the rest are
+    dd_mul_unnorm, and the root is normalised once (FastTwoSum).  The
+    last dim must be even (the packs' n_pad is a multiple of 8)."""
     s = x.shape[-1]
     if s % 2:
         raise ValueError(f"the last dim must be even, got {s}")
@@ -88,24 +94,35 @@ def tree_prod_dd(x: torch.Tensor):
     hi, lo = two_prod(x[..., :s], x[..., s:])
     while s > 1:
         ns, h = (s + 1) // 2, s // 2
-        phi, plo = dd_mul(hi[..., :h], lo[..., :h],
-                          hi[..., ns:s], lo[..., ns:s])
+        phi, plo = dd_mul_unnorm(hi[..., :h], lo[..., :h],
+                                 hi[..., ns:s], lo[..., ns:s])
         if h != ns:                     # odd level: the middle one waits
             phi = torch.cat([phi, hi[..., h:ns]], dim=-1)
             plo = torch.cat([plo, lo[..., h:ns]], dim=-1)
         hi, lo, s = phi, plo, ns
-    return hi[..., 0], lo[..., 0]
+    return quick_two_sum(hi[..., 0], lo[..., 0])
 
 
 def sum_words(words: np.ndarray) -> np.ndarray:
     """Host reduction of the tier: words is (..., C, 2) float64, the
     (hi, lo) pairs of C partial sums; returns their total as np.longdouble
-    of shape (...).  Summed in long double where that is wider than a
-    double (the reference's reduction); elsewhere every word is added
-    exactly (math.fsum), so the tier does not quietly end at double."""
+    of shape (...).  The pairs are added as double-doubles (dd_add) in a
+    fixed halving order, which errs by ~log2(C) 2^-105 of the partials'
+    magnitudes, and the last pair is joined in long double.  A long-double
+    sum of the words (the reference's reduction) errs by ~2^-64 of them,
+    which chip_smoke.py's cancelling matrix (partials ~7e7 above the
+    permanent) shows: there it misses the exact integer by ~5e-13."""
     words = np.asarray(words, dtype=np.float64)
-    if LONGDOUBLE_WIDE:
-        return words.astype(np.longdouble).sum(axis=(-2, -1))
-    flat = words.reshape(-1, words.shape[-2] * 2)
-    return np.array([math.fsum(row) for row in flat],
-                    dtype=np.longdouble).reshape(words.shape[:-2])
+    hi, lo = words[..., 0], words[..., 1]
+    if hi.shape[-1] == 0:
+        return np.zeros(hi.shape[:-1], dtype=np.longdouble)
+    while hi.shape[-1] > 1:
+        c = hi.shape[-1]
+        h = c // 2
+        shi, slo = dd_add(hi[..., :h], lo[..., :h], hi[..., h:2 * h],
+                          lo[..., h:2 * h])
+        if c % 2:                       # odd count: the last one waits
+            shi = np.concatenate([shi, hi[..., 2 * h:]], axis=-1)
+            slo = np.concatenate([slo, lo[..., 2 * h:]], axis=-1)
+        hi, lo = shi, slo
+    return hi[..., 0].astype(np.longdouble) + lo[..., 0]

@@ -3,9 +3,9 @@
 Port of the single-device branch of ``superman_tpu/parallel/sharding.py``.
 Every chunk costs exactly 2^r Gray steps, so an equal split is balanced by
 construction; the final, exactness-critical reduction happens on the host
-in float64, and in long double for the tf96 tier.  The sparse engine's
-pruned plan goes through the weighted, block-reduced walk
-(compute_total with factors).  Multi-device runs come with the rest of
+in float64, and for the tf96 tier as a double-double (tf96.sum_words).
+The sparse engine's pruned plan goes through the weighted, block-reduced
+walk (compute_total with factors).  Multi-device runs come with the rest of
 the parallel layer.
 """
 
@@ -81,8 +81,7 @@ def compute_total(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                   sms: int = gray.DEFAULT_SMS):
     """The scaled total of the walk: the sum of compute_partials over all
     chunks, a float, or for tf96 an np.longdouble summed from the words
-    (tf96.sum_words: in long double, or exactly where long double is no
-    wider than double).
+    (tf96.sum_words: pairwise as double-doubles).
 
     factors: None for the dense walk.  For the sparse engine's pruned
     plan, the (fx0, fcols) pack of the factored rows ((0,) and (n-1, 0)
@@ -102,14 +101,16 @@ def compute_total(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
 
 
 def compute_amp(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
-                plan: gray.RyserPlan, device: torch.device) -> np.ndarray:
-    """The amp walk over the (B, L) chunk ids: a (2, B, L) float64 host
-    array, [0] each chunk's amplitude sum and [1] its conditioned
-    amplitude sum (hi + lo of ryser_amp's words), 0 for sentinel ids."""
+                plan: gray.RyserPlan, device: torch.device,
+                cond: bool = True) -> np.ndarray:
+    """The amp walk over the (B, L) chunk ids: a (1, B, L) float64 host
+    array of each chunk's amplitude sum, or with cond (2, B, L) with its
+    conditioned amplitude sum in [1] (hi + lo of ryser_amp's words), 0
+    for sentinel ids."""
     ids = torch.as_tensor(ids_blocks.reshape(-1), dtype=torch.int64)
     out = ryser_amp(ids.to(device),
                     torch.as_tensor(x0, dtype=torch.float64).to(device),
                     torch.as_tensor(cols, dtype=torch.float64).to(device),
-                    n=plan.n, r=plan.r).cpu().numpy()
-    return np.stack([out[:, 0] + out[:, 1], out[:, 2] + out[:, 3]]
-                    ).reshape((2,) + ids_blocks.shape)
+                    n=plan.n, r=plan.r, cond=cond).cpu().numpy()
+    return (out[:, 0::2] + out[:, 1::2]).T.reshape(
+        (out.shape[1] // 2,) + ids_blocks.shape)

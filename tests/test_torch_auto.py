@@ -8,6 +8,7 @@ tests run it (Pallas in interpret mode).
 """
 
 import math
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -226,6 +227,91 @@ def test_amp_plain_matches_reference_kernel_per_chunk(kind):
     assert ratio.max() <= 1.0 + 1e-5 and ratio.min() >= 20.0 / 24.0 - 1e-5
 
 
+def line_at_zero_matrix():
+    """test_amp_plain_clamps_a_line_at_zero's matrix: row 2 is 0 + 2 * bit_0,
+    so its x is exactly 0 at half of the steps."""
+    a = random_int_matrix(np.random.default_rng(3), 8, 1.0, vmax=3)
+    a[2, :] = 0
+    a[2, 7], a[2, 0] = 2, 2
+    return a
+
+
+@pytest.mark.parametrize("case", ["real10", "real13", "real20", "zero_line",
+                                  "padding"])
+def test_cond_fold_against_exact_fractions(case):
+    """The conditioned term's (P, C) fold, on the walk states x of a
+    chunk (padding rows x = 1 where n_pad > n), against
+    sum_{i<n} prod_{j != i} max(|x_j|, eps) in exact Fractions: within
+    1e-13 relative (every operation adds positive values, a product of
+    n_pad factors rounds some 2 log2(n_pad) times by 2^-53)."""
+    if case == "zero_line":
+        a = line_at_zero_matrix()
+    elif case == "padding":            # n = 9 in n_pad = 16: 7 padding rows
+        a = random_float_matrix(np.random.default_rng(9), 9, 0.8) - 0.5
+    else:
+        n = int(case[4:])
+        a = random_float_matrix(np.random.default_rng(n), n, 0.7) - 0.4
+    n = a.shape[0]
+    n_pad = gray.pad_n(n)
+    _, (x0, cols) = scaled_pack(a, n_pad)
+    r = 2
+    ids = torch.arange(min(64, 1 << (n - 1 - r)))
+    x, sign_mid = gray.chunk_init(ids, x0, cols, n, r)
+    xs = [x] + [xm for _, xm in ryser_cuda._walk_steps(x, sign_mid, cols, r)]
+    clamped = 0
+    for x in xs:
+        got = ryser_cuda.cond_fold(x, n)
+        for k in range(x.shape[0]):
+            pc = [max(abs(Fraction(float(v))), Fraction(ryser_cuda.AMP_EPS))
+                  for v in x[k].tolist()]
+            clamped += sum(v == 0 for v in x[k, :n].tolist())
+            prod_all = math.prod(pc)
+            want = sum(prod_all / pc[i] for i in range(n))
+            assert abs(Fraction(float(got[k])) - want) <= want * Fraction(
+                1, 10 ** 13)
+    if case == "zero_line":
+        assert clamped > 0
+
+
+@pytest.mark.parametrize("kind", ["int", "real"])
+def test_amp_only_plain_walk_equals_cond_amplitude(kind):
+    """The amplitude-only variant's plain walk writes two words a chunk,
+    bit for bit the first two of the conditioned variant's four."""
+    n, r = 14, 4
+    rng = np.random.default_rng(14)
+    a = (random_int_matrix(rng, n, 0.6) if kind == "int"
+         else random_float_matrix(rng, n, 0.8) - 0.5)
+    _, (x0, cols) = scaled_pack(a, gray.pad_n(n))
+    ids = torch.cat([torch.arange(1 << (n - 1 - r)), torch.tensor([-1])])
+    amp = ryser_cuda.ryser_amp(ids, x0, cols, n=n, r=r, cond=False)
+    both = ryser_cuda.ryser_amp(ids, x0, cols, n=n, r=r)
+    assert tuple(amp.shape) == (ids.numel(), 2)
+    assert tuple(both.shape) == (ids.numel(), 4)
+    assert torch.equal(amp, both[:, :2])
+    assert not amp[-1].any()
+
+
+def test_amp_walk_log2_takes_the_amplitude_only_route(monkeypatch):
+    """amp_walk_log2 walks the amplitude alone (cond=False on every call
+    of the plain version) and amp_cond_walk_log2 the conditioned variant;
+    both give the same log2 amp at n=20 (the kernel route)."""
+    calls = []
+    real = ryser_cuda.ryser_amp_ref
+
+    def counting(*args, cond=True, **kw):
+        calls.append(cond)
+        return real(*args, cond=cond, **kw)
+
+    monkeypatch.setattr(ryser_cuda, "ryser_amp_ref", counting)
+    a = random_float_matrix(np.random.default_rng(20), 20, 0.6)
+    amp = ryser.amp_walk_log2(a, CPU)
+    assert calls and not any(calls)
+    calls.clear()
+    both = ryser.amp_cond_walk_log2(a, CPU)
+    assert calls and all(calls)
+    assert amp == both[0]
+
+
 # ------------------------------------------- the exhaustive amplitude walk
 
 @pytest.mark.parametrize("n", [9, 14])
@@ -300,26 +386,64 @@ def test_amp_walk_recovers_from_underflow(monkeypatch):
 
 # --------------------------------------------------- the exact rung's price
 
+CUDA = torch.device("cuda")   # priced only: no card is needed
+
+
 def test_exact_cost_estimate_prices_the_card():
-    """(seconds, primes, core order): 31-bit primes plus the verifier,
-    the plan's live steps at the Z_p kernel's rate, a fixed cost; a
-    budget below the fixed cost skips the plan; a structural zero is
-    free."""
+    """(seconds, primes, core order) on a card: 31-bit primes plus the
+    verifier, the plan's live steps at the Z_p kernel's rate, a fixed
+    cost; a budget below the fixed cost skips the plan; a structural zero
+    is free."""
     a = random_int_matrix(np.random.default_rng(20), 20, 0.5, vmax=2)
-    secs, npr, core_n = exact.exact_cost_estimate(a)
+    secs, npr, core_n = exact.exact_cost_estimate(a, CUDA)
     core, mult = exact._fold_lines(exact.dyadic_int_matrix(a)[0])
     assert mult != 0 and core_n == len(core)
     bits = exact._log2_bound(core) + 3
     assert npr == max(1, math.ceil(bits / math.log2(modp.PRIME_CEIL))) + 1
-    walks = modp.card_cost_estimate(core, bits)
+    walks = modp.card_cost_estimate(core, bits, CUDA)
     assert 0 < walks <= npr * 2.0 ** (core_n - 1) / (modp.K3_GITERS * 1e9)
     assert secs == pytest.approx(exact._EXACT_FIXED_S + exact._PLAN_S_N32
                                  * 2.0 ** (core_n - 32) + walks)
-    skipped, npr0, n0 = exact.exact_cost_estimate(a, budget_s=0.0)
+    skipped, npr0, n0 = exact.exact_cost_estimate(a, CUDA, budget_s=0.0)
     assert (npr0, n0) == (npr, core_n) and 0 < skipped < secs
     z = a.copy()
     z[3, :] = 0
-    assert exact.exact_cost_estimate(z) == (0.0, 0, 0)
+    assert exact.exact_cost_estimate(z, CUDA) == (0.0, 0, 0)
+
+
+@pytest.mark.parametrize("n", [20, 24])
+def test_exact_cost_estimate_prices_the_cpu(n):
+    """On device="cpu" the walks are priced at the plain Z_p walk's rate:
+    the same core costs at least 50 times what it costs on a card."""
+    a = random_int_matrix(np.random.default_rng(n), n, 0.5, vmax=2)
+    cpu, npr, core_n = exact.exact_cost_estimate(a, CPU)
+    card, npr_c, core_c = exact.exact_cost_estimate(a, CUDA)
+    assert (npr, core_n) == (npr_c, core_c) == (npr, n)
+    assert cpu >= 50 * card
+    core, _ = exact._fold_lines(exact.dyadic_int_matrix(a)[0])
+    bits = exact._log2_bound(core) + 3
+    assert modp.card_cost_estimate(core, bits, CPU) == pytest.approx(
+        modp.card_cost_estimate(core, bits, CUDA)
+        * modp.K3_GITERS / modp.PLAIN_GITERS)
+
+
+def test_auto_on_the_cpu_prices_the_exact_rung_there():
+    """calc="auto" on device="cpu" with a budget between the card's price
+    of the exact rung and the CPU's: the rung does not fit, so the ladder
+    stops at tf96, flagged, with the CPU's price of the truth."""
+    a = MATRICES["int20"]()
+    cpu = exact.exact_cost_estimate(a, CPU)[0]
+    card = exact.exact_cost_estimate(a, CUDA)[0]
+    budget = math.sqrt(cpu * card)
+    assert card < budget < cpu
+    got = spt.permanent(a, calc="auto", device="cpu", chunk_log2=6,
+                        lanes=256, auto_target=1e-30,
+                        auto_exact_budget_s=budget)
+    am = got.meta["auto"]
+    assert am["escalated"] == "tf96" and am["low_confidence"] is True
+    assert am["exact_feasible_s"] == round(cpu, 1)
+    assert got.algo_name == "ryser_plain_tf96"
+    assert got.permanent == pytest.approx(perman64(a), rel=1e-12)
 
 
 # ------------------------------------------------- the ladder's decisions

@@ -254,12 +254,15 @@ def test_reduced_kernel_matches_plain_on_card(n, density, seed, chunk_log2,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cond", [False, True])
 @pytest.mark.parametrize("kind", ["int", "real"])
 @pytest.mark.parametrize("n,r", [(12, 3), (20, 5), (24, 5), (40, 2)])
-def test_amp_kernel_matches_plain_on_card(n, r, kind):
-    """The amp tier: kernel and plain version take the same IEEE steps
-    (the reciprocal is correctly rounded in both), so the four words of
-    every chunk agree bitwise; sentinels give 0; one launch is counted."""
+def test_amp_kernel_matches_plain_on_card(n, r, kind, cond):
+    """The amp tier, both variants: kernel and plain version take the
+    same IEEE steps (the conditioned term's (P, C) fold multiplies and
+    adds in one order in both), so the two or four words of every chunk
+    agree bitwise; sentinels give 0; one launch is counted, as a
+    conditioned one where it is."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(n)
@@ -274,14 +277,62 @@ def test_amp_kernel_matches_plain_on_card(n, r, kind):
     ids = torch.cat([torch.arange(min(nchunks, 4096)), torch.full((5,), -1),
                      torch.arange(nchunks - min(nchunks, 512), nchunks)]
                     ).to(dev)
-    before = ryser_cuda.AMP_LAUNCHES
-    got = ryser_cuda.ryser_amp(ids, x0, cols, n=n, r=r)
+    before = (ryser_cuda.AMP_LAUNCHES, ryser_cuda.AMP_COND_LAUNCHES)
+    got = ryser_cuda.ryser_amp(ids, x0, cols, n=n, r=r, cond=cond)
     torch.cuda.synchronize()
-    assert ryser_cuda.AMP_LAUNCHES == before + 1
-    want = ryser_cuda.ryser_amp_ref(ids, x0, cols, n=n, r=r)
+    assert (ryser_cuda.AMP_LAUNCHES, ryser_cuda.AMP_COND_LAUNCHES) == (
+        before[0] + 1, before[1] + cond)
+    want = ryser_cuda.ryser_amp_ref(ids, x0, cols, n=n, r=r, cond=cond)
+    words = 4 if cond else 2
+    assert tuple(got.shape) == (ids.numel(), words)
     assert torch.equal(got, want)
-    assert torch.equal(got[ids < 0], torch.zeros(5, 4, dtype=torch.float64,
+    assert torch.equal(got[ids < 0], torch.zeros(5, words,
+                                                 dtype=torch.float64,
                                                  device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 31, 37, 52])
+def test_tf96_entry_points_match_the_plain_tree_on_card(n):
+    """The three tf96 entry points on one integer matrix at an n_pad whose
+    product tree has odd levels (24: 12, 6, 3, 2; 32; 40: 20, 10, 5, 3, 2;
+    56: 28, 14, 7, 4, 2), each bitwise equal to the plain version of the
+    un-normalised tree: K1 with sentinels, K2 on the matrix twice,
+    the reduced walk unweighted and weighted by two factored rows, over a
+    ragged list with sentinels (K2 at n=20 only: its plain version walks
+    every step of every matrix)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(96 + n)
+    a = (rng.random((n, n)) < 0.5) * rng.integers(1, 5, (n, n))
+    np.fill_diagonal(a, 1)
+    a_s = np.ldexp(a.astype(np.float64), -ryser._row_scales(a)[:, None])
+    dev = torch.device("cuda", 0)
+    n_pad = gray.pad_n(n)
+    x0, cols = (torch.as_tensor(v, device=dev)
+                for v in gray.pack_matrix(a_s, n_pad))
+    r = 3
+    nchunks = 1 << (n - 1 - r)
+    ids = torch.cat([torch.arange(300), torch.full((7,), -1),
+                     torch.arange(nchunks - 200, nchunks)]).to(dev)
+    got = ryser_cuda.ryser_partials(ids, x0, cols, n=n, r=r, tier="tf96")
+    assert torch.equal(got, ryser_cuda.ryser_partials_ref(
+        ids, x0, cols, n=n, r=r, tier="tf96"))
+    if n <= 24:                     # the plain batch walks every step
+        stack = torch.stack([x0, x0]), torch.stack([cols, cols])
+        got = ryser_cuda.batch_partials(*stack, n=n, r=6, tier="tf96")
+        assert torch.equal(got, ryser_cuda.batch_partials_ref(
+            *stack, n=n, r=6, tier="tf96"))
+    alive = list(range(2, n))
+    packs = [torch.as_tensor(v, device=dev).contiguous() for v in
+             gray.pack_matrix(a_s[alive], gray.pad_n(len(alive)))
+             + gray.pack_matrix(a_s[:2], 2)]
+    empty = (torch.zeros(0, dtype=torch.float64, device=dev),
+             torch.zeros((n - 1, 0), dtype=torch.float64, device=dev))
+    for pack in ([x0, cols, *empty], packs):
+        got = ryser_cuda.ryser_reduced(ids, *pack, n=n, r=r, tier="tf96")
+        assert torch.equal(got, ryser_cuda.ryser_reduced_ref(
+            ids, *pack, n=n, r=r, tier="tf96"))
 
 
 @pytest.mark.cuda
@@ -325,9 +376,11 @@ def test_auto_ladder_on_card():
     res = spt.permanent(a, calc="auto")
     assert res.meta["auto"]["probe_only"] is True
     assert abs(res.permanent - want) <= 1e-11 * abs(want)
-    before = ryser_cuda.AMP_LAUNCHES
+    before = (ryser_cuda.AMP_LAUNCHES, ryser_cuda.AMP_COND_LAUNCHES)
     res = spt.permanent(a, calc="auto", auto_target=1e-30)
-    assert ryser_cuda.AMP_LAUNCHES == before + 1
+    # an integer matrix: the amplitude-only variant
+    assert (ryser_cuda.AMP_LAUNCHES, ryser_cuda.AMP_COND_LAUNCHES) == (
+        before[0] + 1, before[1])
     assert res.meta["auto"]["escalated"] == "exact"
     assert res.meta["exact_fraction"] == want
     res = spt.permanent(a, calc="auto", auto_target=1e-30,

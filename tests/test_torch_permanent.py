@@ -199,8 +199,8 @@ def test_device_none_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("flags", [
     {"approximation": True},
     {"calc": "exact", "approximation": True},
-    {"calc": "quad"},
-    {"perman_algo": "glynn", "calc": "quad"},
+    {"calc": "quad", "cpu": True, "gpu": False},
+    {"perman_algo": "glynn", "calc": "quad", "cpu": True, "gpu": False},
     {"calc": "tf96", "hybrid": True},
     {"perman_algo": "5"}, {"mesh_shape": (2,)}, {"hybrid": True},
     {"checkpoint_path": "journal"}, {"compression": True},
@@ -211,6 +211,40 @@ def test_unported_features_raise(flags):
     a = random_int_matrix(np.random.default_rng(2), 20, 0.5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         spt.permanent(a, device="cpu", **flags)
+
+
+@pytest.mark.parametrize("algo", ["ryser", "glynn"])
+@pytest.mark.parametrize("kind,n", [("int", 8), ("int", 12), ("real", 12),
+                                    ("int", 20)])
+def test_quad_is_the_host_long_double_walk(algo, kind, n):
+    """calc="quad" walks on the host in long double, as the JAX package
+    serves it without its native library: the exact integer at n <= 12
+    (perman_brute), and within 1e-15 of sp.permanent(calc="quad") (the
+    reference's native __float128 engine where it is built, its own host
+    walk otherwise), under Ryser and Glynn, whatever the device."""
+    rng = np.random.default_rng(100 + n)
+    a = (rng.integers(0, 5, (n, n)) if kind == "int"
+         else rng.uniform(-1, 1, (n, n)))
+    kw = {"perman_algo": "glynn"} if algo == "glynn" else {}
+    got = spt.permanent(a, calc="quad", device="cpu", **kw)
+    assert got.algo_name == ("glynn_host" if algo == "glynn"
+                             else "ryser_quad_host")
+    assert got.iterations == 1 << (n - 1)
+    if kind == "int" and n <= 12:
+        assert got.permanent == float(perman_brute(a))
+    ref = sp.permanent(a, calc="quad", **kw)
+    assert got.permanent == pytest.approx(ref.permanent, rel=1e-15)
+
+
+def test_quad_under_sparse_flags_names_sparyser():
+    """sparse=True hands the quad walk the preprocessed matrix and names
+    the result sparyser, as in the reference."""
+    a = random_int_matrix(np.random.default_rng(11), 11, 0.4)
+    np.fill_diagonal(a, 1)
+    got = spt.permanent(a, calc="quad", sparse=True, preprocessing=2,
+                        device="cpu")
+    assert got.algo_name == "sparyser_quad_host"
+    assert got.permanent == float(perman_brute(a))
 
 
 @pytest.mark.parametrize("flags,algo", [

@@ -81,6 +81,54 @@ def test_tree_prod_against_exact_fractions(s):
         assert abs((jgot - exact) / exact) < Fraction(1, 2 ** 66)
 
 
+@pytest.mark.parametrize("s", [8, 24, 40, 56, 64])
+def test_unnormalised_tree_against_exact_fractions(s):
+    """The tree as it now multiplies, un-normalised from its second level
+    on and normalised once at the root, on full-mantissa doubles (not
+    only exact-f32 ones) against the exact Fraction product: within 2^-99
+    relative (at most 6 levels of multiplies above the exact TwoProds,
+    each within 2^-102 of its operands' product), and the root's pair is
+    normalised, |lo| <= ulp(hi) / 2."""
+    rng = np.random.default_rng(100 + s)
+    x = rng.uniform(0.5, 1.0, (64, s)) * rng.choice([-1.0, 1.0], (64, s))
+    hi, lo = tf96.tree_prod_dd(torch.as_tensor(x))
+    for lane in range(64):
+        exact = Fraction(1)
+        for v in x[lane]:
+            exact *= _frac(v)
+        got = _frac(hi[lane]) + _frac(lo[lane])
+        assert abs((got - exact) / exact) <= Fraction(1, 2 ** 99)
+        assert abs(float(lo[lane])) <= math.ulp(float(hi[lane])) / 2
+    # the same levels normalised after every multiply differ only below
+    # the tolerance: the renormalisation buys no accuracy
+    p, e = tf96.two_prod(torch.as_tensor(x[:, : s // 2]),
+                         torch.as_tensor(x[:, s // 2:]))
+    while p.shape[-1] > 1:
+        k = p.shape[-1]
+        ns, h = (k + 1) // 2, k // 2
+        ph, pl = tf96.dd_mul(p[:, :h], e[:, :h], p[:, ns:k], e[:, ns:k])
+        p = torch.cat([ph, p[:, h:ns]], dim=-1)
+        e = torch.cat([pl, e[:, h:ns]], dim=-1)
+    for lane in range(64):
+        diff = (_frac(hi[lane]) + _frac(lo[lane])
+                - _frac(p[lane, 0]) - _frac(e[lane, 0]))
+        assert abs(diff) <= abs(_frac(hi[lane])) * Fraction(1, 2 ** 98)
+
+
+def test_dd_mul_is_the_unnormalised_product_renormalised():
+    """dd_mul is dd_mul_unnorm and a FastTwoSum, bit for bit; the
+    un-normalised product keeps hi and the unrounded low word."""
+    rng = np.random.default_rng(2)
+    ah, bh = (torch.as_tensor(rng.standard_normal(100)) for _ in range(2))
+    al = ah * 2.0 ** -55 * torch.as_tensor(rng.uniform(-1, 1, 100))
+    bl = bh * 2.0 ** -55 * torch.as_tensor(rng.uniform(-1, 1, 100))
+    uh, ul = tf96.dd_mul_unnorm(ah, al, bh, bl)
+    mh, ml = tf96.dd_mul(ah, al, bh, bl)
+    qh, ql = tf96.quick_two_sum(uh, ul)
+    assert torch.equal(mh, qh) and torch.equal(ml, ql)
+    assert torch.equal(uh, ah * bh)
+
+
 def test_dd_add_and_mul_error():
     """dd_add and dd_mul on random double-doubles against Fractions:
     within 2^-102 of the larger operand (add) and of the product (mul)."""
@@ -169,6 +217,28 @@ def test_tf96_sentinels_and_wrapper():
     assert torch.equal(out.sum(dim=1), df.sum(dim=1))   # small ints: exact
 
 
+def test_sum_words_keeps_cancelling_partials():
+    """Partials that cancel to 1e-9 of their magnitudes: the host sum of
+    their words against the exact sum of the same words, within 2^-100
+    of the magnitudes (pairs added as double-doubles), which a sum of the
+    words in long double (~2^-64 of them) does not reach."""
+    rng = np.random.default_rng(11)
+    hi = rng.standard_normal(5001) * 2.0 ** rng.integers(-8, 8, 5001)
+    hi[-1] = -math.fsum(hi[:-1]) + 1e-9 * np.abs(hi).sum()
+    lo = hi * 2.0 ** -54 * rng.uniform(-1, 1, 5001)
+    words = np.stack([hi, lo], axis=-1)
+    exact = sum(_frac(v) for v in words.ravel())
+    mag = sum(abs(_frac(v)) for v in words.ravel())
+    got = tf96.sum_words(words)
+    assert got.dtype == np.longdouble and got.shape == ()
+    # the last pair is joined in long double, which rounds once
+    err = abs(Fraction(*got.as_integer_ratio()) - exact)
+    assert err <= mag * Fraction(1, 2 ** 100) + abs(exact) * Fraction(
+        1, 2 ** 52)
+    ld = words.astype(np.longdouble).sum()
+    assert abs(Fraction(*ld.as_integer_ratio()) - exact) > err
+
+
 def test_sum_words_long_double_and_exact(monkeypatch):
     """The host reduction keeps what a double drops: 1 + 2^-60 twice, in
     long double where that is wider, and by exact summation where it is
@@ -245,6 +315,31 @@ def test_permanent_tf96_matches_jax_and_exact(kind):
         for key in ("calc", "chunks", "r", "lanes", "scale_log2"):
             assert got.meta[key] == ref.meta[key], key
         assert got.meta["exact_storage"] is True
+
+
+def test_tf96_holds_the_exact_integer_where_partials_cancel():
+    """chip_smoke.py's cancelling case at n=20 (chunks of 2^6 steps):
+    pairs of equal columns among the chunk-level ones, +-2^12 on one row
+    at each, so per(a) = per(base) while the chunk partials stand ~1e7
+    above it.  The engine returns the exact integer within 1e-15, where a
+    long-double sum of the walk's words would not (tf96.sum_words)."""
+    from chip_smoke import cancelling_matrix
+    n, r = 20, 6
+    a, base = cancelling_matrix(20, n, r)
+    want = _exact_int(a)
+    assert want == _exact_int(base) != 0
+    a_s = np.ldexp(a.astype(np.float64),
+                   -ryser._center_scales(a, ryser._row_scales(a))[:, None])
+    x0, cols = (torch.as_tensor(v) for v in gray.pack_matrix(a_s, 24))
+    words = ryser_cuda.ryser_partials(torch.arange(1 << (n - 1 - r)), x0,
+                                      cols, n=n, r=r, tier="tf96").numpy()
+    total = sum(_frac(v) for v in words.ravel())
+    assert abs(sum(abs(_frac(h) + _frac(l)) for h, l in words)) >= \
+        10 ** 6 * abs(total)
+    got = spt.permanent(a, calc="tf96", chunk_log2=r, device="cpu")
+    assert got.algo_name == "ryser_plain_tf96" and got.meta["r"] == r
+    assert abs(_frac(got.permanent) - want) <= abs(want) * Fraction(
+        1, 10 ** 15)
 
 
 def test_tf96_beats_df64_on_all_ones():
