@@ -25,7 +25,10 @@ values, times kernels and plain versions, and prints:
     its largest difference from the plain version, both times, and its
     bound: the least time the card could take for the same work, the
     larger of bytes moved over the memory rate and operations over the
-    peak rate of their type (PEAK below);
+    peak rate of their type (PEAK below); with the walks' registers at
+    their path's N_PAD (cuobjdump -res-usage of the library) and every
+    timed kernel's SM clock, sampled (nvidia-smi clocks.sm) while more of
+    its launches run;
   * last, {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is not 0 and no last line is
@@ -36,12 +39,14 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 from fractions import Fraction
 
 import numpy as np
+
+from superman_tpu_torch.tools.kernel_time import (random_int_matrix, smi,
+                                                sparse_int_matrix)
 
 SEED = 32
 #: per(A) of random_int_matrix(np.random.default_rng(32), 32, 0.5), the
@@ -116,21 +121,6 @@ MOD_PRIMES = (2039, (1 << 31) - 1)
 GLYNN_PRIME = 1073741789
 
 
-def random_int_matrix(rng, n, density, vmax=4):
-    """As tests/conftest.py makes its integer matrices."""
-    a = (rng.random((n, n)) < density).astype(np.int64)
-    return a * rng.integers(1, vmax + 1, (n, n))
-
-
-def sparse_int_matrix(seed, n, density):
-    """The sparse engine's seeded matrices: entries 1..4 at the given
-    density, a full diagonal of 1..3."""
-    rng = np.random.default_rng(seed)
-    a = (rng.random((n, n)) < density) * rng.integers(1, 5, (n, n))
-    np.fill_diagonal(a, rng.integers(1, 4, n))
-    return a
-
-
 def within_line_landmine(lrng, n):
     """As tests/test_exact_dense.py makes it: a real-valued dyadic matrix
     (so the exact engine takes it) whose rows, large +-c pairs with
@@ -191,11 +181,21 @@ def amp_host_log2(a):
             mx + float(np.log2(np.exp2(logc - mx).sum())))
 
 
-def smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+def sm_clock(fn, seconds: float = 0.5) -> int:
+    """The SM clock in MHz (nvidia-smi clocks.sm) sampled while launches
+    of fn queued for about `seconds` run."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    for _ in range(max(1, math.ceil(seconds * 1e3 / start.elapsed_time(end)))):
+        fn()
+    clock = smi("clocks.sm")                              # "1980 MHz"
+    torch.cuda.synchronize()
+    return int(clock.split()[0])
 
 
 def cuda_ms(fn, reps: int):
@@ -279,13 +279,6 @@ def register_report(report: str) -> str:
         if m and (m.group(1) != "0" or m.group(2) != "0"):
             lines.append(f"  {name}: SPILLS {line.strip()}")
     return "\n".join(lines)
-
-
-def registers(report: str) -> dict:
-    """{kernel<template arguments>: registers} from register_report."""
-    import re
-    return {m.group(1): int(m.group(2)) for m in re.finditer(
-        r"^(\S+<[\d,]+>): (\d+) registers", register_report(report), re.M)}
 
 
 def compare(kern, plain, ids) -> float:
@@ -399,6 +392,7 @@ def main() -> int:
     from superman_tpu_torch.ops.ryser import (K1_GITERS, _center_scales,
                                               _row_scales, amp_cond_walk_log2,
                                               amp_walk_log2)
+    from superman_tpu_torch.tools import sass_count
 
     def zero_counts():
         ryser_cuda.LAUNCHES = ryser_cuda.BATCH_LAUNCHES = 0
@@ -419,7 +413,9 @@ def main() -> int:
     build.load()
     print(f"build: {time.perf_counter() - t:.1f} s -> {path}")
     print(register_report(report))
-    regs = registers(report)
+    # registers of every instantiation, from the library itself (cuobjdump
+    # -res-usage), so a cached build, whose ptxas report is empty, has them
+    regs = sass_count.registers(path)
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -486,6 +482,8 @@ def main() -> int:
                                                  tier=tier)
             run_batch()                                   # warm-up
             ms, kern = cuda_ms(run_batch, reps)
+            if tag == "n24":
+                k2[tier]["clock"] = sm_clock(run_batch)
             steps = B << (n - 1)
             line = (f"ryser_batch {tier}, {B} x n={n}, "
                     f"{1 << (n - 1 - r)} chunks of 2^{r} a matrix, "
@@ -1027,17 +1025,24 @@ def main() -> int:
         raise AssertionError("tf96 on the cancelling matrix")
 
     # ---- 4. times at the full n=32 main-path plan
+    # (the SM clock is sampled after each kernel's timing, while more of
+    # its launches run)
     ids = torch.arange(plan.num_chunks, device=dev)
     k1 = {}
+    clocks = {}
     for tier in TIERS:
         def run_kernel():
             return ryser_cuda.ryser_partials(ids, x0, cols, n=32, r=plan.r,
                                              tier=tier)
         run_kernel()                                      # warm-up
         kernel_ms, kern = cuda_ms(run_kernel, 5)
+        clocks[f"k1_{tier}"] = sm_clock(run_kernel)
         line = (f"ryser_walk_{tier}, full plan ({plan.num_chunks} chunks of "
                 f"2^{plan.r}): kernel {kernel_ms:.3f} ms "
-                f"({(1 << 31) / kernel_ms / 1e6:.1f} G steps/s)")
+                f"({(1 << 31) / kernel_ms / 1e6:.1f} G steps/s), "
+                f"SM clock {clocks[f'k1_{tier}']} MHz, "
+                f"{regs.get(f'ryser_walk_kernel<{plan.n_pad},{TIERS.index(tier)}>')}"
+                f" registers")
         if tier == "tf96":
             # its plain version takes ~130 launches a step: it ran once, on
             # the sampled ids of phase 2 (a plain walk pays per step, not
@@ -1068,6 +1073,7 @@ def main() -> int:
 
         run_amp()                                         # warm-up
         amp_ms, kern = cuda_ms(run_amp, 3)
+        clocks[f"amp_{variant}"] = sm_clock(run_amp)
         if not torch.equal(kern[sampled_ids[live]],
                            amp_sampled[variant]["kern"][live]):
             raise AssertionError(f"amp ({variant}): the full plan's sums "
@@ -1092,12 +1098,18 @@ def main() -> int:
                                             r=s36["r"], tier=tier)
         run_reduced()                                     # warm-up
         red_ms, kern = cuda_ms(run_reduced, 5)
+        clocks[f"reduced_{tier}"] = sm_clock(run_reduced)
         steps = s36["ids"].numel() << s36["r"]
         n_alive = len(s36["sp"].alive_rows)
+        s36["registers"] = regs.get(
+            f"ryser_reduced_kernel<{s36['pack'][0].shape[0]},"
+            f"{TIERS.index(tier)}>")
         print(f"ryser_walk_reduced {tier}, the n=36 plan "
               f"({s36['ids'].numel()} chunks of 2^{s36['r']}, {n_alive} "
               f"alive rows): kernel {red_ms:.3f} ms "
-              f"({steps / red_ms / 1e6:.1f} G steps/s); plain "
+              f"({steps / red_ms / 1e6:.1f} G steps/s, {steps} live "
+              f"steps), SM clock {clocks[f'reduced_{tier}']} MHz, "
+              f"{s36['registers']} registers; plain "
               f"{s36['plain_ms']:.1f} ms on {s36['plain_chunks']} ids")
         reduced[tier] = (red_ms, s36["plain_ms"], walk_bound(
             steps, n_alive, tier,
@@ -1112,6 +1124,7 @@ def main() -> int:
 
     run_mod()                                             # warm-up
     mod_ms, kern = cuda_ms(run_mod, 5)
+    clocks["modp"] = sm_clock(run_mod)
     mod_plain_ms, plain = cuda_ms(lambda: modp_cuda.mod_partials_ref(
         ids, mx0, mcols, p, n=32, r=plan.r), 1)
     print(f"modp_walk vs plain, full plan, p={p}: kernel {mod_ms:.3f} ms "
@@ -1132,10 +1145,15 @@ def main() -> int:
                 **({"issue_bound_ms": bnd[2]} if len(bnd) > 2 else {}),
                 **more}
 
+    # every walk entry carries its instantiation's registers at the path's
+    # N_PAD and the SM clock sampled beside its timing
     kernels = [entry(f"ryser_walk_{tier}",
                      "superman_tpu_torch/csrc/ryser_walk.cu",
                      "superman_tpu/ops/ryser_pallas.py:541",
                      k1_launches[tier], k1_err[tier], *k1[tier],
+                     registers=regs.get(f"ryser_walk_kernel<{plan.n_pad},"
+                                        f"{TIERS.index(tier)}>"),
+                     clocks_sm_mhz=clocks[f"k1_{tier}"],
                      **({"plain_ms_chunks": int(sampled_ids.numel())}
                         if tier == "tf96" else {}),
                      **({"glynn_launches": glynn_launches[tier]}
@@ -1146,7 +1164,10 @@ def main() -> int:
     kernels += [entry("ryser_batch", "superman_tpu_torch/csrc/ryser_batch.cu",
                       "superman_tpu/ops/ryser_pallas.py:685",
                       k2_launches[tier], k2[tier]["err"], *k2[tier]["n24"],
-                      tier=tier, ms_n32=k2[tier]["n32"][0],
+                      tier=tier, registers=regs.get(
+                          f"ryser_batch_kernel<24,{TIERS.index(tier)}>"),
+                      clocks_sm_mhz=k2[tier]["clock"],
+                      ms_n32=k2[tier]["n32"][0],
                       bound_ms_n32=k2[tier]["n32"][2][0],
                       issue_bound_ms_n32=k2[tier]["n32"][2][2],
                       ms_n32_2=k2[tier]["n32_2"][0],
@@ -1161,6 +1182,8 @@ def main() -> int:
                       "superman_tpu/ops/ryser_pallas.py:541",
                       reduced_launches[tier], sparse36[tier]["err"],
                       *reduced[tier], tier=tier,
+                      registers=sparse36[tier]["registers"],
+                      clocks_sm_mhz=clocks[f"reduced_{tier}"],
                       plain_ms_chunks=sparse36[tier]["plain_chunks"])
                 for tier in TIERS]
     # the amp walk once per variant: launches on the auto path that runs
@@ -1171,11 +1194,13 @@ def main() -> int:
                       "superman_tpu/ops/ryser_pallas.py:541",
                       amp_launches[variant], v["err"], v["ms"], v["plain_ms"],
                       v["bound"], variant=variant, registers=v["registers"],
+                      clocks_sm_mhz=clocks[f"amp_{variant}"],
                       plain_ms_chunks=int(sampled_ids.numel()))
                 for variant, v in amp_sampled.items()]
     kernels.append(entry("modp_walk", "superman_tpu_torch/csrc/modp_walk.cu",
                          "superman_tpu/ops/modp.py:413", mod_launches,
-                         mod_err, mod_ms, mod_plain_ms, mod_bound))
+                         mod_err, mod_ms, mod_plain_ms, mod_bound,
+                         clocks_sm_mhz=clocks["modp"]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

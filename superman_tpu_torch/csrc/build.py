@@ -33,15 +33,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
+def tool(name: str) -> str:
+    """The path of a CUDA toolkit program (nvcc, cuobjdump): on PATH, or
+    under $CUDA_HOME (or $CUDA_PATH, or /usr/local/cuda)/bin."""
+    found = shutil.which(name)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get(
         "CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
+    path = os.path.join(cuda_home, "bin", name)
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+        raise RuntimeError(f"{name} not found: put it on PATH or set "
+                           f"CUDA_HOME")
     return path
 
 
@@ -64,7 +67,7 @@ def build() -> tuple:
     # one nvcc per source, all started together; objects and the library
     # go to a private directory and the library is renamed into place, so
     # a concurrent build never sees a half-written one
-    nvcc = nvcc_path()
+    nvcc = tool("nvcc")
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
         objs = [os.path.join(tmp_dir, src.stem + ".o") for src in SOURCES]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]

@@ -21,7 +21,7 @@
 // hi + lo per block and sums a matrix's few blocks in float64 (tf96: all
 // their words in long double).
 //
-// What bounds it on this card: the walk's arithmetic, as in ryser_walk.cu;
+// What bounds it on this card: the walk, as walk.cuh says tier by tier;
 // the table load and the reduction are a few hundred operations against
 // 2^r steps of ~2n each.  A small batch of a small order cannot fill 132
 // SMs whatever the plan; that is the traffic's nature.  The TPU program's

@@ -29,8 +29,8 @@
 // do not walk and enter the reduction as exact zeros.  After the walk every
 // tier is a double-double: the f32 tiers widen their partial to double
 // before the weight, and the block sum is the double-double acc_merge.
-// What bounds both is the walk's arithmetic; weight and reduction are a few
-// hundred operations a chunk.
+// What bounds both is the walk (walk.cuh says how, tier by tier); weight
+// and reduction are a few hundred operations a chunk.
 
 #include "walk.cuh"
 

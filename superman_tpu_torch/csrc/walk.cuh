@@ -36,26 +36,34 @@
 //          sum_{i<n} prod_{j != i} max(|x_j|, eps), folded without a
 //          division (cond_fold).
 //
-// What bounds it on this card: arithmetic of the tier's type, about n
-// multiplies for the product plus n adds for the x update per step, and no
-// device-memory traffic inside the loop.  The design keeps it there: x
-// lives in registers (N_PAD is a template parameter, so every row loop
-// unrolls), and the column table sits in shared memory, where all threads
-// of a warp read the same column k at the same step -- a broadcast, with
-// no bank conflicts.
+// What bounds it on this card, read from the step loop's SASS at N_PAD = 32
+// (tools/sass_count.py): the float tiers by issue slots -- a warp-step
+// issues 64 (f32) or 70 (f32k) FP32 instructions and ~5 others, and an SM
+// partition, with 32 FP32 lanes, issues one instruction a clock; df64 and
+// tf96 by the FP64 pipe -- 73 (tf96: 168) FP64 instructions a step, each
+// two clocks of a partition's 16 FP64 lanes, with the ~6 (12) others
+// issuing between them.  There is no device-memory traffic inside the loop.
+// The design keeps it so: x lives in registers (N_PAD is a template
+// parameter, so every row loop unrolls); the column table sits in shared
+// memory, where all threads of a warp read the same column -- a broadcast,
+// with no bank conflicts -- in 16-byte words; and the steps go in groups
+// whose columns, signs and table offsets are constants (walk_chunk), so a
+// step issues almost nothing but its arithmetic.
 //
 // Build without fast-math and with nvcc's default -ftz=false, so denormal
 // float products round as the plain version's do.  nvcc contracts a
 // multiply and an add into an FMA by default (-fmad=true), which the plain
 // PyTorch versions cannot repeat, so no rounding may depend on it.  In the
-// df64, f32 and f32k tiers it cannot: the sums are add-only, the tree is
-// multiply-only, and the one contractible product, s * col with s = +-1,
-// is exact.  The tf96 tier does mix multiplies and adds (dd_mul), so every
-// operation of two_prod and dd_mul is an intrinsic (__dmul_rn, __dadd_rn,
-// __fma_rn), which the compiler never fuses or splits: the only FMA is the
-// one that TwoProd asks for, and its result is exact.  The amp tier and the
-// chunk weight are written with the same intrinsics wherever a multiply
-// feeds an add.
+// df64, f32 and f32k tiers it cannot: the sums are add-only; the tree's
+// multiplies are intrinsics (mul_rn), because where a term's sign is a
+// constant, as in the grouped steps, nvcc would otherwise fuse the tree's
+// last multiply into the accumulator's first add; and the one product it
+// may contract, s * col with s = +-1, is exact.  The tf96 tier does mix
+// multiplies and adds (dd_mul), so every operation of two_prod and dd_mul
+// is an intrinsic (__dmul_rn, __dadd_rn, __fma_rn), which the compiler
+// never fuses or splits: the only FMA is the one that TwoProd asks for,
+// and its result is exact.  The amp tier and the chunk weight are written
+// with the same intrinsics wherever a multiply feeds an add.
 
 #pragma once
 
@@ -74,6 +82,14 @@ template <> struct Real<kTf96> { using type = double; };
 template <> struct Real<kAmp> { using type = double; };
 template <> struct Real<kAmpCond> { using type = double; };
 
+// a * b rounded, never contracted into an add that follows.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
 // p[0] = product of p[0..S): fold the upper half onto the lower half,
 // p[i] *= p[i + ceil(S/2)], until one element is left.  The plain version
 // (ops/ryser_cuda.py tree_prod) multiplies in the same order.
@@ -82,7 +98,7 @@ __device__ __forceinline__ void fold_prod(T (&p)[N]) {
   if constexpr (S > 1) {
     constexpr int NS = (S + 1) / 2;
 #pragma unroll
-    for (int i = 0; i < S / 2; ++i) p[i] *= p[i + NS];
+    for (int i = 0; i < S / 2; ++i) p[i] = mul_rn(p[i], p[i + NS]);
     fold_prod<NS, N, T>(p);
   }
 }
@@ -257,16 +273,126 @@ __device__ __forceinline__ void step_x(unsigned long long m, int r, T smid,
   for (int i = 0; i < N_PAD; ++i) x[i] += s * ck[i];
 }
 
+// ---- the grouped walk of walk_chunk
+//
+// A chunk's steps m = 1 .. 2^r-1 are walked in aligned groups of 2^G,
+// G = kGroupLog2.  Step m0 + i of the group at m0 = j * 2^G, 0 < i < 2^G,
+// has k = ctz(m0 + i) = ctz(i), a constant; its x-sign, bit k+1 of m, is
+// bit k+1 of i, a constant too, except at k = G-1, where it is bit 0 of j
+// (one runtime sign a group; at r == G, where the one group holds the mid
+// step, the chunk parity smid); its term sign (-1)^m is (-1)^i.  Only the
+// step m0 itself (j > 0) takes ctz(j) + G at run time, with the mid-step
+// rule.  So a loop trip issues 2^G steps of arithmetic, 2^G - 1 of them
+// with no index logic, and reads each column of the table in 16-byte words
+// at a constant offset.  Chunks of r < G steps, and the walks where
+// grouped_walk says so, keep the step-by-step loop; both walk the same
+// steps in the same order.  ops/ryser_cuda.py step_rule states the
+// grouped rule for the plain versions.
+constexpr int kGroupLog2 = 3;
+
+__host__ __device__ constexpr int ctz_const(int i) {
+  return (i & 1) ? 0 : 1 + ctz_const(i >> 1);
+}
+
+// x += s * col[0 .. N_PAD): the column read as float4 or double2 (the table
+// is 16-byte aligned and a column is N_PAD * sizeof(T) bytes, N_PAD a
+// multiple of 8).  With s a constant +-1 this is one add a row; s * c is
+// exact either way, so nothing rounds otherwise than in step_x.
+template <int N_PAD, typename T>
+__device__ __forceinline__ void add_col(const T* col, T s, T (&x)[N_PAD]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4* c = reinterpret_cast<const float4*>(col);
+#pragma unroll
+    for (int q = 0; q < N_PAD / 4; ++q) {
+      const float4 v = c[q];
+      x[4 * q] += s * v.x;
+      x[4 * q + 1] += s * v.y;
+      x[4 * q + 2] += s * v.z;
+      x[4 * q + 3] += s * v.w;
+    }
+  } else {
+    const double2* c = reinterpret_cast<const double2*>(col);
+#pragma unroll
+    for (int q = 0; q < N_PAD / 2; ++q) {
+      const double2 v = c[q];
+      x[2 * q] += s * v.x;
+      x[2 * q + 1] += s * v.y;
+    }
+  }
+}
+
+// (hi, lo) += +-prod(x), minus where neg: the tier's product and
+// accumulator.
+template <int N_PAD, int TIER, typename T>
+__device__ __forceinline__ void add_term(const T (&x)[N_PAD], bool neg,
+                                         T& hi, T& lo) {
+  if constexpr (TIER == kTf96) {
+    const dd t = tree_prod_dd<N_PAD>(x);
+    if (neg)
+      acc_merge<TIER, T>(hi, lo, -t.hi, -t.lo);
+    else
+      acc_merge<TIER, T>(hi, lo, t.hi, t.lo);
+  } else {
+    const T t = tree_prod<N_PAD, T>(x);
+    acc_add<TIER, T>(hi, lo, neg ? -t : t);
+  }
+}
+
+// Whether walk_chunk walks in groups.  The 8-step body holds x and the
+// group's state in registers; grouped, the double tiers spill from N_PAD 40
+// (ptxas: 120 bytes a thread in df64 at 40, ~2.5 KB at 64), yet up to 40
+// they are still faster grouped, and from 48 the spills cost more than the grouping
+// saves (the reduced entry's df64 walk 42% slower at 48, 2.4-3.5x at 56
+// and 64 on an NVIDIA H100 80GB HBM3 at 700 W), so there they step one at
+// a time.  The float tiers do not spill up to N_PAD 64 and stay grouped.
+// PERF.md has the A-B.
+template <int N_PAD, int TIER>
+__host__ __device__ constexpr bool grouped_walk() {
+  return sizeof(typename Real<TIER>::type) == 4 || N_PAD <= 40;
+}
+
+// Whether the group's constant columns 0 .. G-1 may stay in registers for
+// the whole chunk: the compiler then hoists their loads out of the loop, and
+// a trip reads the table once, for the step m0.  That is faster in the
+// float tiers and in df64 up to N_PAD = 32; past that a double walk's
+// hoisted columns spill, and tf96's product needs the registers, so there
+// each trip reads the columns again, once each (an offset the compiler
+// cannot see is 0 keeps the loads in their trip).  PERF.md has the A-B.
+template <int N_PAD, int TIER>
+__host__ __device__ constexpr bool hoist_cols() {
+  return TIER != kTf96 && N_PAD * sizeof(typename Real<TIER>::type) <= 256;
+}
+
+__device__ __forceinline__ int opaque(int z) {
+  asm volatile("" : "+r"(z));
+  return z;
+}
+
+// Steps m0 + I .. m0 + 2^G - 1 of a group: column ctz(I), its sign and the
+// term's sign constants, s_top the x-sign at k = G-1.
+template <int G, int I, int N_PAD, int TIER, typename T>
+__device__ __forceinline__ void group_steps(const T* col_s, T s_top,
+                                            T (&x)[N_PAD], T& hi, T& lo) {
+  if constexpr (I < (1 << G)) {
+    constexpr int K = ctz_const(I);
+    const T s = K == G - 1 ? s_top : ((I >> (K + 1)) & 1 ? T(-1) : T(1));
+    add_col<N_PAD, T>(col_s + K * N_PAD, s, x);
+    add_term<N_PAD, TIER, T>(x, I & 1, hi, lo);
+    group_steps<G, I + 1, N_PAD, TIER, T>(col_s, s_top, x, hi, lo);
+  }
+}
+
 // Walk chunk l of 2^r steps.  x0 points at N_PAD values (padding rows 1),
-// col_s at the (n-1, N_PAD) column table in shared memory (padding 0).
-// Only the column count n-1 is read from n, so a factored walk hands in
-// the pack of fewer than n rows.
+// col_s at the (n-1, N_PAD) column table in shared memory (padding 0),
+// 16-byte aligned.  Only the column count n-1 is read from n, so a
+// factored walk hands in the pack of fewer than n rows.
 template <int N_PAD, int TIER>
 __device__ __forceinline__ void walk_chunk(
     unsigned long long ul, const typename Real<TIER>::type* __restrict__ x0,
     const typename Real<TIER>::type* col_s, int n, int r,
     typename Real<TIER>::type& hi, typename Real<TIER>::type& lo) {
   using T = typename Real<TIER>::type;
+  constexpr int G = kGroupLog2;
   T x[N_PAD];
   chunk_x<N_PAD, T>(ul, x0, col_s, n - 1, r, x);
   const T smid = (ul & 1ull) ? T(-1) : T(1);
@@ -280,19 +406,31 @@ __device__ __forceinline__ void walk_chunk(
     hi = tree_prod<N_PAD, T>(x);
     lo = T(0);
   }
-  const unsigned long long steps = 1ull << r;
-  for (unsigned long long m = 1; m < steps; ++m) {
-    step_x<N_PAD, T>(m, r, smid, col_s, x);
-    // term sign (-1)^m
-    if constexpr (TIER == kTf96) {
-      const dd t = tree_prod_dd<N_PAD>(x);
-      if (m & 1ull)
-        acc_merge<TIER, T>(hi, lo, -t.hi, -t.lo);
-      else
-        acc_merge<TIER, T>(hi, lo, t.hi, t.lo);
-    } else {
-      const T t = tree_prod<N_PAD, T>(x);
-      acc_add<TIER, T>(hi, lo, (m & 1ull) ? -t : t);
+  if (!grouped_walk<N_PAD, TIER>() || r < G) {
+    const unsigned long long steps = 1ull << r;
+    for (unsigned long long m = 1; m < steps; ++m) {
+      step_x<N_PAD, T>(m, r, smid, col_s, x);
+      add_term<N_PAD, TIER, T>(x, m & 1ull, hi, lo);   // sign (-1)^m
+    }
+    return;
+  }
+  if constexpr (grouped_walk<N_PAD, TIER>()) {
+    // group 0: steps 1 .. 2^G - 1
+    group_steps<G, 1, N_PAD, TIER, T>(col_s, r == G ? smid : T(1), x, hi,
+                                      lo);
+    const unsigned long long groups = 1ull << (r - G);
+#pragma unroll 1
+    for (unsigned long long j = 1; j < groups; ++j) {
+      // step m = j * 2^G: k = G + ctz(j), x-sign bit k+1 of m = bit
+      // ctz(j)+1 of j (or smid at the mid step), term sign +1
+      const int kj = __ffsll((long long)j) - 1;
+      T s = ((j >> (kj + 1)) & 1ull) ? T(-1) : T(1);
+      if (kj + G == r - 1) s = smid;
+      add_col<N_PAD, T>(col_s + (kj + G) * N_PAD, s, x);
+      add_term<N_PAD, TIER, T>(x, false, hi, lo);
+      const T* cs = hoist_cols<N_PAD, TIER>() ? col_s : col_s + opaque(0);
+      group_steps<G, 1, N_PAD, TIER, T>(cs, (j & 1ull) ? T(-1) : T(1), x,
+                                        hi, lo);
     }
   }
 }

@@ -23,19 +23,24 @@ from .tf96 import dd_mul
 #: streaming multiprocessors of an H100 SXM; the planner's default when it
 #: is not handed a card (the CPU runs plan exactly as that card would)
 DEFAULT_SMS = 132
-#: chunks (threads) to plan per SM.  At n_pad=32 the walk takes 94
-#: registers, so 5 blocks of 128 threads reside on an SM; a target of 512
-#: gives 2^17 chunks at n=32 on 132 SMs, where the kernel runs within 8%
-#: of its best over 2^13..2^20 chunks (2^16 and fewer leave SMs idle)
-#: while the per-chunk output stays 2 MB (NVIDIA H100 80GB HBM3, 700 W)
+#: chunks (threads) to plan per SM.  512 gives 2^17 chunks at n=32 on 132
+#: SMs, and the per-chunk output stays 2 MB.  At n_pad=32 the grouped walk
+#: takes 252 registers in df64 and tf96 (2 blocks of 128 threads reside on
+#: an SM) and ~125 in f32 (4); 2^17 chunks run within 2% of the best of
+#: 2^17..2^20 (df64 10.42 ms against 10.22 at 2^20; f32 and tf96 within
+#: 2% too), and fewer chunks leave SMs idle (df64 +6% at 2^15, +12% at
+#: 2^14) (tools/kernel_time.py --r; NVIDIA H100 80GB HBM3, 700.00 W)
 RESIDENT_CHUNKS_PER_SM = 512
 #: chunks per SM that a pruned list is split up to before the reduced
 #: kernel walks it.  A pruned list has any length, so its last wave of
-#: blocks (an SM holds 5 of df64 at n_pad=32) is seldom full, and with few
-#: waves that costs much: the n=36 sparse plan of chip_smoke.py (5.64e9
-#: live steps, df64) walks in 40.2 ms as 86,112 chunks (652 an SM), 35.1 as
-#: 172,224, 32.6 as 344,448, 31.4 as 688,896 (5,219 an SM) and no faster
-#: beyond (tools/chunk_cost.py; NVIDIA H100 80GB HBM3, 700.00 W)
+#: blocks (an SM holds 2 of df64 at n_pad=32) is seldom full, and with few
+#: waves that costs much: a sparse plan of chip_smoke.py's n=36 matrix
+#: (r=18, 21,528 live chunks, 5.64e9 live steps: the plan its f32 tiers
+#: walk; under df64 and tf96 the planner picks r=16, 65,098 live chunks,
+#: 4.27e9 live steps) walked under df64 in 40.2 ms as 86,112 chunks (652
+#: an SM), 35.1 as 172,224, 32.6 as 344,448, 31.4 as 688,896 (5,219 an SM)
+#: and no faster beyond (tools/chunk_cost.py, on the walk loop before its
+#: steps were grouped; NVIDIA H100 80GB HBM3, 700.00 W)
 SPLIT_CHUNKS_PER_SM = 4096
 
 

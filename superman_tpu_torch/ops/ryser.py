@@ -119,7 +119,9 @@ def _center_scales(a: np.ndarray, scales: np.ndarray) -> np.ndarray:
 #: K1's rate per tier in G Gray steps per second, what the sparse planner
 #: prices a step at: 2^31 steps of the n=32 full plan in 14.4 ms (df64),
 #: 8.1 (f32), 8.8 (f32k) and 34.3 (tf96), kernel alone by CUDA events
-#: (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py, PERF.md)
+#: (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py, PERF.md).  The grouped
+#: walk runs faster (10.3, 5.2, 5.7 and 24.8 ms); these figures stay until
+#: a measured change of the plans they choose (PERF.md section 7)
 K1_GITERS = {"df64": 148.0, "f32": 265.0, "f32k": 244.0, "tf96": 62.6}
 
 

@@ -63,6 +63,9 @@ MAX_N_PAD = 64
 BATCH_N_PADS = (16, 24, 32)
 #: threads of a block: the batch kernel reduces this many chunks to a pair
 BLOCK = 128
+#: log2 of the steps of one group of the walk kernels' loop
+#: (csrc/walk.cuh kGroupLog2; step_rule)
+GROUP_LOG2 = 3
 #: most matrices of one batch launch (the grid's second dimension)
 MAX_BATCH = 65535
 
@@ -222,18 +225,52 @@ def _term(x, negate, tier: str):
     return -t if negate else t
 
 
+def _ctz(i: int) -> int:
+    return (i & -i).bit_length() - 1
+
+
+def step_rule(r: int, g: int = GROUP_LOG2):
+    """The walk kernel's step rule (csrc/walk.cuh walk_chunk): yields
+    (m, k, s) for m = 1 .. 2^r - 1, the column k = ctz(m) that step m adds
+    and its x-sign s, +1 or -1, or 0 at the mid step, whose sign is the
+    chunk parity.
+
+    The steps go in aligned groups of 2^g.  Step m0 + i of the group at
+    m0 = j * 2^g (0 < i < 2^g) takes k = ctz(i) and, but at k = g - 1,
+    the sign of bit k+1 of i: constants of the kernel's unrolled group.
+    At k = g - 1 the sign is that of bit 0 of j (at r == g, where the one
+    group holds the mid step, the parity).  Only step m0 itself (j > 0)
+    takes k = g + ctz(j), with the sign of bit ctz(j)+1 of j, or the
+    parity where k = r - 1.  Below r = g the kernel steps one by one:
+    k = ctz(m), the sign of bit k+1 of m, the parity at k = r - 1; so do
+    the double tiers from N_PAD 48 (walk.cuh grouped_walk), on the same
+    steps."""
+    if r < g:
+        for m in range(1, 1 << r):
+            k = _ctz(m)
+            yield m, k, 0 if k == r - 1 else 1 - 2 * ((m >> (k + 1)) & 1)
+        return
+    for j in range(1 << (r - g)):
+        m0 = j << g
+        if j:
+            kj = _ctz(j)
+            yield m0, kj + g, (0 if kj + g == r - 1
+                               else 1 - 2 * ((j >> (kj + 1)) & 1))
+        top = 0 if r == g else 1 - 2 * (j & 1)
+        for i in range(1, 1 << g):
+            k = _ctz(i)
+            yield m0 + i, k, (top if k == g - 1
+                              else 1 - 2 * ((i >> (k + 1)) & 1))
+
+
 def _walk_steps(x, sign_mid, cols, r: int):
-    """The kernel's step rule: yields (m, x) for m = 1 .. 2^r - 1, x after
-    adding +-column ctz(m).  x (..., C, n_pad) and sign_mid (C,) from
-    gray.chunk_init, cols (..., n-1, n_pad) with one table per leading
-    index of x."""
-    for m in range(1, 1 << r):
-        k = (m & -m).bit_length() - 1
-        if k == r - 1:
-            s = sign_mid[:, None]          # mid step: the chunk parity
-        else:
-            s = -1.0 if (m >> (k + 1)) & 1 else 1.0
-        x = x + s * cols[..., k, None, :]
+    """The kernel's steps: yields (m, x) for m = 1 .. 2^r - 1, x after
+    adding +-column k by step_rule.  x (..., C, n_pad) and sign_mid (C,)
+    from gray.chunk_init, cols (..., n-1, n_pad) with one table per
+    leading index of x."""
+    for m, k, s in step_rule(r):
+        x = x + (sign_mid[:, None] if s == 0 else float(s)) \
+            * cols[..., k, None, :]
         yield m, x
 
 

@@ -25,20 +25,13 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-
-def sparse_matrix(n: int, density: float, seed: int) -> np.ndarray:
-    """The seeded sparse integer matrix of chip_smoke.py."""
-    rng = np.random.default_rng(seed)
-    a = (rng.random((n, n)) < density) * rng.integers(1, 5, (n, n))
-    np.fill_diagonal(a, rng.integers(1, 4, n))
-    return a
+from superman_tpu_torch.tools.kernel_time import smi, sparse_int_matrix
 
 
 def fit_line(xs, ys):
@@ -65,7 +58,7 @@ def main(argv=None) -> int:
                                               _row_scales)
 
     n = args.n
-    a = sparse_matrix(n, args.density, args.seed)
+    a = sparse_int_matrix(args.seed, n, args.density)
     sp = pruning.plan_sparse(a, giters=K1_GITERS[args.tier])
     if sp is None:
         print("chunk_cost: the planner declined this matrix", file=sys.stderr)
@@ -137,11 +130,7 @@ def main(argv=None) -> int:
                                         [lv[key] for lv in filled])
             fits[key] = {"intercept_ms": intercept,
                          "seconds_per_chunk": slope * 1e-3}
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = smi()
     print(json.dumps({
         "card": card, "tier": args.tier, "n": n, "density": args.density,
         "seed": args.seed, "plan_r": sp.r, "live_chunks": len(sp.ids),

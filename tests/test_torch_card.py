@@ -388,3 +388,105 @@ def test_auto_ladder_on_card():
     assert res.meta["auto"]["escalated"] == "tf96"
     assert res.meta["auto"]["low_confidence"] is True
     assert abs(res.permanent - want) <= 1e-15 * abs(want)
+
+
+# ---- the walk loop's edges (csrc/walk.cuh walk_chunk): chunks of r < G
+# steps walk one step at a time; at r = G the one group holds the mid
+# step; from r = G + 1 the mid step is the step that starts a group.  The
+# double tiers walk in groups up to N_PAD 40 and one step at a time from
+# 48 (grouped_walk)
+G = ryser_cuda.GROUP_LOG2
+EDGE_R = sorted({1, 2, G, G + 1, G + 2})
+EDGE_TIERS = ["df64", "f32", "f32k", "tf96"]
+
+
+def _edge_pack(n, n_pad, rows=None, seed=0):
+    """An integer matrix of order n (density 0.5, entries 1-4) row-scaled
+    as the engine scales it, packed for N_PAD n_pad: rows [0, rows) if
+    given (the alive rows of a factored walk), and the rest apart."""
+    rng = np.random.default_rng(1000 * n + seed)
+    a = (rng.random((n, n)) < 0.5) * rng.integers(1, 5, (n, n))
+    a_s = np.ldexp(a.astype(np.float64), -ryser._row_scales(a)[:, None])
+    if rows is None:
+        return gray.pack_matrix(a_s, n_pad)
+    return (gray.pack_matrix(a_s[:rows], n_pad)
+            + gray.pack_matrix(a_s[rows:], n - rows))
+
+
+def _edge_ids(n, r, dev):
+    """The first and last 200 chunk ids, 3 sentinels and 100 seeded ones
+    between, both parities."""
+    nchunks = 1 << (n - 1 - r)
+    rng = np.random.default_rng(n + r)
+    mid = rng.integers(0, nchunks, 100) if nchunks > 400 else []
+    return torch.as_tensor(np.concatenate([
+        np.arange(min(nchunks, 200)), [-1, -1, -1], mid,
+        np.arange(max(0, nchunks - 200), nchunks)]).astype(np.int64)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", EDGE_TIERS)
+@pytest.mark.parametrize("r", EDGE_R)
+@pytest.mark.parametrize("n", [8, 32, 40, 48, 60])
+def test_walk_loop_edges_match_plain_on_card(n, r, tier):
+    """K1 at N_PAD 8, 32, 40, 48 and 64 where the grouped loop starts,
+    holds the mid step and does not run: bit for bit the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    x0, cols = (torch.as_tensor(v).to(dev)
+                for v in _edge_pack(n, gray.pad_n(n)))
+    ids = _edge_ids(n, r, dev)
+    before = ryser_cuda.LAUNCHES
+    got = ryser_cuda.ryser_partials(ids, x0, cols, n=n, r=r, tier=tier)
+    torch.cuda.synchronize()
+    assert ryser_cuda.LAUNCHES == before + 1
+    want = ryser_cuda.ryser_partials_ref(ids, x0, cols, n=n, r=r, tier=tier)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", EDGE_TIERS)
+@pytest.mark.parametrize("r", EDGE_R)
+@pytest.mark.parametrize("n,alive", [(8, 6), (32, 28), (44, 40), (52, 48),
+                                     (60, 58)])
+def test_reduced_loop_edges_match_plain_on_card(n, alive, r, tier):
+    """The reduced entry at N_PAD 8, 32, 40, 48 and 64 (the alive rows'
+    pack) with factored rows, at the loop's edges: bit for bit the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    x0, cols, fx0, fcols = (torch.as_tensor(v).to(dev).contiguous()
+                            for v in _edge_pack(n, gray.pad_n(alive), alive))
+    ids = _edge_ids(n, r, dev)
+    before = ryser_cuda.REDUCED_LAUNCHES[tier]
+    got = ryser_cuda.ryser_reduced(ids, x0, cols, fx0, fcols, n=n, r=r,
+                                   tier=tier)
+    torch.cuda.synchronize()
+    assert ryser_cuda.REDUCED_LAUNCHES[tier] == before + 1
+    want = ryser_cuda.ryser_reduced_ref(ids, x0, cols, fx0, fcols, n=n, r=r,
+                                        tier=tier)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", EDGE_TIERS)
+@pytest.mark.parametrize("r", EDGE_R)
+@pytest.mark.parametrize("n", [13, 25])
+def test_batch_loop_edges_match_plain_on_card(n, r, tier):
+    """K2 at N_PAD 16 and 32 (its orders are 13-32) at the loop's edges,
+    two matrices: bit for bit the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    packs = [_edge_pack(n, gray.pad_n(n), seed=b) for b in range(2)]
+    x0s = torch.as_tensor(np.stack([p[0] for p in packs])).to(dev)
+    colss = torch.as_tensor(np.stack([p[1] for p in packs])).to(dev)
+    before = ryser_cuda.BATCH_LAUNCHES
+    got = ryser_cuda.batch_partials(x0s, colss, n=n, r=r, tier=tier)
+    torch.cuda.synchronize()
+    assert ryser_cuda.BATCH_LAUNCHES == before + 1
+    want = ryser_cuda.batch_partials_ref(x0s, colss, n=n, r=r, tier=tier)
+    assert torch.equal(got, want)
