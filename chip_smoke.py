@@ -16,12 +16,24 @@ and n=40; calc="tf96" on a matrix whose chunk partials stand 1e7 above
 its permanent; and calc="auto" (the ladder, with the amp walk
 ryser_walk_amp: the amplitude alone on integer matrices, with the
 conditioned term beside it on real-valued ones) at n=32 and on a
-real-valued n=24 matrix built to defeat the float tiers.  It checks their
-values, times kernels and plain versions, and prints:
+real-valued n=24 matrix built to defeat the float tiers.  Then the
+transform drivers and the estimators: compression=True on the sparse
+n=36 and n=40 matrices (folded cores walked by the Ryser walk, dense or
+pruned, and the value certified by the Z_p walk), scaling_threshold=1.0
+at n=32 (both walks), dm_prune=True on a block-triangular n=36 matrix,
+rectangular=True on a 24 x 32 matrix, the Rasmussen, scaling and Gurvits
+estimators at the Flags default of 100000 trials, Gurvits again where its
+stderr is informative (a diagonally dominant signed n=24 matrix under
+Rademacher draws, the same form at n=6 under Gaussian draws) and its
+trial against float64 on the same draws, and grid_permanent's
+SMC estimate of the 36 x 36 grid (n=648) against the Kasteleyn closed
+form, with the scale-interval selector on the 16 x 16 grid.  It checks
+their values, times kernels and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
-    path (the counts are set to 0 before every path and read after it),
+    path (the counts are set to 0 before every path and read after it;
+    `driver_launches` holds them on the driver paths),
     its largest difference from the plain version, both times, and its
     bound: the least time the card could take for the same work, the
     larger of bytes moved over the memory rate and operations over the
@@ -119,6 +131,26 @@ MOD_PRIMES = (2039, (1 << 31) - 1)
 #: a 31-bit prime outside the CRT pool of the n=32 run (which descends
 #: from 2^31 - 1), for the Glynn vs Nijenhuis-Wilf cross-check
 GLYNN_PRIME = 1073741789
+#: the transform drivers against exact values: df64 on the folded,
+#: scaled, pruned or padded matrix
+DRIVER_TOL = 1e-9
+#: a compression pipeline's own value, where the sanity net replaced it
+#: with the exact one: the JAX package's certification band
+#: (superman_tpu/drivers/runner.py:133).  d34 cores far above their
+#: permanents lose more than DRIVER_TOL in df64, but a wrong core walk or
+#: a wrong sum of the cores is off by far more than this
+PIPELINE_TOL = 1e-6
+#: an estimate against the exact value, in its own reported stderr; the
+#: SMC log2 estimate against the Kasteleyn count in sigma_log2 =
+#: stderr_rel / ln 2 (as superman_tpu/tools/smc_flagship.py computes z)
+EST_SIGMAS = 4.0
+GRID_Z = 3.0
+#: the Gurvits cases built to be informative must also reach a
+#: stderr/exact below this, so that EST_SIGMAS stderr is a real limit
+GURVITS_INFO = 0.1
+#: the grid flagship: the reference's default grid (-i -m 36 -n 36)
+FLAGSHIP = dict(approximation=True, perman_algo="scaling", smc=1,
+                number_of_times=32768, seed=11)
 
 
 def within_line_landmine(lrng, n):
@@ -371,6 +403,57 @@ def mixed_list():
     empty[3] = 0
     out.insert(11, ("empty", empty))
     return out
+
+
+def block_triangular(seed, n):
+    """(a, b1, b2): [[b1, x], [0, b2]] of order n, b1 and b2 seeded integer
+    blocks of order n/2 at density 0.5 with a full diagonal, x filled with
+    1..4.  No perfect matching uses x (b2's rows reach b2's columns only),
+    so Dulmage-Mendelsohn zeroes it, and per(a) = per(b1) per(b2)."""
+    rng = np.random.default_rng(seed)
+    h = n // 2
+    b1, b2 = (random_int_matrix(rng, h, 0.5) for _ in range(2))
+    for b in (b1, b2):
+        np.fill_diagonal(b, rng.integers(1, 5, h))
+    a = np.zeros((n, n), dtype=np.int64)
+    a[:h, :h], a[h:, h:] = b1, b2
+    a[:h, h:] = rng.integers(1, 5, (h, h))
+    return a, b1, b2
+
+
+def diag_dominant(seed, n):
+    """A signed integer matrix of order n with diagonal +-(8..15) and
+    off-diagonal entries in {-1, 0, +1} at density 0.3: (Ax)_i x_i stays
+    near a_ii for Rademacher x, so the Gurvits estimate has a small
+    variance there (and at small n under Gaussian x)."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < 0.3) * rng.choice([-1, 1], (n, n))
+    np.fill_diagonal(a, rng.integers(8, 16, n) * rng.choice([-1, 1], n))
+    return a.astype(np.int64)
+
+
+def device_busy(fn):
+    """(fn's result, host seconds, device-busy seconds or None, kernel
+    count) over one call of fn that ends in a synchronise: the union of
+    the CUDA activity intervals torch.profiler records in that window.
+    None where the profiler recorded no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return out, wall, (busy / 1e6 if spans else None), len(spans)
 
 
 def rel_err(got: float, want) -> float:
@@ -1024,6 +1107,300 @@ def main() -> int:
             or ryser_cuda.LAUNCHES <= 0 or not rel_t <= TF96_TOL:
         raise AssertionError("tf96 on the cancelling matrix")
 
+    # ---- 3g. the transform drivers.  Each hands a folded, scaled, pruned
+    # or padded matrix to the engine, which walks it on K1 (dense, or the
+    # reduced entry where the sparse gate engages); compression and scaling
+    # end in the sanity net, whose certification walks K3 where the exact
+    # engine's price on the card fits runner.CERT_BUDGET_S
+    from superman_tpu_torch.drivers import runner
+    from superman_tpu_torch.prep.dulmage_mendelsohn import dm_prune
+    from superman_tpu_torch.prep.gridgraph import kasteleyn_log2
+    driver_launches = {"k1": {}, "reduced": {}, "modp": {}}
+    walls = {}
+
+    def driver_path(tag, fn):
+        """fn() on a path of its own: the launches of K1 (df64), its
+        reduced entry (df64) and K3 in it, the orders of the matrices the
+        engine received (runner.run_algo, recorded around the call) and
+        the wall."""
+        orders, real = [], runner.run_algo
+
+        def recorded(dense, flags, device):
+            orders.append(int(dense.mat.shape[0]))
+            return real(dense, flags, device)
+
+        zero_counts()
+        runner.run_algo = recorded
+        try:
+            t = time.perf_counter()
+            res = fn()
+            walls[tag] = time.perf_counter() - t
+        finally:
+            runner.run_algo = real
+        if not orders:
+            raise AssertionError(f"{tag}: runner.run_algo recorded no "
+                                 f"matrix; the drivers no longer reach it "
+                                 f"through the module attribute")
+        got = {"k1": ryser_cuda.LAUNCHES,
+               "reduced": ryser_cuda.REDUCED_LAUNCHES["df64"],
+               "modp": modp_cuda.LAUNCHES}
+        for k, v in got.items():
+            driver_launches[k][tag] = v
+        cert = {k: res.meta[k] for k in ("exact_certified_rel",
+                                         "compression_bailout", "scaled",
+                                         "compression_suspect")
+                if k in res.meta}
+        print(f"{tag}: {res.permanent!r} in {walls[tag]:.4f} s; "
+              f"{res.algo_name}, meta {cert}; orders walked "
+              f"{sorted(set(orders))} ({len(orders)} matrices); launches "
+              f"K1 {got['k1']}, reduced {got['reduced']}, K3 {got['modp']}")
+        return res, orders, got
+
+    def check_driver(tag, res, want, orders, got, certified):
+        """Raises past DRIVER_TOL, where a value the sanity net replaced
+        was further than PIPELINE_TOL from the exact one, where an order
+        >= 19 was walked without K1, or where the sanity net should have
+        certified (certified is True) or did certify or replace the value
+        without K3."""
+        rel_d = rel_err(res.permanent, want)
+        replaced = res.meta.get("replaced")
+        rel_p = rel_err(replaced["value"], want) if replaced else 0.0
+        print(f"  rel err {rel_d:.3e} vs the exact value (limit "
+              f"{DRIVER_TOL:.0e})" + (
+                  f"; the pipeline's value {replaced['value']!r} "
+                  f"({replaced['algo']}) was {rel_p:.3e} off (limit "
+                  f"{PIPELINE_TOL:.0e}) and was replaced" if replaced
+                  else ""))
+        walked = got["k1"] + got["reduced"]
+        did = ("exact_certified_rel" in res.meta
+               or res.meta.get("compression_bailout") == "exact_crt")
+        if not rel_d <= DRIVER_TOL or not rel_p <= PIPELINE_TOL \
+                or (max(orders) >= 19 and walked <= 0) \
+                or (certified and not did) or (did and got["modp"] <= 0):
+            raise AssertionError(f"{tag}: rel {rel_d:.3e}, orders {orders}, "
+                                 f"launches {got}, meta {res.meta}")
+
+    # compression on the sparse matrices of phase 3d: d1/d2 folds, then
+    # d34 splits down to the compression floor (order 30)
+    t = time.perf_counter()
+    exact40 = spt.permanent(a40, calc="exact").meta["exact_fraction"]
+    print(f"sparse n=40 (seed 40, density 0.10): exact integer {exact40} in "
+          f"{time.perf_counter() - t:.3f} s")
+    for tag, a, want in (("compression n=36", a36, exact36),
+                         ("compression n=40", a40, exact40)):
+        res, orders, got = driver_path(
+            tag, lambda: spt.permanent(a, compression=True))
+        check_driver(tag, res, want, orders, got, certified=False)
+
+    # Sinkhorn scaling of the n=32 main-path matrix: a real-valued walk,
+    # certified by the exact engine
+    res, orders, got = driver_path(
+        "scaling n=32", lambda: spt.permanent(a32, scaling_threshold=1.0))
+    check_driver("scaling n=32", res, EXACT_N32, orders, got, certified=True)
+    if res.meta.get("scaled") is not True or got["k1"] <= 0:
+        raise AssertionError(f"scaling n=32: {res.meta}, launches {got}")
+
+    # Dulmage-Mendelsohn pruning: the filled off-diagonal block goes
+    dm_a, dm_b1, dm_b2 = block_triangular(36, 36)
+    t = time.perf_counter()
+    exact_dm = spt.permanent(dm_a, calc="exact").meta["exact_fraction"]
+    exact_dm_s = time.perf_counter() - t
+    blocks = (spt.permanent(dm_b1, calc="exact").meta["exact_fraction"]
+              * spt.permanent(dm_b2, calc="exact").meta["exact_fraction"])
+    pruned = dm_prune(dm_a)
+    print(f"dm_prune n=36 (block-triangular, seed 36): exact {exact_dm} in "
+          f"{exact_dm_s:.3f} s, = per(b1) per(b2): {exact_dm == blocks}; "
+          f"{int((dm_a != 0).sum())} nonzeros, {int((pruned != 0).sum())} "
+          f"after pruning")
+    if exact_dm != blocks or np.any(pruned[:18, 18:]):
+        raise AssertionError("dm_prune n=36: the off-diagonal block stayed "
+                             "or the exact values disagree")
+    res, orders, got = driver_path(
+        "dm_prune n=36", lambda: spt.permanent(dm_a, dm_prune=True))
+    check_driver("dm_prune n=36", res, exact_dm, orders, got, certified=False)
+    dm_zero = dm_a.copy()
+    dm_zero[:2] = 0
+    dm_zero[0, 5] = dm_zero[1, 5] = 1            # two rows, one column
+    res = spt.permanent(dm_zero, dm_prune=True)
+    print(f"dm_prune n=36, two rows on one column: {res.permanent!r}, "
+          f"{res.algo_name}")
+    if res.permanent != 0.0 or res.algo_name != "dm_structural_zero":
+        raise AssertionError("dm_prune: the structural zero was missed")
+
+    # rectangular: 24 x 32 padded with 8 rows of ones, the (n-m)! divided
+    # out; then the same flags on a square matrix
+    rrng = np.random.default_rng(2432)
+    rect = (rrng.random((24, 32)) < 0.5) * rrng.integers(1, 5, (24, 32))
+    ex_r = spt.permanent(rect, rectangular=True, calc="exact")
+    want_r = Fraction(ex_r.meta["exact_fraction"], math.factorial(8))
+    res, orders, got = driver_path(
+        "rectangular 24x32", lambda: spt.permanent(rect, rectangular=True))
+    check_driver("rectangular 24x32", res, want_r, orders, got,
+                 certified=False)
+    sq = spt.permanent(a32, rectangular=True)
+    rel_sq = rel_err(sq.permanent, EXACT_N32)
+    print(f"  exact path, rectangular: {ex_r.permanent!r} (rel "
+          f"{rel_err(ex_r.permanent, want_r):.3e}); the same flags on the "
+          f"n=32 square matrix: rel err {rel_sq:.3e}, meta "
+          f"{ {k: sq.meta[k] for k in sq.meta if k != 'spans'} }")
+    if res.meta.get("rect_shape") != [24, 32] or got["k1"] <= 0 \
+            or "rect_shape" in sq.meta or not rel_sq <= MAIN_TOL:
+        raise AssertionError("rectangular: wrong shape, no walk, or the "
+                             "square matrix was divided")
+
+    # ---- 3h. the estimators at the Flags default of 100000 trials: each
+    # within EST_SIGMAS of its own stderr of the exact value
+    erng = np.random.default_rng(320)
+    bin32 = (erng.random((32, 32)) < 0.5).astype(np.int64)
+    signed24 = np.random.default_rng(24).integers(-2, 3, (24, 24))
+    estimates = {}
+    for tag, a, kw in (("rasmussen n=32", bin32, {"perman_algo": "rasmussen"}),
+                       ("scaling n=32", bin32, {"perman_algo": "scaling"}),
+                       ("gurvits n=24", signed24,
+                        {"perman_algo": "gurvits", "gurvits_dist": "auto"})):
+        want = spt.permanent(a, calc="exact").meta["exact_fraction"]
+        # twice: the first call also pays the process's first launch of
+        # each of its kernels
+        first = None
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = spt.permanent(a, approximation=True, **kw)
+            wall = time.perf_counter() - t
+            first = wall if first is None else first
+        se = res.meta["stderr"]
+        z = float((Fraction(res.permanent) - want) / Fraction(se)) \
+            if se and math.isfinite(se) else math.inf
+        estimates[tag] = {"wall_s": wall, "first_wall_s": first,
+                          "trials": res.meta["trials"],
+                          "trials_per_s": res.meta["trials"] / wall,
+                          "z": z, "stderr_rel": se / float(want)}
+        print(f"estimator {tag}: {res.permanent!r} +- {se!r} vs the exact "
+              f"{float(want)!r}: {z:+.3f} stderr (limit {EST_SIGMAS}), "
+              f"stderr/exact {se / float(want):.3e}; {res.algo_name}, "
+              f"{res.meta['trials']} trials, {res.zeros} zeros, "
+              f"{res.meta.get('dist', '')} in {wall:.3f} s "
+              f"({res.meta['trials'] / wall:.0f} trials/s; the first call "
+              f"{first:.3f} s)")
+        if res.meta["trials"] != 100000 or not (se and se > 0) \
+                or not abs(z) <= EST_SIGMAS:
+            raise AssertionError(f"estimator {tag}: z {z}, stderr {se}")
+
+    # Gurvits where its stderr says something: the signed n=24 matrix
+    # above sits at stderr/exact ~1e3, where EST_SIGMAS stderr passes
+    # almost any answer
+    for tag, a, kw in (
+            ("gurvits diagonal n=24", diag_dominant(124, 24),
+             {"gurvits_dist": "auto", "number_of_times": 100000}),
+            ("gurvits gaussian n=6", diag_dominant(106, 6),
+             {"gurvits_dist": "gaussian", "number_of_times": 1000000})):
+        want = spt.permanent(a, calc="exact").meta["exact_fraction"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = spt.permanent(a, approximation=True, perman_algo="gurvits",
+                            **kw)
+        wall = time.perf_counter() - t
+        se = res.meta["stderr"]
+        z = float((Fraction(res.permanent) - want) / Fraction(se)) \
+            if se and math.isfinite(se) else math.inf
+        srel = se / abs(float(want))
+        estimates[tag] = {"wall_s": wall, "trials": res.meta["trials"],
+                          "trials_per_s": res.meta["trials"] / wall,
+                          "z": z, "stderr_rel": srel,
+                          "dist": res.meta["dist"]}
+        print(f"estimator {tag}: {res.permanent!r} +- {se!r} vs the exact "
+              f"{float(want)!r}: {z:+.3f} stderr (limit {EST_SIGMAS}), "
+              f"stderr/exact {srel:.3e} (limit {GURVITS_INFO}); "
+              f"{res.meta['dist']}, {res.meta['trials']} trials in "
+              f"{wall:.3f} s")
+        if res.meta["trials"] != kw["number_of_times"] \
+                or not abs(z) <= EST_SIGMAS or not srel < GURVITS_INFO:
+            raise AssertionError(f"estimator {tag}: z {z}, stderr/exact "
+                                 f"{srel}")
+    # the Gurvits trial against float64 on the same float32 draws.  A
+    # float32 dot product of length n is off by at most g_n sum|a_ij x_j|
+    # with g_n = n u / (1 - n u), u = 2^-24 (any summation order, with or
+    # without FMA); log2|y_i| so by at most -log2(1 - g_n k_i), k_i =
+    # sum|a_ij x_j| / |y_i|.  A TF32 product (inputs rounded at 2^-11), a
+    # lost factor or a wrong sign is far outside that
+    from superman_tpu_torch.ops.approx import _full_fp32, _gurvits_trial
+    ga = signed24.astype(np.float32)
+    gx = np.random.default_rng(2401).standard_normal((8192, 24)) \
+        .astype(np.float32)
+    with _full_fp32():
+        logm, sgn = _gurvits_trial(torch.as_tensor(ga, device=dev),
+                                   torch.as_tensor(gx, device=dev))
+    logm, sgn = logm.cpu().numpy(), sgn.cpu().numpy()
+    a64, x64 = ga.astype(np.float64), gx.astype(np.float64)
+    y64 = x64 @ a64.T
+    kappa = (np.abs(x64) @ np.abs(a64).T) / np.abs(y64)
+    u = 2.0 ** -24
+    g_n = 24 * u / (1 - 24 * u)
+    ok = np.all(g_n * kappa < 0.5, axis=1)     # rows far from a sign flip
+    want_l = np.log2(np.abs(y64)).sum(1) + np.log2(np.abs(x64)).sum(1)
+    want_s = np.sign(y64).prod(1) * np.sign(x64).prod(1)
+    lim = -np.log2(1.0 - g_n * np.where(ok[:, None], kappa, 0.0)).sum(1)
+    gerr = np.abs(logm - want_l)
+    print(f"gurvits trial n=24, 8192 Gaussian draws on the card vs float64: "
+          f"{int(ok.sum())} trials far from a sign flip, largest log2 "
+          f"error {float(gerr[ok].max()):.3e}, largest error over its "
+          f"limit {float((gerr[ok] / lim[ok]).max()):.3f}, signs equal: "
+          f"{bool(np.all(sgn[ok] == want_s[ok]))}")
+    if ok.sum() < 4096 or np.any(gerr[ok] > lim[ok]) \
+            or np.any(sgn[ok] != want_s[ok]):
+        raise AssertionError("gurvits trial: off float64 past the float32 "
+                             "bound")
+
+    # the grid flagship: SMC on the 36 x 36 grid (n = 648) against the
+    # Kasteleyn closed form; then the selector (scale_intervals=-1) on the
+    # 16 x 16 grid
+    def grid_z(res, g):
+        exact_l2 = kasteleyn_log2(g, g)
+        sig_l2 = float(res.meta["stderr_rel"]) / math.log(2.0)
+        est_l2 = float(res.meta["log2_estimate"])
+        return ((est_l2 - exact_l2) / sig_l2 if sig_l2 > 0 else math.inf,
+                est_l2, exact_l2, sig_l2)
+
+    for g, si in ((36, 2), (16, -1)):
+        tag = f"grid {g}x{g} si={si}"
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = spt.grid_permanent(g, g, scale_intervals=si, **FLAGSHIP)
+        wall = time.perf_counter() - t
+        z, est_l2, exact_l2, sig_l2 = grid_z(res, g)
+        # the selector runs both candidates in full: twice the particles
+        run = res.meta["trials"] * (2 if si < 0 else 1)
+        estimates[tag] = {"wall_s": wall, "trials": res.meta["trials"],
+                          "particles_run": run, "trials_per_s": run / wall,
+                          "z": z, "stderr_rel": res.meta["stderr_rel"]}
+        print(f"{tag} (n={g * g // 2}): log2 {est_l2:.4f} vs Kasteleyn "
+              f"{exact_l2:.4f}, sigma_log2 {sig_l2:.4f}, z {z:+.3f} (limit "
+              f"{GRID_Z}); {res.algo_name}, {res.meta['trials']} particles "
+              f"in {res.meta['populations']} populations, si "
+              f"{res.meta['scale_intervals']}, zeros {res.zeros}, "
+              f"si_auto {res.meta.get('si_auto')}; {wall:.3f} s")
+        if not abs(z) <= GRID_Z or res.algo_name != "approx_scaling_smc":
+            raise AssertionError(f"{tag}: z {z}")
+    # the flagship's device-busy share: one population of it under the
+    # profiler
+    from superman_tpu_torch.core.flags import Flags
+    from superman_tpu_torch.ops.approx import smc_estimate
+    from superman_tpu_torch.prep.gridgraph import grid_graph_matrix
+    g648 = grid_graph_matrix(36, 36).mat.astype(np.float64)
+    _, pop_wall, busy, nkern = device_busy(lambda: smc_estimate(
+        g648, Flags(**FLAGSHIP), dev, pops=1, si=2))
+    estimates["flagship population"] = {
+        "wall_s": pop_wall, "device_busy_s": busy, "kernels": nkern,
+        "idle_share": None if busy is None else 1.0 - busy / pop_wall}
+    print(f"grid 36x36, one SMC population under torch.profiler: "
+          f"{pop_wall:.3f} s host, device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f} s'} "
+          f"({nkern} device activities): idle share "
+          f"{estimates['flagship population']['idle_share']}")
+    print(f"driver and estimator walls (s): "
+          f"{ {k: round(v, 4) for k, v in walls.items()} }; estimators "
+          f"{json.dumps(estimates)}")
+
     # ---- 4. times at the full n=32 main-path plan
     # (the SM clock is sampled after each kernel's timing, while more of
     # its launches run)
@@ -1157,7 +1534,9 @@ def main() -> int:
                      **({"plain_ms_chunks": int(sampled_ids.numel())}
                         if tier == "tf96" else {}),
                      **({"glynn_launches": glynn_launches[tier]}
-                        if tier in glynn_launches else {}))
+                        if tier in glynn_launches else {}),
+                     **({"driver_launches": driver_launches["k1"]}
+                        if tier == "df64" else {}))
                for tier in TIERS]
     # ms, plain_ms and bound_ms at 256 x n=24; beside them the kernel at
     # 16 x n=32 and kernel and plain version at the first 2 of those
@@ -1184,7 +1563,9 @@ def main() -> int:
                       *reduced[tier], tier=tier,
                       registers=sparse36[tier]["registers"],
                       clocks_sm_mhz=clocks[f"reduced_{tier}"],
-                      plain_ms_chunks=sparse36[tier]["plain_chunks"])
+                      plain_ms_chunks=sparse36[tier]["plain_chunks"],
+                      **({"driver_launches": driver_launches["reduced"]}
+                         if tier == "df64" else {}))
                 for tier in TIERS]
     # the amp walk once per variant: launches on the auto path that runs
     # it (the amplitude alone to the exact rung at n=32, the conditioned
@@ -1200,7 +1581,8 @@ def main() -> int:
     kernels.append(entry("modp_walk", "superman_tpu_torch/csrc/modp_walk.cu",
                          "superman_tpu/ops/modp.py:413", mod_launches,
                          mod_err, mod_ms, mod_plain_ms, mod_bound,
-                         clocks_sm_mhz=clocks["modp"]))
+                         clocks_sm_mhz=clocks["modp"],
+                         driver_launches=driver_launches["modp"]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

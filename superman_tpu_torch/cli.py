@@ -9,6 +9,13 @@ line (reference revised_perman/main.cpp:1665):
 One flag is new: --device names the torch device (default cuda:<-l>;
 "cpu" runs the kernels' plain versions).  The reference's -d, a device
 count for multi-device algorithms, is spelled -d/--gpu-num here.
+
+The transforms and the estimators run: -a (the Monte-Carlo estimators,
+-p rasmussen | scaling | gurvits, with -x trials, -y/-z Sinkhorn
+intervals and sweeps, --smc), -i (the perfect matchings of a -m x -n grid
+graph), -o (compression) and -u (Sinkhorn scaling).  What is still
+refused by name: several devices, the hybrid scheduler and -c, the
+native CPU engine.
 """
 
 from __future__ import annotations

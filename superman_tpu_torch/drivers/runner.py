@@ -1,15 +1,19 @@
 """Orchestration: dispatch a (matrix, flags) pair to an engine.
 
-Port of ``superman_tpu/drivers/runner.py`` for what the port carries so
-far: the exact engine (ops/ryser.py), dense and sparse (sparse=True, a
-SkipPer id, or by itself on clearly sparse matrices), in the df64, f32,
-f32k, tf96 and f64 tiers and the host's quad; the Glynn engine
-(ops/glynn.py, perman_algo="glynn") in the same tiers; the modular CRT
-exact engine (ops/exact.py, calc="exact"); and the accuracy-adaptive
-ladder over them (calc="auto").  Every other feature the flags can ask
-for raises NotImplementedError naming the ROADMAP item that brings it;
-none is ignored, so no result differs quietly from what the JAX package
-would return.
+Port of ``superman_tpu/drivers/runner.py``: the exact engine
+(ops/ryser.py), dense and sparse (sparse=True, a SkipPer id, or by itself
+on clearly sparse matrices), in the df64, f32, f32k, tf96 and f64 tiers
+and the host's quad; the Glynn engine (ops/glynn.py,
+perman_algo="glynn") in the same tiers; the modular CRT exact engine
+(ops/exact.py, calc="exact"); the accuracy-adaptive ladder over them
+(calc="auto"); the transform drivers around them (Sinkhorn scaling,
+compression, Dulmage-Mendelsohn pruning) with the sanity net that
+certifies a transformed pipeline's value with the exact engine; and the
+Monte-Carlo estimators (ops/approx.py).  What the flags can ask for
+beyond that (several devices, the hybrid scheduler, the native CPU
+engine) raises NotImplementedError naming the ROADMAP item that brings
+it; none is ignored, so no result differs quietly from what the JAX
+package would return.
 """
 
 from __future__ import annotations
@@ -23,11 +27,10 @@ import torch
 from ..core.flags import Flags, id_behavior
 from ..core.matrix import DenseMatrix
 from ..core.result import Result
+from ..utils import trace
 
 #: ROADMAP.md Queue 1 items that carry the features not ported yet
 ROADMAP_ITEMS = {
-    9: "estimators",
-    10: "drivers, prep and rectangular",
     11: "multi-GPU and scheduling",
     12: "CLI, bindings and tools",
 }
@@ -44,8 +47,13 @@ def run(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     # CLI); unknown ids raise here
     beh = id_behavior(flags.perman_algo, flags.sparse, flags.approximation)
     # never mutate the caller's Flags: resolve into a private copy
+    upd = {}
     if beh["sparse"] and not flags.sparse:
-        flags = dataclasses.replace(flags, sparse=True, dense=False)
+        upd["sparse"], upd["dense"] = True, False
+    if flags.approximation and flags.perman_algo != beh["algo"]:
+        upd["perman_algo"] = beh["algo"]
+    if upd:
+        flags = dataclasses.replace(flags, **upd)
     # calc="exact": modular-CRT integer permanent (ops/exact.py).  It
     # folds degree-1/2 lines in exact bigint arithmetic itself and must
     # not run under the scaling or compression drivers (those round in
@@ -53,30 +61,149 @@ def run(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     if flags.resolved_calc() == "exact" and not flags.approximation:
         from ..ops.exact import perman_exact
         return perman_exact(dense, flags, device)
-    if flags.approximation:
-        raise unported("approximation", 9)
+    if flags.approximation and (beh["hybrid"] or flags.hybrid):
+        raise unported("the estimators' hybrid CPU trial worker", 12)
     if beh["hybrid"] or flags.hybrid or flags.checkpoint_path:
         raise unported("the hybrid scheduler and checkpointing", 11)
     if beh["multi"] or (flags.mesh_shape is not None
                         and int(np.prod(flags.mesh_shape)) > 1):
         raise unported("multi-device runs", 11)
+    # transform drivers wrap the core run, in the reference's order: the
+    # scale driver may call compression, which recurses back here
     if flags.scaling_threshold != -1.0:
-        raise unported("Sinkhorn scaling", 10)
+        from .scale_driver import scale_and_calculate
+        res = scale_and_calculate(dense, flags, device)
+        return _compression_sanity(dense, flags, res, device)
     if flags.compression:
-        raise unported("compression", 10)
+        from .compress_driver import compress_singleton_and_then_recurse
+        res = compress_singleton_and_then_recurse(dense, flags, device)
+        return _compression_sanity(dense, flags, res, device)
     return run_algo(dense, flags, device)
+
+
+#: (n, hash(bytes)) -> (Fraction, meta): exact certifications are
+#: deterministic and cost up to 5 s each, and serving loops call
+#: permanent() on the same matrix again and again
+_CERT_CACHE: dict = {}
+#: the certification runs where the exact engine's price on the device
+#: fits this many seconds
+CERT_BUDGET_S = 5.0
+#: a certified pipeline value further than this from the exact one is
+#: replaced by it: the double-class limit (df64's at n=32).  The JAX
+#: package keeps values up to 1e-6 off (superman_tpu/drivers/runner.py:
+#: 133); d34 splits can leave cores whose walks lose that much where the
+#: matrix itself walks to 1e-13 (chip_smoke.py's sparse n=40 matrix: two
+#: of its 24 cores sit 2^41 above their permanents, and the pipeline came
+#: out 5.6e-7 off), and with the exact value in hand the port returns it
+CERT_REL_TOL = 1e-9
+
+
+def _compression_sanity(dense: DenseMatrix, flags: Flags, res: Result,
+                        device: torch.device) -> Result:
+    """Bail out of a numerically broken compression or scaling pipeline.
+
+    d2 merges multiply entries; the compressed matrix (and a Sinkhorn
+    rescale of it) can be cancellation-catastrophic, needing 300+ bits
+    where the ORIGINAL matrix walks fine.  Compression preserves the
+    permanent exactly, so:
+
+    * where the exact CRT engine is cheap on `device` (its price fits
+      CERT_BUDGET_S), it certifies the pipeline's value or, further than
+      CERT_REL_TOL from the exact one, replaces it.
+      The JAX package certifies a core of n > 16 only with its native
+      library; here the device walks every core (K3 on a card), so the
+      gate is the price alone, as for calc="auto"'s exact rung;
+    * otherwise the result must sit within 60 bits of the original
+      matrix's magnitude estimate, else the direct engine runs again on
+      the uncompressed matrix (n <= 42) or the result is flagged.
+    """
+    from ..ops.ryser import _log2_perm_estimate
+
+    if flags.approximation:
+        return res                       # estimates carry their own stderr
+    a = np.asarray(dense.mat, dtype=np.float64)
+    p = res.permanent
+    # the f32 tiers would always miss a df64-class agreement band: keep
+    # only the magnitude alarm for them, never replace the requested tier
+    double_class = flags.resolved_calc() not in ("f32", "f32k")
+
+    if a.shape[0] <= 100 and double_class:
+        from ..ops.exact import (_float_of_fraction, exact_cost_estimate,
+                                 perman_exact_fraction)
+        try:
+            secs, _, _ = exact_cost_estimate(a, device,
+                                             budget_s=CERT_BUDGET_S)
+        except (OverflowError, ValueError):     # entries not finite
+            secs = float("inf")
+        if secs < CERT_BUDGET_S:
+            key = (a.shape[0], hash(a.tobytes()))
+            hit = _CERT_CACHE.get(key)
+            if hit is not None:
+                frac, emeta = hit
+                emeta = {**emeta, "wall_s": 0.0}
+            else:
+                frac, emeta = perman_exact_fraction(a, device)
+                if len(_CERT_CACHE) >= 16:
+                    _CERT_CACHE.pop(next(iter(_CERT_CACHE)))
+                _CERT_CACHE[key] = (frac, emeta)
+            ev = _float_of_fraction(frac)
+            rel = (abs(p - ev) / abs(ev) if ev and np.isfinite(ev)
+                   else (0.0 if p == ev else np.inf))
+            if not np.isfinite(p) or rel > CERT_REL_TOL:
+                trace.log(
+                    "compression pipeline is cancellation-bound "
+                    f"(rel error {rel:.1e} vs exact CRT); returning the "
+                    f"exact value (core n={emeta['core_n']}, "
+                    f"{emeta['wall_s']:.2f} s)", level=1)
+                out = Result(ev, res.time + emeta["wall_s"],
+                             algo_name="exact_crt",
+                             iterations=res.iterations)
+                out.meta["compression_bailout"] = "exact_crt"
+                out.meta["exact_fraction"] = frac
+                out.meta["replaced"] = {"value": p,
+                                        "algo": res.algo_name}
+                return out
+            res.meta["exact_certified_rel"] = float(f"{rel:.2e}")
+            return res
+
+    est = _log2_perm_estimate(np.abs(a))
+    suspicious = not np.isfinite(p)
+    if not suspicious and est is not None and np.isfinite(est) and p != 0:
+        suspicious = abs(float(np.log2(abs(p))) - est) > 60.0
+    if not suspicious:
+        return res
+    if a.shape[0] > 42:
+        # direct dense is infeasible here and exact was not cheap:
+        # surface the suspicion instead of silently hanging
+        trace.log("compression result fails the magnitude sanity check "
+                  "but the matrix is too large for a direct re-run; "
+                  "flagging compression_suspect", level=1)
+        res.meta["compression_suspect"] = True
+        return res
+    trace.log("compression result fails the magnitude sanity check; "
+              "re-running the direct engine on the uncompressed matrix",
+              level=1)
+    direct = run_algo(dense, dataclasses.replace(flags, compression=False),
+                      device)
+    direct.meta["compression_bailout"] = True
+    return direct
 
 
 def run_algo(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     if flags.approximation:
-        raise unported("approximation", 9)
+        from ..ops.approx import approximate
+        return approximate(dense, flags, device)
     calc = flags.resolved_calc()
     # calc="quad" needs no native library: the engines walk it on the
     # host in long double, as the JAX package does without one
     if flags.cpu and not flags.gpu:
         raise unported("the native CPU engine (cpu=True)", 12)
     if flags.dm_prune:
-        raise unported("Dulmage-Mendelsohn pruning", 10)
+        from ..prep.dulmage_mendelsohn import dm_prune
+        pruned = dm_prune(np.asarray(dense.mat))
+        if pruned is None:
+            return Result(0.0, 0.0, algo_name="dm_structural_zero")
+        dense = DenseMatrix(pruned, dense.type)
     from ..prep.orderings import apply_preprocessing
     dm = apply_preprocessing(dense, flags.preprocessing) \
         if flags.sparse else dense

@@ -151,9 +151,16 @@ def test_exact_routes_before_the_guards(flags):
 
 
 def test_exact_with_approximation_still_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    """approximation=True wins over calc="exact", as in the JAX package:
+    the estimator runs (not the exact engine), and what the estimators
+    still lack, the hybrid CPU trial worker, is refused by name."""
+    res = spt.permanent(_matrix("int8"), calc="exact", approximation=True,
+                        number_of_times=1000, device="cpu")
+    assert res.algo_name == "approx_scaling"
+    assert "exact_fraction" not in res.meta
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         spt.permanent(_matrix("int8"), calc="exact", approximation=True,
-                      device="cpu")
+                      hybrid=True, device="cpu")
 
 
 def test_exact_without_cuda_raises(monkeypatch):

@@ -197,17 +197,21 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    {"approximation": True},
-    {"calc": "exact", "approximation": True},
+    {"approximation": True, "hybrid": True},
+    {"calc": "exact", "approximation": True, "mesh_shape": (2,)},
     {"calc": "quad", "cpu": True, "gpu": False},
     {"perman_algo": "glynn", "calc": "quad", "cpu": True, "gpu": False},
     {"calc": "tf96", "hybrid": True},
     {"perman_algo": "5"}, {"mesh_shape": (2,)}, {"hybrid": True},
-    {"checkpoint_path": "journal"}, {"compression": True},
-    {"scaling_threshold": 1.0}, {"cpu": True, "gpu": False},
-    {"dm_prune": True}, {"rectangular": True},
+    {"checkpoint_path": "journal"}, {"compression": True, "hybrid": True},
+    {"scaling_threshold": 1.0, "mesh_shape": (2,)},
+    {"cpu": True, "gpu": False},
+    {"dm_prune": True, "cpu": True, "gpu": False},
+    {"rectangular": True, "checkpoint_path": "journal"},
 ])
 def test_unported_features_raise(flags):
+    """What is still refused by name (ROADMAP items 11 and 12), also under
+    the drivers, the estimators and rectangular input, which run now."""
     a = random_int_matrix(np.random.default_rng(2), 20, 0.5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         spt.permanent(a, device="cpu", **flags)
