@@ -27,13 +27,22 @@ stderr is informative (a diagonally dominant signed n=24 matrix under
 Rademacher draws, the same form at n=6 under Gaussian draws) and its
 trial against float64 on the same draws, and grid_permanent's
 SMC estimate of the 36 x 36 grid (n=648) against the Kasteleyn closed
-form, with the scale-interval selector on the 16 x 16 grid.  It checks
-their values, times kernels and plain versions, and prints:
+form, with the scale-interval selector on the 16 x 16 grid.  Last the
+host layer (host_layer_phases): the native CPU engine, built from this
+checkout, at n=32 (its double walk, its exact CRT pipeline) and its Z_p
+walk against K3; ryser_exact and glynn_exact over a mesh of 4 streams of
+the card, bitwise against one device in every tier and on the sparse
+n=36 matrix; the hybrid scheduler (card and native engine) with a
+journal and a resumed run; two processes joined over gloo on the card;
+Rasmussen over 2 streams, twice, and with the native trial worker.  It
+checks their values, times kernels and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
     path (the counts are set to 0 before every path and read after it;
-    `driver_launches` holds them on the driver paths),
+    `driver_launches` holds them on the driver paths, `mesh_launches`,
+    `mesh_glynn_launches`, `hybrid_launches` and `multihost_launches`
+    on the host layer's),
     its largest difference from the plain version, both times, and its
     bound: the least time the card could take for the same work, the
     larger of bytes moved over the memory rate and operations over the
@@ -149,6 +158,19 @@ GRID_Z = 3.0
 #: stderr/exact below this, so that EST_SIGMAS stderr is a real limit
 GURVITS_INFO = 0.1
 #: the grid flagship: the reference's default grid (-i -m 36 -n 36)
+#: the native engine's double walk at n=32 against the exact integer: its
+#: OpenMP threads add their partial sums in long double in another order
+#: than the JAX package's pinned run (PINNED_N32, 5.5e-13 from it)
+NATIVE_TOL = 1e-11
+#: the hybrid scheduler's value (card units beside native-engine units)
+#: against the exact integer, and a resumed run against the first
+HYBRID_TOL = 1e-9
+RESUME_TOL = 1e-12
+#: several processes against one: the blocks are regrouped
+MULTIHOST_TOL = 1e-12
+#: the mesh of streams of one card that the multi-device code runs on
+MESH_ENTRIES = 4
+
 FLAGSHIP = dict(approximation=True, perman_algo="scaling", smc=1,
                 number_of_times=32768, seed=11)
 
@@ -461,6 +483,291 @@ def rel_err(got: float, want) -> float:
     beyond 2^53, which a float subtraction would round first."""
     want = Fraction(want)
     return float(abs(Fraction(got) - want) / abs(want))
+
+
+MULTIHOST_SCRIPT = r"""
+import json
+import sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+from superman_tpu_torch.parallel.mesh import init_distributed, process_info
+init_distributed()
+import superman_tpu_torch as spt
+from superman_tpu_torch.ops import ryser_cuda
+from superman_tpu_torch.tools.kernel_time import random_int_matrix
+a = random_int_matrix(np.random.default_rng({seed}), {n}, 0.5)
+spt.permanent(a, device={device!r})                # warm-up
+ryser_cuda.LAUNCHES = 0
+res = spt.permanent(a, device={device!r})
+print("RESULT", json.dumps({{"value": res.permanent.hex(),
+                            "launches": ryser_cuda.LAUNCHES,
+                            "processes": process_info()[1],
+                            "wall_s": res.time}}))
+"""
+
+
+def host_layer_phases(dev, a32, a36, bin32, zero_counts,
+                      exact_value=EXACT_N32, seed=SEED) -> dict:
+    """The native CPU engine, the mesh (MESH_ENTRIES streams of one card),
+    the hybrid scheduler with its journal, two processes over gloo, and
+    the estimators' sharded batch and hybrid CPU worker, on a32 (made by
+    random_int_matrix from `seed`, permanent exact_value), the sparse a36
+    and the 0/1 bin32.  Each raises on failure; returns the launches of
+    K1 and its reduced entry on each path and the walls."""
+    import os
+    import socket
+    import subprocess
+    import tempfile
+
+    import torch
+    import superman_tpu_torch as spt
+    from superman_tpu_torch.bindings import native
+    from superman_tpu_torch.core.flags import Flags
+    from superman_tpu_torch.core.matrix import DenseMatrix
+    from superman_tpu_torch.native import build as native_build
+    from superman_tpu_torch.ops import (approx, exact, gray, modp, modp_cuda,
+                                        ryser_cuda)
+    from superman_tpu_torch.ops.glynn import glynn_exact
+    from superman_tpu_torch.ops.ryser import (_center_scales, _row_scales,
+                                              _sm_count, ryser_exact)
+    from superman_tpu_torch.parallel.mesh import make_mesh
+    from superman_tpu_torch.parallel.scheduler import compute_partials_hybrid
+    from superman_tpu_torch.parallel.sharding import pad_ids
+
+    out = {"walls": {}, "mesh": {}, "hybrid": {}, "multihost": {}}
+    walls = out["walls"]
+    threads = os.cpu_count()
+    n32 = a32.shape[0]
+    steps = 1 << (n32 - 1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    # ---- 5a. the native engine: its build, the dense double walk at
+    # n=32, its exact CRT pipeline, and its Z_p walk against K3
+    lib_path, walls["native_build_s"] = timed(native_build.build)
+    if not native.native_available():
+        raise AssertionError("the native engine does not load")
+    lib = native.load()
+    a = np.ascontiguousarray(a32, dtype=np.float64)
+    p_dense, wall = timed(lambda: lib.sup_perman_dense(a, n32, threads, 0))
+    walls["native_dense_s"] = wall
+    rel = rel_err(p_dense, exact_value)
+    print(f"native engine: built in {walls['native_build_s']:.1f} s -> "
+          f"{lib_path}; os.cpu_count() {threads}, IFMA {native.cpu_ifma()}; "
+          f"sup_perman_dense n={n32}: {p_dense!r} in {wall:.3f} s "
+          f"({steps / wall / 1e9:.3f} G steps/s on {threads} threads), "
+          f"rel err {rel:.3e} vs the exact integer (limit {NATIVE_TOL})")
+    if not rel <= NATIVE_TOL:
+        raise AssertionError(f"native dense n={n32}: rel {rel:.3e}")
+    (frac, meta), wall = timed(lambda: exact.perman_exact_fraction(
+        a32, dev, engine="native", threads=threads))
+    walls["native_exact_s"] = wall
+    print(f"perman_exact_fraction(engine='native') n={n32}: "
+          f"{meta['engine']}, {meta['nprimes']} primes + verifier, "
+          f"{wall:.3f} s; equals the exact integer: {frac == exact_value}")
+    if frac != exact_value:
+        raise AssertionError(f"native exact n={n32}: {frac}")
+    # the Z_p walk at n=24 (sup_perman_mod is one thread; at n=32 the
+    # exact pipeline above walks the same residues over all threads)
+    p = (1 << 31) - 1
+    core = [[int(v) for v in row]
+            for row in random_int_matrix(np.random.default_rng(24), 24, 0.5)]
+    am = np.ascontiguousarray([[v % p for v in row] for row in core],
+                              dtype=np.uint64)
+    got, walls["native_mod_n24_s"] = timed(
+        lambda: int(lib.sup_perman_mod(am, 24, p)))
+    zero_counts()
+    k3, k3_wall = timed(lambda: modp.perman_core_mod(core, p, dev))
+    print(f"native sup_perman_mod n=24 mod {p}: {got} in "
+          f"{walls['native_mod_n24_s']:.3f} s; K3 {k3} in {k3_wall:.4f} s "
+          f"({modp_cuda.LAUNCHES} launch)")
+    if got != k3 or modp_cuda.LAUNCHES != 1:
+        raise AssertionError(f"native residue n=24: {got} != K3 {k3}")
+
+    # ---- 5b. the mesh: ryser_exact and glynn_exact over MESH_ENTRIES
+    # streams of the card, each tier, against one device, bit for bit
+    mesh = make_mesh(devices=[dev] * MESH_ENTRIES)
+    cases = [(tier, a32, "ryser", Flags(calc=tier)) for tier in TIERS]
+    cases += [("sparse n=36 df64", a36, "ryser",
+               Flags(calc="df64", sparse=True)),
+              ("glynn df64", a32, "glynn",
+               Flags(calc="df64", perman_algo="glynn"))]
+    for tag, mat, algo, flags in cases:
+        dm = DenseMatrix(mat, "int")
+        fn = ryser_exact if algo == "ryser" else glynn_exact
+        fn(dm, flags, dev)                                # warm-up
+        one, one_wall = min((timed(lambda: fn(dm, flags, dev))
+                             for _ in range(3)), key=lambda rw: rw[1])
+        fn(dm, flags, dev, mesh=mesh)
+        zero_counts()
+        many, many_wall = timed(lambda: fn(dm, flags, dev, mesh=mesh))
+        launches = {"k1": ryser_cuda.LAUNCHES,
+                    "reduced": sum(ryser_cuda.REDUCED_LAUNCHES.values())}
+        many_wall = min(many_wall, min(timed(lambda: fn(
+            dm, flags, dev, mesh=mesh))[1] for _ in range(2)))
+        out["mesh"][tag] = launches
+        walls[f"mesh {tag}"] = {"one_device_s": one_wall,
+                                "mesh_s": many_wall}
+        print(f"mesh of {MESH_ENTRIES} streams, {tag}: {many.permanent!r} "
+              f"({many.algo_name}, mesh {many.meta['mesh']}) in "
+              f"{many_wall:.4f} s, one device {one.permanent!r} in "
+              f"{one_wall:.4f} s (best of 3 each); launches {launches}")
+        want_key = "reduced" if "sparse" in tag else "k1"
+        if many.permanent != one.permanent \
+                or many.meta["mesh"] != MESH_ENTRIES \
+                or launches[want_key] != MESH_ENTRIES:
+            raise AssertionError(f"mesh {tag}: {many.permanent!r} vs "
+                                 f"{one.permanent!r}, launches {launches}")
+    entry_res = spt.permanent(a32, mesh_shape=(MESH_ENTRIES,), device=dev)
+    print(f"permanent(a32, mesh_shape=({MESH_ENTRIES},)) on "
+          f"{torch.cuda.device_count()} card(s): mesh "
+          f"{entry_res.meta['mesh']}, {entry_res.permanent!r}")
+    if dev.type == "cuda" and torch.cuda.device_count() == 1 \
+            and entry_res.meta["mesh"] is not None:
+        raise AssertionError("mesh_shape on one card gave a mesh")
+
+    # ---- 5c. the hybrid scheduler with its journal, through permanent(),
+    # then resumed (the CPU worker may take no unit there: its unit
+    # outlasts the card's walk); and compute_partials_hybrid at one block
+    # a unit, where the card's remaining walk outlasts a CPU unit, so that
+    # both workers take units
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = os.path.join(tmp, "hybrid.jsonl")
+        one, one_wall = timed(lambda: spt.permanent(a32, device=dev))
+        zero_counts()
+        res, wall = timed(lambda: spt.permanent(
+            a32, hybrid=True, cpu=True, checkpoint_path=journal,
+            threads=threads, device=dev))
+        h = res.meta["hybrid"]
+        out["hybrid"]["permanent"] = ryser_cuda.LAUNCHES
+        rel = rel_err(res.permanent, exact_value)
+        again, again_wall = timed(lambda: spt.permanent(
+            a32, hybrid=True, cpu=True, checkpoint_path=journal,
+            threads=threads, device=dev))
+    print(f"hybrid permanent(a32, hybrid=True, cpu=True, checkpoint): "
+          f"{res.permanent!r} ({res.algo_name}) in {wall:.4f} s, one device "
+          f"{one_wall:.4f} s; units {h}, rel err {rel:.3e} vs the exact "
+          f"integer; {ryser_cuda.LAUNCHES} K1 launches; resumed run "
+          f"{again.permanent!r} in {again_wall:.4f} s, units "
+          f"{again.meta['hybrid']}")
+    # on a card no unit may fail over to the CPU: no retry, no hand-off
+    if not rel <= HYBRID_TOL or h["device"] + h["cpu"] != h["units"] \
+            or h["retries"] != 0 or h["handoffs"] != 0 \
+            or again.meta["hybrid"]["resumed"] != h["units"] \
+            or not rel_err(again.permanent, res.permanent) <= RESUME_TOL \
+            or out["hybrid"]["permanent"] != h["device"]:
+        raise AssertionError("hybrid through permanent()")
+    walls["hybrid"] = {"permanent_s": wall, "resumed_s": again_wall,
+                       "one_device_s": one_wall, "units": h,
+                       "resumed_bitwise": again.permanent == res.permanent}
+    sms = _sm_count(dev)
+    plan = gray.make_plan(n32, sms=sms, min_blocks=32)
+    scales = _center_scales(a32, _row_scales(a32))
+    a_s = np.ldexp(a, -scales[:, None])
+    x0, cols = gray.pack_matrix(a_s, plan.n_pad)
+    ids_blocks = pad_ids(np.arange(plan.num_chunks, dtype=np.int64),
+                         plan.lanes)
+    zero_counts()
+    (total, stats), wall = timed(lambda: compute_partials_hybrid(
+        a_s, ids_blocks, x0, cols, plan, dev, threads=threads,
+        unit_blocks=1))
+    out["hybrid"]["unit_blocks=1"] = ryser_cuda.LAUNCHES
+    value = float((4 * (n32 & 1) - 2)
+                  * np.ldexp(np.float64(total), int(scales.sum())))
+    rel = rel_err(value, exact_value)
+    print(f"compute_partials_hybrid, unit_blocks=1 ({len(ids_blocks)} "
+          f"blocks of {plan.lanes} chunks of 2^{plan.r}): {value!r} in "
+          f"{wall:.4f} s, rel err {rel:.3e}; units {stats}; "
+          f"{ryser_cuda.LAUNCHES} K1 launches")
+    walls["hybrid"]["unit_blocks=1_s"] = wall
+    walls["hybrid"]["unit_blocks=1_units"] = {
+        "device": stats.units_device, "cpu": stats.units_cpu}
+    if not rel <= HYBRID_TOL or stats.units_device < 1 \
+            or stats.units_cpu < 1 or stats.retries != 0 \
+            or stats.handoffs != 0 \
+            or ryser_cuda.LAUNCHES != stats.units_device:
+        raise AssertionError(f"hybrid unit_blocks=1: {stats}")
+
+    # ---- 5d. two processes joined over gloo, each on this card
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    code = MULTIHOST_SCRIPT.format(repo=repo, seed=seed, n=n32,
+                                   device=str(dev))
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=repo,
+                              env=dict(env, RANK=str(i)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(2)]
+    results = []
+    try:
+        for proc in procs:
+            so, se = proc.communicate(timeout=300)
+            lines = [ln for ln in so.splitlines() if ln.startswith("RESULT")]
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(
+                    f"multi-process rank failed ({proc.returncode}):\n"
+                    f"{so}\n{se[-3000:]}")
+            results.append(json.loads(lines[-1][len("RESULT "):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    values = [float.fromhex(r["value"]) for r in results]
+    one = spt.permanent(a32, device=dev).permanent
+    print(f"two processes (gloo, WORLD_SIZE=2, each on {dev}): "
+          f"{[repr(v) for v in values]}, {[r['launches'] for r in results]} "
+          f"K1 launches, walls {[round(r['wall_s'], 4) for r in results]} s; "
+          f"one process {one!r}")
+    out["multihost"] = [r["launches"] for r in results]
+    walls["multihost_s"] = [r["wall_s"] for r in results]
+    if values[0] != values[1] or any(r["processes"] != 2 for r in results) \
+            or not rel_err(values[0], one) <= MULTIHOST_TOL \
+            or min(out["multihost"]) < 1:
+        raise AssertionError(f"multi-process: {values} vs {one}")
+
+    # ---- 5e. the estimators: Rasmussen over a mesh of 2 streams, twice,
+    # and with the hybrid CPU trial worker
+    want = spt.permanent(bin32, calc="exact",
+                         device=dev).meta["exact_fraction"]
+    flags = Flags(approximation=True, perman_algo="rasmussen")
+    mesh2 = make_mesh(devices=[dev] * 2)
+    runs = [timed(lambda: approx.approximate(DenseMatrix(bin32, "int"),
+                                             flags, dev, mesh=mesh2))
+            for _ in range(2)]
+    hyb, hyb_wall = timed(lambda: spt.permanent(
+        bin32, approximation=True, perman_algo="rasmussen", hybrid=True,
+        cpu=True, threads=threads, device=dev))
+    for tag, (res, wall) in (("mesh of 2", runs[0]), ("mesh of 2 again",
+                                                      runs[1]),
+                             ("hybrid", (hyb, hyb_wall))):
+        se = res.meta["stderr"]
+        z = float((Fraction(res.permanent) - want) / Fraction(se)) \
+            if se and math.isfinite(se) else math.inf
+        walls[f"rasmussen {tag}"] = {"wall_s": wall, "z": z,
+                                     "trials": res.meta["trials"],
+                                     "cpu_trials": res.meta["cpu_trials"]}
+        print(f"estimator rasmussen n={bin32.shape[0]}, {tag}: "
+              f"{res.permanent!r} +- "
+              f"{se!r}, {z:+.3f} stderr; {res.algo_name}, "
+              f"{res.meta['trials']} trials ({res.meta['cpu_trials']} on "
+              f"the native engine) in {wall:.3f} s")
+        if res.meta["trials"] != 100000 or not abs(z) <= EST_SIGMAS:
+            raise AssertionError(f"estimator {tag}: z {z}")
+    if runs[0][0].permanent != runs[1][0].permanent \
+            or hyb.algo_name != "approx_rasmussen_hybrid" \
+            or hyb.meta["cpu_trials"] < 1:
+        raise AssertionError("estimators: the mesh runs differ, or the "
+                             "hybrid run took no native trials")
+    return out
 
 
 def main() -> int:
@@ -1513,6 +1820,11 @@ def main() -> int:
     mod_bound = bound(nbytes_of(ids, mx0, mcols, kern),
                       (1 << 31) * (2 * 32 + 6 * 31 + 2), "int32")
 
+    # ---- 5. the host layer: the native engine, the mesh, the hybrid
+    # scheduler, several processes, the estimators' new paths
+    host = host_layer_phases(dev, a32, a36, bin32, zero_counts)
+    print(f"host layer walls (s): {json.dumps(host['walls'])}")
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **more):
         return {"name": name, "route": "cuda", "source": source,
@@ -1536,6 +1848,12 @@ def main() -> int:
                      **({"glynn_launches": glynn_launches[tier]}
                         if tier in glynn_launches else {}),
                      **({"driver_launches": driver_launches["k1"]}
+                        if tier == "df64" else {}),
+                     mesh_launches=host["mesh"][tier]["k1"],
+                     **({"mesh_glynn_launches":
+                         host["mesh"]["glynn df64"]["k1"],
+                         "hybrid_launches": host["hybrid"],
+                         "multihost_launches": host["multihost"]}
                         if tier == "df64" else {}))
                for tier in TIERS]
     # ms, plain_ms and bound_ms at 256 x n=24; beside them the kernel at
@@ -1564,7 +1882,9 @@ def main() -> int:
                       registers=sparse36[tier]["registers"],
                       clocks_sm_mhz=clocks[f"reduced_{tier}"],
                       plain_ms_chunks=sparse36[tier]["plain_chunks"],
-                      **({"driver_launches": driver_launches["reduced"]}
+                      **({"driver_launches": driver_launches["reduced"],
+                          "mesh_launches":
+                          host["mesh"]["sparse n=36 df64"]["reduced"]}
                          if tier == "df64" else {}))
                 for tier in TIERS]
     # the amp walk once per variant: launches on the auto path that runs

@@ -133,6 +133,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     flags = flags_from_args(args)
+    # several processes (torchrun's WORLD_SIZE > 1) join one group here
+    from .parallel.mesh import init_distributed
+    init_distributed()
     if not args.json:
         print_flags(flags)
 

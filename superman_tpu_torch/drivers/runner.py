@@ -9,11 +9,12 @@ perman_algo="glynn") in the same tiers; the modular CRT exact engine
 (calc="auto"); the transform drivers around them (Sinkhorn scaling,
 compression, Dulmage-Mendelsohn pruning) with the sanity net that
 certifies a transformed pipeline's value with the exact engine; and the
-Monte-Carlo estimators (ops/approx.py).  What the flags can ask for
-beyond that (several devices, the hybrid scheduler, the native CPU
-engine) raises NotImplementedError naming the ROADMAP item that brings
-it; none is ignored, so no result differs quietly from what the JAX
-package would return.
+Monte-Carlo estimators (ops/approx.py).  Every engine runs on one device
+or over a mesh (parallel/mesh.py: mesh_shape, or a multi-device algorithm
+id), and the exact walk also through the hybrid scheduler with a
+checkpoint journal (parallel/scheduler.py); cpu=True and calc="quad" go to
+the native CPU engine (bindings/native.py) wherever it builds, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -29,10 +30,9 @@ from ..core.matrix import DenseMatrix
 from ..core.result import Result
 from ..utils import trace
 
-#: ROADMAP.md Queue 1 items that carry the features not ported yet
+#: ROADMAP.md Queue 1 items that carry what is not ported yet
 ROADMAP_ITEMS = {
-    11: "multi-GPU and scheduling",
-    12: "CLI, bindings and tools",
+    12: "tools",
 }
 
 
@@ -50,6 +50,8 @@ def run(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     upd = {}
     if beh["sparse"] and not flags.sparse:
         upd["sparse"], upd["dense"] = True, False
+    if beh["hybrid"] and not flags.hybrid:
+        upd["hybrid"] = True
     if flags.approximation and flags.perman_algo != beh["algo"]:
         upd["perman_algo"] = beh["algo"]
     if upd:
@@ -61,13 +63,6 @@ def run(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     if flags.resolved_calc() == "exact" and not flags.approximation:
         from ..ops.exact import perman_exact
         return perman_exact(dense, flags, device)
-    if flags.approximation and (beh["hybrid"] or flags.hybrid):
-        raise unported("the estimators' hybrid CPU trial worker", 12)
-    if beh["hybrid"] or flags.hybrid or flags.checkpoint_path:
-        raise unported("the hybrid scheduler and checkpointing", 11)
-    if beh["multi"] or (flags.mesh_shape is not None
-                        and int(np.prod(flags.mesh_shape)) > 1):
-        raise unported("multi-device runs", 11)
     # transform drivers wrap the core run, in the reference's order: the
     # scale driver may call compression, which recurses back here
     if flags.scaling_threshold != -1.0:
@@ -98,6 +93,13 @@ CERT_BUDGET_S = 5.0
 CERT_REL_TOL = 1e-9
 
 
+def _exact_engine(flags: Flags):
+    """The exact CRT engine that `flags` name: "native" under cpu=True
+    without gpu (as ops.exact.perman_exact chooses), else None (the Z_p
+    walk on the device)."""
+    return "native" if (flags.cpu and not flags.gpu) else None
+
+
 def _compression_sanity(dense: DenseMatrix, flags: Flags, res: Result,
                         device: torch.device) -> Result:
     """Bail out of a numerically broken compression or scaling pipeline.
@@ -112,7 +114,9 @@ def _compression_sanity(dense: DenseMatrix, flags: Flags, res: Result,
       CERT_REL_TOL from the exact one, replaces it.
       The JAX package certifies a core of n > 16 only with its native
       library; here the device walks every core (K3 on a card), so the
-      gate is the price alone, as for calc="auto"'s exact rung;
+      gate is the price alone, as for calc="auto"'s exact rung.  Under
+      cpu=True (without gpu) the native CPU engine prices and runs it,
+      as perman_exact does;
     * otherwise the result must sit within 60 bits of the original
       matrix's magnitude estimate, else the direct engine runs again on
       the uncompressed matrix (n <= 42) or the result is flagged.
@@ -130,19 +134,22 @@ def _compression_sanity(dense: DenseMatrix, flags: Flags, res: Result,
     if a.shape[0] <= 100 and double_class:
         from ..ops.exact import (_float_of_fraction, exact_cost_estimate,
                                  perman_exact_fraction)
+        engine = _exact_engine(flags)
         try:
             secs, _, _ = exact_cost_estimate(a, device,
-                                             budget_s=CERT_BUDGET_S)
+                                             budget_s=CERT_BUDGET_S,
+                                             engine=engine)
         except (OverflowError, ValueError):     # entries not finite
             secs = float("inf")
         if secs < CERT_BUDGET_S:
-            key = (a.shape[0], hash(a.tobytes()))
+            key = (a.shape[0], hash(a.tobytes()), engine)
             hit = _CERT_CACHE.get(key)
             if hit is not None:
                 frac, emeta = hit
                 emeta = {**emeta, "wall_s": 0.0}
             else:
-                frac, emeta = perman_exact_fraction(a, device)
+                frac, emeta = perman_exact_fraction(
+                    a, device, threads=flags.threads, engine=engine)
                 if len(_CERT_CACHE) >= 16:
                     _CERT_CACHE.pop(next(iter(_CERT_CACHE)))
                 _CERT_CACHE[key] = (frac, emeta)
@@ -194,34 +201,51 @@ def run_algo(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
         from ..ops.approx import approximate
         return approximate(dense, flags, device)
     calc = flags.resolved_calc()
-    # calc="quad" needs no native library: the engines walk it on the
-    # host in long double, as the JAX package does without one
-    if flags.cpu and not flags.gpu:
-        raise unported("the native CPU engine (cpu=True)", 12)
+    # calc="quad" has no tier on the card (the reference's -q runs its
+    # __float128 CPU algorithms): it goes to the parallel native engine
+    # wherever that builds, and so does cpu=True; the host long-double walk
+    # of ryser_exact is the fallback without one
+    quad = calc == "quad"
+    native_ok = True
+    if quad and np.asarray(dense.mat).dtype == np.longdouble:
+        a = np.asarray(dense.mat)
+        # long-double storage (-v): the native ABI takes f64 matrices, so
+        # only values that are exact in f64 go through it; otherwise the
+        # host long-double walk keeps the storage bits
+        native_ok = bool(np.all(
+            a.astype(np.float64).astype(np.longdouble) == a))
+    from ..prep.orderings import apply_preprocessing
+    if ((flags.cpu and not flags.gpu) or quad) and native_ok:
+        from ..bindings.native import native_available, perman_native
+        if native_available():
+            dm = apply_preprocessing(dense, flags.preprocessing) \
+                if flags.sparse else dense
+            return perman_native(dm, flags)
     if flags.dm_prune:
         from ..prep.dulmage_mendelsohn import dm_prune
         pruned = dm_prune(np.asarray(dense.mat))
         if pruned is None:
             return Result(0.0, 0.0, algo_name="dm_structural_zero")
         dense = DenseMatrix(pruned, dense.type)
-    from ..prep.orderings import apply_preprocessing
     dm = apply_preprocessing(dense, flags.preprocessing) \
         if flags.sparse else dense
+    from ..parallel.mesh import mesh_for_flags
+    mesh = mesh_for_flags(flags, device)
 
     if calc == "auto":
-        return _run_auto(dm, flags, device)
+        return _run_auto(dm, flags, device, mesh)
 
     if str(flags.perman_algo) == "glynn":
         # independent second exact engine (cross-algorithm oracle)
         from ..ops.glynn import glynn_exact
-        res = glynn_exact(dm, flags, device)
+        res = glynn_exact(dm, flags, device, mesh=mesh)
         flags.algo_name = res.algo_name
         return res
 
     # dead-chunk pruning (the SkipPer of the chunked walk) happens inside
     # ryser_exact, which owns the chunk plan
     from ..ops.ryser import ryser_exact
-    res = ryser_exact(dm, flags, device)
+    res = ryser_exact(dm, flags, device, mesh=mesh)
     if flags.sparse:
         res.algo_name = res.algo_name.replace("ryser", "sparyser")
     flags.algo_name = res.algo_name
@@ -303,8 +327,8 @@ def _cond_probe_log2(a: np.ndarray, samples: int = 256,
     return log_mean + (n - 1)
 
 
-def _run_auto(dm: DenseMatrix, flags: Flags,
-              device: torch.device) -> Result:
+def _run_auto(dm: DenseMatrix, flags: Flags, device: torch.device,
+              mesh=None) -> Result:
     """Accuracy-adaptive calc (calc="auto", target ~1e-9 relative).
 
     The f32k and df64 tiers share the same error AMPLIFICATION (the
@@ -338,7 +362,8 @@ def _run_auto(dm: DenseMatrix, flags: Flags,
     TARGET = float(flags.auto_target)
     n = int(dm.mat.shape[0])
     exactish = n < 19 or _exact_storage(dm)
-    res = ryser_exact(dm, dataclasses.replace(flags, calc="df64"), device)
+    res = ryser_exact(dm, dataclasses.replace(flags, calc="df64"), device,
+                      mesh=mesh)
     scale = max(abs(res.permanent), 1e-300)
     # correlated-rounding guard: amplification measured directly.
     # amp_l2 can exceed 1000 bits (huge-entry cancellation-bound inputs
@@ -374,7 +399,8 @@ def _run_auto(dm: DenseMatrix, flags: Flags,
                             "err_est": float(f"{probe_err:.2e}"),
                             "probe_only": True}
         return res
-    fast = ryser_exact(dm, dataclasses.replace(flags, calc="f32k"), device)
+    fast = ryser_exact(dm, dataclasses.replace(flags, calc="f32k"), device,
+                       mesh=mesh)
     diff_rel = abs(res.permanent - fast.permanent) / scale
     # f32k error ~ diff_rel; df64 error ~ diff_rel * 2^-24
     est_df64_err = max(diff_rel * 2.0 ** -24, probe_err)
@@ -425,7 +451,8 @@ def _run_auto(dm: DenseMatrix, flags: Flags,
         from ..ops.exact import exact_cost_estimate
         budget = float(flags.auto_exact_budget_s)
         try:
-            secs, _, _ = exact_cost_estimate(a64, device, budget_s=budget)
+            secs, _, _ = exact_cost_estimate(a64, device, budget_s=budget,
+                                             engine=_exact_engine(flags))
         except Exception:
             secs = float("inf")
         return secs, secs < budget
@@ -478,7 +505,8 @@ def _run_auto(dm: DenseMatrix, flags: Flags,
                 res.meta["auto"]["exact_feasible_s"] = round(exact_secs, 1)
         res.time += fast.time
         return res
-    hi = ryser_exact(dm, dataclasses.replace(flags, calc="tf96"), device)
+    hi = ryser_exact(dm, dataclasses.replace(flags, calc="tf96"), device,
+                     mesh=mesh)
     # The bound so far is relative to the DF64 result's magnitude.
     # On cancellation-bound inputs that scale is itself noise far
     # above both the truth and the tf96 result, so a bound left on

@@ -1,0 +1,1401 @@
+// perman_cpu.cpp — native OpenMP CPU engine of superman_tpu_torch.
+//
+// A copy of superman_tpu/native/perman_cpu.cpp, the JAX package's engine,
+// which has no JAX in it.  Two lines differ from that file: this header
+// and the name that connect() prints.  The comments below are the
+// original's: "the TPU kernel" there is the chunk walk that this package
+// runs on the card (csrc/ryser_walk.cu), which keeps the same aligned
+// chunks and the same raw-sum convention.  superman_native.h beside it is
+// the C surface, copied from superman_tpu/bindings/.
+//
+// Host-side counterpart of the TPU Pallas engine, covering the reference's
+// CPU algorithm menu (algo.h: parallel_perman64, parallel_perman64_sparse,
+// parallel_skip_perman64_w[_balanced], rasmussen, approximation_perman64)
+// and the libConnect.so C facade (interface_connector.c).  The
+// implementation is our own: the Gray-code walk uses the same
+// aligned-chunk decomposition as the TPU kernel (any chunk starts cold
+// from gray(base)), work is distributed with a std::atomic chunk counter
+// (replacing OpenMP critical sections), and estimator RNG is a per-thread
+// PCG stream rather than rand().
+//
+// Build: python -m superman_tpu_torch.native.build
+//        (g++ -O3 -march=native -funroll-loops -fopenmp -shared -fPIC,
+//        into build/superman_tpu_torch/native/<hash>/)
+
+#include <algorithm>
+#include <atomic>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <fstream>
+#include <sstream>
+#include <string>
+#include <vector>
+
+#ifdef _OPENMP
+#include <omp.h>
+#else
+static int omp_get_max_threads() { return 1; }
+#endif
+
+namespace {
+
+using std::uint64_t;
+
+// ---------------------------------------------------------------- helpers
+
+struct Sparse {
+  int n = 0;
+  // per column: rows+vals; per row: cols+vals
+  std::vector<int> cptr, crow, rptr, rcol;
+  std::vector<double> cval, rval;
+};
+
+Sparse to_sparse(const double* a, int n) {
+  Sparse s;
+  s.n = n;
+  s.cptr.assign(n + 1, 0);
+  s.rptr.assign(n + 1, 0);
+  for (int j = 0; j < n; j++) {
+    s.cptr[j] = (int)s.crow.size();
+    for (int i = 0; i < n; i++)
+      if (a[i * n + j] != 0.0) { s.crow.push_back(i); s.cval.push_back(a[i * n + j]); }
+  }
+  s.cptr[n] = (int)s.crow.size();
+  for (int i = 0; i < n; i++) {
+    s.rptr[i] = (int)s.rcol.size();
+    for (int j = 0; j < n; j++)
+      if (a[i * n + j] != 0.0) { s.rcol.push_back(j); s.rval.push_back(a[i * n + j]); }
+  }
+  s.rptr[n] = (int)s.rcol.size();
+  return s;
+}
+
+template <class F>
+void init_x(const double* a, int n, F* x) {
+  for (int i = 0; i < n; i++) {
+    F rs = 0;
+    for (int j = 0; j < n; j++) rs += (F)a[i * n + j];
+    x[i] = (F)a[i * n + (n - 1)] - rs / 2;
+  }
+}
+
+// x(gray(base)) for an aligned chunk base; returns the x vector
+template <class F>
+void x_at(const double* a, int n, const F* x0, uint64_t base, F* x) {
+  std::memcpy(x, x0, sizeof(F) * n);
+  uint64_t g = base ^ (base >> 1);
+  for (int k = 0; k < n - 1; k++)
+    if ((g >> k) & 1ull)
+      for (int i = 0; i < n; i++) x[i] += (F)a[i * n + k];
+}
+
+struct pcg32 {
+  uint64_t state, inc;
+  explicit pcg32(uint64_t seed, uint64_t seq = 1)
+      : state(seed + 0x853c49e6748fea9bULL), inc((seq << 1u) | 1u) { next(); }
+  uint32_t next() {
+    uint64_t old = state;
+    state = old * 6364136223846793005ULL + inc;
+    uint32_t xs = (uint32_t)(((old >> 18u) ^ old) >> 27u);
+    uint32_t rot = (uint32_t)(old >> 59u);
+    return (xs >> rot) | (xs << ((-rot) & 31));
+  }
+  double uniform() { return next() * (1.0 / 4294967296.0); }
+  uint32_t below(uint32_t bound) { return next() % bound; }
+};
+
+int pick_threads(int nt) {
+  if (nt <= 0) nt = omp_get_max_threads();
+  return nt;
+}
+
+}  // namespace
+
+extern "C" {
+
+// --------------------------------------------------------- exact: dense
+
+}  // extern "C" (templates below cannot have C linkage)
+
+namespace {
+
+// Chunked-dynamic dense Gray-code Ryser walk, templated on the calc type
+// (parity: the reference's <class C calc, class S storage> templating,
+// revised_perman/cpu_algos.hpp:762 / main.cpp:141-167).  X is the
+// x-vector/product type, ACC the per-thread accumulator type; the
+// (double, long double) instantiation is bit-identical to the historical
+// untemplated engine, and (__float128, __float128) is the parallel
+// quad-precision path (113-bit mantissa, beyond x87 long double).
+template <class X, class ACC>
+double perman_dense_walk(const double* a, int n, int threads) {
+  threads = pick_threads(threads);
+  const uint64_t total = 1ull << (n - 1);
+  int r = n - 1;                       // chunk log2
+  uint64_t want_chunks = (uint64_t)threads * 64u;
+  while (r > 1 && (total >> (r - 1)) <= want_chunks) r--;
+  while ((total >> r) < 1) r--;
+  const uint64_t nchunks = total >> r;
+  const uint64_t csz = 1ull << r;
+
+  std::atomic<uint64_t> next{0};
+  std::vector<ACC> partial(threads, (ACC)0);
+
+#pragma omp parallel num_threads(threads)
+  {
+#ifdef _OPENMP
+    int tid = omp_get_thread_num();
+#else
+    int tid = 0;
+#endif
+    std::vector<X> x0(n), x(n);
+    init_x(a, n, x0.data());
+    ACC sum = (ACC)0;
+    uint64_t c;
+    while ((c = next.fetch_add(1, std::memory_order_relaxed)) < nchunks) {
+      const uint64_t base = c << r;
+      x_at(a, n, x0.data(), base, x.data());
+      X prod = (X)1;
+      for (int i = 0; i < n; i++) prod *= x[i];
+      ACC local = (ACC)prod;           // m = 0 term, base even -> +
+      uint64_t gray = base ^ (base >> 1);
+      for (uint64_t m = 1; m < csz; m++) {
+        const uint64_t i = base + m;
+        const int k = __builtin_ctzll(i);
+        gray ^= (1ull << k);
+        const X s = ((gray >> k) & 1ull) ? (X)1 : (X)-1;
+        prod = (X)1;
+        for (int j = 0; j < n; j++) {
+          x[j] += s * (X)a[j * n + k];
+          prod *= x[j];
+        }
+        local += (i & 1ull) ? (ACC)-prod : (ACC)prod;
+      }
+      sum += local;
+    }
+    partial[tid] = sum;
+  }
+  ACC p = (ACC)0;
+  for (auto v : partial) p += v;
+  return (double)((ACC)(4 * (n & 1) - 2) * p);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Chunked-dynamic dense Gray-code Ryser.
+// calc_quad: 0 = double walk + long-double accumulate (reference default
+// parity), 1 = full __float128 walk (reference -q, main.cpp:141-144).
+double sup_perman_dense(const double* a, int n, int threads, int calc_quad) {
+  if (n == 0) return 1.0;
+  if (n == 1) return a[0];
+  if (calc_quad)
+    return perman_dense_walk<__float128, __float128>(a, n, threads);
+  return perman_dense_walk<double, long double>(a, n, threads);
+}
+
+// Raw partial sum over an explicit list of aligned Gray chunks of size
+// 2**r, WITHOUT the final (4*(n&1)-2) sign factor — the hybrid scheduler
+// (parallel/scheduler.py) combines these with the TPU kernel's per-chunk
+// partials, which carry the same convention.  Parity: the CPU worker side
+// of the reference's gpu_perman64_*_multigpucpu_chunks
+// (gpu_exact_dense.cu:776-896), with the OpenMP-critical chunk counter
+// replaced by a caller-provided chunk list.
+double sup_perman_dense_chunks(const double* a, int n,
+                               const long long* chunk_ids, long long count,
+                               int r, int threads) {
+  if (n <= 1 || count <= 0) return 0.0;
+  threads = pick_threads(threads);
+  const uint64_t csz = 1ull << r;
+  std::atomic<long long> next{0};
+  std::vector<long double> partial(threads, 0.0L);
+
+#pragma omp parallel num_threads(threads)
+  {
+#ifdef _OPENMP
+    int tid = omp_get_thread_num();
+#else
+    int tid = 0;
+#endif
+    std::vector<double> x0(n), x(n);
+    init_x(a, n, x0.data());
+    long double sum = 0.0L;
+    long long ci;
+    while ((ci = next.fetch_add(1, std::memory_order_relaxed)) < count) {
+      const uint64_t base = (uint64_t)chunk_ids[ci] << r;
+      x_at(a, n, x0.data(), base, x.data());
+      double prod = 1.0;
+      for (int i = 0; i < n; i++) prod *= x[i];
+      long double local = prod;        // m = 0 term, base even -> +
+      uint64_t gray = base ^ (base >> 1);
+      for (uint64_t m = 1; m < csz; m++) {
+        const uint64_t i = base + m;
+        const int k = __builtin_ctzll(i);
+        gray ^= (1ull << k);
+        const double s = ((gray >> k) & 1ull) ? 1.0 : -1.0;
+        prod = 1.0L;
+        for (int j = 0; j < n; j++) {
+          x[j] += s * a[j * n + k];
+          prod *= x[j];
+        }
+        local += (i & 1ull) ? -prod : prod;
+      }
+      sum += local;
+    }
+    partial[tid] = sum;
+  }
+  long double p = 0.0L;
+  for (auto v : partial) p += v;
+  return (double)p;
+}
+
+// --------------------------------------------------------- exact: sparse
+
+// SpaRyser: incremental x updates through the column structure with
+// divide-out/multiply-in running product and zero counting.
+}  // extern "C"
+
+namespace {
+
+template <class X, class ACC>
+double perman_sparse_walk(const double* a, int n, int threads) {
+  threads = pick_threads(threads);
+  Sparse s = to_sparse(a, n);
+  const uint64_t total = 1ull << (n - 1);
+  int r = n - 1;
+  uint64_t want_chunks = (uint64_t)threads * 256u;
+  while (r > 1 && (total >> (r - 1)) <= want_chunks) r--;
+  const uint64_t nchunks = total >> r, csz = 1ull << r;
+
+  std::atomic<uint64_t> next{0};
+  std::vector<ACC> partial(threads, (ACC)0);
+
+#pragma omp parallel num_threads(threads)
+  {
+#ifdef _OPENMP
+    int tid = omp_get_thread_num();
+#else
+    int tid = 0;
+#endif
+    std::vector<X> x0(n), x(n);
+    init_x(a, n, x0.data());
+    ACC sum = (ACC)0;
+    uint64_t c;
+    while ((c = next.fetch_add(1, std::memory_order_relaxed)) < nchunks) {
+      const uint64_t base = c << r;
+      x_at(a, n, x0.data(), base, x.data());
+      X prod = (X)1;
+      int nzero = 0;
+      for (int i = 0; i < n; i++) {
+        if (x[i] == (X)0) nzero++; else prod *= x[i];
+      }
+      ACC local = (nzero == 0) ? (ACC)prod : (ACC)0;
+      uint64_t gray = base ^ (base >> 1);
+      for (uint64_t m = 1; m < csz; m++) {
+        const uint64_t i = base + m;
+        const int k = __builtin_ctzll(i);
+        gray ^= (1ull << k);
+        const X sgn = ((gray >> k) & 1ull) ? (X)1 : (X)-1;
+        for (int p = s.cptr[k]; p < s.cptr[k + 1]; p++) {
+          const int row = s.crow[p];
+          const X old = x[row];
+          const X nu = old + sgn * (X)s.cval[p];
+          if (old == (X)0) nzero--; else prod /= old;
+          if (nu == (X)0) nzero++; else prod *= nu;
+          x[row] = nu;
+        }
+        if (nzero == 0) local += (i & 1ull) ? (ACC)-prod : (ACC)prod;
+      }
+      sum += local;
+    }
+    partial[tid] = sum;
+  }
+  ACC p = (ACC)0;
+  for (auto v : partial) p += v;
+  return (double)((ACC)(4 * (n & 1) - 2) * p);
+}
+
+}  // namespace
+
+extern "C" {
+
+double sup_perman_sparse(const double* a, int n, int threads,
+                         int calc_quad) {
+  if (n <= 1) return n ? a[0] : 1.0;
+  if (calc_quad)
+    return perman_sparse_walk<__float128, __float128>(a, n, threads);
+  return perman_sparse_walk<double, long double>(a, n, threads);
+}
+
+// SkipPer: like sparse, but when the product is pinned at zero by a zero
+// row, jump directly to the next index where any column adjacent to that
+// row flips (gray bit c of index i flips at i ≡ 2^c (mod 2^(c+1))).
+}  // extern "C"
+
+namespace {
+
+template <class X, class ACC>
+double perman_skipper_walk(const double* a, int n, int threads) {
+  threads = pick_threads(threads);
+  Sparse s = to_sparse(a, n);
+  const uint64_t total = 1ull << (n - 1);
+  const uint64_t nchunks = std::min<uint64_t>(4096, total);
+  const uint64_t csz = (total + nchunks - 1) / nchunks;
+
+  std::atomic<uint64_t> nextc{0};
+  std::vector<ACC> partial(threads, (ACC)0);
+
+#pragma omp parallel num_threads(threads)
+  {
+#ifdef _OPENMP
+    int tid = omp_get_thread_num();
+#else
+    int tid = 0;
+#endif
+    std::vector<X> x0(n), x(n);
+    init_x(a, n, x0.data());
+    ACC sum = (ACC)0;
+    uint64_t c;
+    while ((c = nextc.fetch_add(1, std::memory_order_relaxed)) < nchunks) {
+      uint64_t i = c * csz;
+      const uint64_t end = std::min(total, i + csz);
+      if (i >= end) continue;
+      uint64_t prev_gray = 0;
+      std::memcpy(x.data(), x0.data(), sizeof(X) * n);
+      ACC local = (ACC)0;
+      while (i < end) {
+        const uint64_t gray = i ^ (i >> 1);
+        uint64_t diff = prev_gray ^ gray;
+        while (diff) {
+          const int k = __builtin_ctzll(diff);
+          diff &= diff - 1;
+          const X sgn = ((gray >> k) & 1ull) ? (X)1 : (X)-1;
+          for (int p = s.cptr[k]; p < s.cptr[k + 1]; p++)
+            x[s.crow[p]] += sgn * (X)s.cval[p];
+        }
+        prev_gray = gray;
+        X prod = (X)1;
+        int zrow = -1;
+        for (int j = n - 1; j >= 0; j--) {
+          prod *= x[j];
+          if (x[j] == (X)0) { zrow = j; break; }
+        }
+        if (zrow < 0) {
+          local += (i & 1ull) ? (ACC)-prod : (ACC)prod;
+          i++;
+        } else {
+          // next index where a column adjacent to zrow flips
+          uint64_t ni = ~0ull;
+          for (int p = s.rptr[zrow]; p < s.rptr[zrow + 1]; p++) {
+            const int cidx = s.rcol[p];
+            if (cidx >= n - 1) continue;
+            const uint64_t step = 1ull << cidx, period = step << 1;
+            uint64_t cand = step;
+            if (i >= step) cand = step + ((i - step) / period + 1) * period;
+            if (cand < ni) ni = cand;
+          }
+          i++;
+          if (ni > i) i = ni;
+        }
+      }
+      sum += local;
+    }
+    partial[tid] = sum;
+  }
+  ACC p = (ACC)0;
+  for (auto v : partial) p += v;
+  return (double)((ACC)(4 * (n & 1) - 2) * p);
+}
+
+}  // namespace
+
+extern "C" {
+
+double sup_perman_skipper(const double* a, int n, int threads,
+                          int calc_quad) {
+  if (n <= 1) return n ? a[0] : 1.0;
+  if (calc_quad)
+    return perman_skipper_walk<__float128, __float128>(a, n, threads);
+  return perman_skipper_walk<double, long double>(a, n, threads);
+}
+
+}  // extern "C" (Montgomery helpers below)
+
+// ------------------------------------------------ exact: modular CRT walk
+//
+// per(M) mod p for an integer matrix pre-reduced mod p: the same
+// Nijenhuis–Wilf Gray walk as perman_dense_walk, in Z_p (Montgomery
+// form — a 128-bit `%` per product step is 5-10x slower).  Combined with
+// CRT over enough ~2^61 primes (ops/exact.py) this yields the EXACT
+// integer permanent of any dyadic-rational f64 matrix — the arbiter of
+// last resort for cancellation-bound inputs (e.g. pores_1_r.mtx, where
+// the term amplitude sits ~2^280 above the permanent and every
+// fixed-precision engine, including the reference's __float128 quad
+// walks, returns pure noise).  No reference counterpart.
+
+namespace {
+
+struct Mont {
+  uint64_t p, ninv, r2;  // ninv = -p^-1 mod 2^64; r2 = 2^128 mod p
+  explicit Mont(uint64_t p_) : p(p_) {
+    uint64_t inv = p_;  // Newton inverse of p mod 2^64 (p odd)
+    for (int i = 0; i < 6; i++) inv *= 2 - p_ * inv;
+    ninv = ~inv + 1;
+    uint64_t r1 = (~0ull % p_) + 1;            // 2^64 mod p
+    if (r1 == p_) r1 = 0;
+    r2 = (uint64_t)((__uint128_t)r1 * r1 % p_);
+  }
+  uint64_t redc(__uint128_t t) const {
+    uint64_t m = (uint64_t)t * ninv;
+    uint64_t r = (uint64_t)((t + (__uint128_t)m * p) >> 64);
+    return r >= p ? r - p : r;
+  }
+  uint64_t mul(uint64_t a, uint64_t b) const {
+    return redc((__uint128_t)a * b);
+  }
+  uint64_t to(uint64_t a) const { return mul(a, r2); }
+  uint64_t from(uint64_t a) const { return redc(a); }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Entries a[i*n+j] already reduced into [0, p); requires odd p < 2^62.
+uint64_t sup_perman_mod(const uint64_t* a, int n, uint64_t p) {
+  if (n <= 0) return 1 % p;
+  if (n == 1) return a[0] % p;
+  const Mont mg(p);
+  const uint64_t inv2 = mg.to((p + 1) / 2);    // 2^-1, Montgomery form
+  // Montgomery-form x vector and +/- column tables
+  std::vector<uint64_t> x(n), colp((size_t)(n - 1) * n), colm;
+  for (int j = 0; j < n; j++) {
+    uint64_t rs = 0;
+    for (int k = 0; k < n; k++) {
+      rs += mg.to(a[j * n + k]);
+      if (rs >= p) rs -= p;
+    }
+    // x0[j] = a[j][n-1] - rowsum/2  (oracle.py math block)
+    uint64_t v = mg.to(a[j * n + (n - 1)]) + p - mg.mul(rs, inv2);
+    x[j] = v >= p ? v - p : v;
+  }
+  for (int k = 0; k < n - 1; k++)
+    for (int j = 0; j < n; j++)
+      colp[(size_t)k * n + j] = mg.to(a[j * n + k]);
+  colm.resize(colp.size());
+  for (size_t i = 0; i < colp.size(); i++)
+    colm[i] = colp[i] ? p - colp[i] : 0;
+
+  uint64_t acc = mg.to(1);
+  for (int j = 0; j < n; j++) acc = mg.mul(acc, x[j]);   // m = 0 term
+  const uint64_t one_m = mg.to(1);
+  const uint64_t total = 1ull << (n - 1);
+  for (uint64_t m = 1; m < total; m++) {
+    const int k = __builtin_ctzll(m);
+    const uint64_t g = m ^ (m >> 1);
+    const uint64_t* c = ((g >> k) & 1ull) ? &colp[(size_t)k * n]
+                                          : &colm[(size_t)k * n];
+    uint64_t prod = one_m;
+    for (int j = 0; j < n; j++) {
+      uint64_t xv = x[j] + c[j];
+      if (xv >= p) xv -= p;
+      x[j] = xv;
+      prod = mg.mul(prod, xv);
+    }
+    acc += (m & 1) ? p - prod : prod;
+    if (acc >= p) acc -= p;
+  }
+  // per = 2 * (-1)^(n+1) * acc (oracle.py perman64: 4*(n&1) - 2)
+  acc += acc;
+  if (acc >= p) acc -= p;
+  if (!(n & 1)) acc = acc ? p - acc : 0;
+  return mg.from(acc);
+}
+
+// mats: np contiguous n*n matrices, mats[i] pre-reduced mod ps[i].
+void sup_perman_mod_batch(const uint64_t* mats, int n, const uint64_t* ps,
+                          int np, int threads, uint64_t* out) {
+  threads = pick_threads(threads);
+#pragma omp parallel for schedule(dynamic, 1) num_threads(threads)
+  for (int i = 0; i < np; i++)
+    out[i] = sup_perman_mod(mats + (size_t)i * n * n, n, ps[i]);
+}
+
+// ---------------------------------------------- AVX-512 IFMA fast path
+//
+// 8-lane Montgomery walk in base 2^52 (VPMADD52): each SIMD lane walks
+// an independent live chunk of the SAME prime, mirroring the TPU
+// kernel's lane layout (ops/modp.py packs chunks across VPU lanes the
+// same way).  Per 52-bit prime the CRT loses ~15% bits vs the scalar
+// 61-bit walk but each Gray step runs ~8 lanes x fewer ops — measured
+// ~10-20x walk throughput on IFMA hosts, which moves cage5_c2-class
+// dense cores (2110-bit bound) into CPU range.  Requires p < 2^52.
+
+#if defined(__x86_64__)
+#define SUP_HAVE_IFMA_BUILD 1
+#include <immintrin.h>
+
+namespace {
+
+constexpr uint64_t MASK52 = ((uint64_t)1 << 52) - 1;
+
+struct Mont52 {                       // Montgomery base R = 2^52
+  uint64_t p, ninv, r2;               // ninv = -p^-1 mod 2^52
+  explicit Mont52(uint64_t p_) : p(p_) {
+    uint64_t inv = p_;                 // Newton: p^-1 mod 2^64 (p odd)
+    for (int i = 0; i < 6; i++) inv *= 2 - p_ * inv;
+    ninv = (0 - inv) & MASK52;
+    unsigned __int128 r1 = ((unsigned __int128)1 << 52) % p_;
+    r2 = (uint64_t)((r1 * r1) % p_);   // 2^104 mod p
+  }
+  uint64_t redc(unsigned __int128 t) const {
+    uint64_t m = ((uint64_t)t * ninv) & MASK52;
+    uint64_t r = (uint64_t)((t + (unsigned __int128)m * p) >> 52);
+    return r >= p ? r - p : r;
+  }
+  uint64_t mul(uint64_t a, uint64_t b) const {
+    return redc((unsigned __int128)a * b);
+  }
+  uint64_t to(uint64_t a) const { return mul(a, r2); }
+  uint64_t from(uint64_t a) const { return redc(a); }
+};
+
+// LAZY residues in [0, 2p), p < 2^50 (the integer twin of the TPU
+// kernel's [0, 2p) discipline, ops/modp.py): REDC on operands < 2p
+// yields < 2p directly when 4p < 2^52, so the output correction
+// disappears, and every remaining correction is a mask-free
+// unsigned-min (min(v, v - 2p) wraps when v < 2p) — zero k-register
+// traffic in the hot loop.
+__attribute__((target("avx512f,avx512ifma")))
+inline __m512i mulmod52(__m512i a, __m512i b, __m512i vp, __m512i vninv,
+                        __m512i vzero, __m512i vone) {
+  // lanewise Montgomery product, inputs in [0, 2p), output in [0, 2p)
+  __m512i lo = _mm512_madd52lo_epu64(vzero, a, b);
+  __m512i hi = _mm512_madd52hi_epu64(vzero, a, b);
+  __m512i m = _mm512_madd52lo_epu64(vzero, lo, vninv);
+  __m512i mphi = _mm512_madd52hi_epu64(vzero, m, vp);
+  // low52(m*p) == (2^52 - lo) mod 2^52, so the low-half carry out of
+  // lo + low52(m*p) is exactly (lo != 0) == min(lo, 1) — the low IFMA
+  // is never computed
+  __m512i carry = _mm512_min_epu64(lo, vone);
+  return _mm512_add_epi64(_mm512_add_epi64(hi, mphi), carry);
+}
+
+__attribute__((target("avx512f,avx512ifma")))
+inline __m512i addmod52(__m512i x, __m512i c, __m512i vp2) {
+  // x in [0, 2p), c in [0, 2p]: one wrap-aware min corrects by 2p
+  __m512i s = _mm512_add_epi64(x, c);
+  return _mm512_min_epu64(s, _mm512_sub_epi64(s, vp2));
+}
+
+constexpr int IFMA_MAX_N = 64;        // stack x buffer; larger cores
+                                      // fall back to the scalar walk
+
+__attribute__((target("avx512f,avx512ifma")))
+uint64_t perman_mod_pruned_ifma(const uint64_t* a, int n, uint64_t p,
+                                const int64_t* ids, long long nids, int r,
+                                int threads) {
+  const Mont52 mg(p);
+  const uint64_t inv2 = mg.to((p + 1) / 2);
+  std::vector<uint64_t> x0(n), colp((size_t)(n - 1) * n), colm;
+  for (int j = 0; j < n; j++) {
+    uint64_t rs = 0;
+    for (int k = 0; k < n; k++) {
+      rs += mg.to(a[j * n + k]);
+      if (rs >= p) rs -= p;
+    }
+    uint64_t v = mg.to(a[j * n + (n - 1)]) + p - mg.mul(rs, inv2);
+    x0[j] = v >= p ? v - p : v;
+  }
+  for (int k = 0; k < n - 1; k++)
+    for (int j = 0; j < n; j++)
+      colp[(size_t)k * n + j] = mg.to(a[j * n + k]);
+  colm.resize(colp.size());
+  for (size_t i = 0; i < colp.size(); i++)
+    colm[i] = colp[i] ? p - colp[i] : 0;
+
+  threads = pick_threads(threads);
+  const uint64_t one_s = mg.to(1);
+  const uint64_t steps = 1ull << r;
+  const long long nbatch = (nids + 7) / 8;
+  uint64_t acc_total = 0;
+  std::atomic<long long> next(0);
+#pragma omp parallel num_threads(threads)
+  {
+    const __m512i vp = _mm512_set1_epi64((long long)p);
+    const __m512i vp2 = _mm512_set1_epi64((long long)(2 * p));
+    const __m512i vninv = _mm512_set1_epi64((long long)mg.ninv);
+    const __m512i vzero = _mm512_setzero_si512();
+    const __m512i vone = _mm512_set1_epi64(1);
+    const __m512i vone_m = _mm512_set1_epi64((long long)one_s);
+    alignas(64) uint64_t xbuf[IFMA_MAX_N][8];
+    alignas(64) uint64_t lanes[8];
+    uint64_t lacc = 0;
+    for (;;) {
+      const long long b = next.fetch_add(1, std::memory_order_relaxed);
+      if (b >= nbatch) break;
+      const int used = (int)std::min<long long>(8, nids - b * 8);
+      // per-lane cold start at base = id<<r (pad lanes duplicate lane 0;
+      // their accs are never read)
+      __mmask8 midflip = 0;            // lanes whose id is ODD: at the
+                                       // chunk midpoint (k == r-1) the
+                                       // global gray bit is 1 ^ (id&1)
+      for (int l = 0; l < 8; l++) {
+        const int64_t id = ids[b * 8 + (l < used ? l : 0)];
+        if ((id & 1) && l < used) midflip |= (__mmask8)(1u << l);
+        const uint64_t base = (uint64_t)id << r;
+        const uint64_t g0 = base ^ (base >> 1);
+        for (int j = 0; j < n; j++) xbuf[j][l] = x0[j];
+        for (int k = 0; k < n - 1; k++)
+          if ((g0 >> k) & 1ull)
+            for (int j = 0; j < n; j++) {
+              uint64_t v = xbuf[j][l] + colp[(size_t)k * n + j];
+              xbuf[j][l] = v >= p ? v - p : v;
+            }
+      }
+      // first term (m = base, even for r >= 1: sign +)
+      __m512i prod = vone_m;
+      for (int j = 0; j < n; j++)
+        prod = mulmod52(prod, _mm512_load_si512((const void*)xbuf[j]),
+                        vp, vninv, vzero, vone);
+      __m512i acc = prod;
+      for (uint64_t t = 1; t < steps; t++) {
+        const int k = __builtin_ctzll(t);
+        const uint64_t gt = t ^ (t >> 1);
+        // mid-step (k == r-1, t == 2^(r-1)): per-lane direction; all
+        // other steps share one scalar direction (gray bits below r-1
+        // come from t alone — base's low r bits are 0)
+        const bool mid = (k == r - 1);
+        const uint64_t* cp = &colp[(size_t)k * n];
+        const uint64_t* cm = &colm[(size_t)k * n];
+        const uint64_t* csel = ((gt >> k) & 1ull) ? cp : cm;
+        __m512i p0 = vone_m, p1 = vone_m, p2 = vone_m, p3 = vone_m;
+        for (int j = 0; j < n; j++) {
+          __m512i cj;
+          if (mid) {
+            // even id: gray bit = 1 -> +col; odd id: -> -col
+            cj = _mm512_mask_blend_epi64(
+                midflip, _mm512_set1_epi64((long long)cp[j]),
+                _mm512_set1_epi64((long long)cm[j]));
+          } else {
+            cj = _mm512_set1_epi64((long long)csel[j]);
+          }
+          __m512i xj = _mm512_load_si512((const void*)xbuf[j]);
+          xj = addmod52(xj, cj, vp2);
+          _mm512_store_si512((void*)xbuf[j], xj);
+          // 4 interleaved partial products hide the REDC latency chain
+          switch (j & 3) {
+            case 0: p0 = mulmod52(p0, xj, vp, vninv, vzero, vone); break;
+            case 1: p1 = mulmod52(p1, xj, vp, vninv, vzero, vone); break;
+            case 2: p2 = mulmod52(p2, xj, vp, vninv, vzero, vone); break;
+            default: p3 = mulmod52(p3, xj, vp, vninv, vzero, vone);
+          }
+        }
+        prod = mulmod52(mulmod52(p0, p1, vp, vninv, vzero, vone),
+                        mulmod52(p2, p3, vp, vninv, vzero, vone),
+                        vp, vninv, vzero, vone);
+        if (t & 1)                      // -prod mod p (prod < 2p)
+          prod = _mm512_sub_epi64(vp2, prod);
+        acc = addmod52(acc, prod, vp2);  // sums < 4p, one -2p correction
+      }
+      _mm512_store_si512((void*)lanes, acc);
+      for (int l = 0; l < used; l++) {
+        lacc += lanes[l] >= p ? lanes[l] - p : lanes[l];  // -0 -> p case
+        if (lacc >= p) lacc -= p;
+      }
+    }
+#pragma omp critical
+    {
+      acc_total += lacc;
+      if (acc_total >= p) acc_total -= p;
+    }
+  }
+  acc_total += acc_total;
+  if (acc_total >= p) acc_total -= p;
+  if (!(n & 1)) acc_total = acc_total ? p - acc_total : 0;
+  return mg.from(acc_total);
+}
+
+}  // namespace
+
+extern "C" int sup_cpu_ifma() {
+  return __builtin_cpu_supports("avx512f")
+         && __builtin_cpu_supports("avx512ifma");
+}
+#else
+#define SUP_HAVE_IFMA_BUILD 0
+extern "C" int sup_cpu_ifma() { return 0; }
+#endif  // __x86_64__
+
+// Pruned-chunk Z_p walk: per(M) mod p summed over live chunks only.
+// Same ids/r contract as ops/modp.perman_core_mod — ids are chunk
+// indices in [0, 2^(n-1-r)), chunk `id` covering Gray positions
+// m in [id<<r, (id+1)<<r); chunks absent from ids must be dead (some
+// row's walk value is 0 throughout the chunk, ops/modp._live_exact),
+// so the live sum IS per(M) mod p.  This is the CPU twin of the TPU
+// lazy-residue walk with 61-bit Montgomery arithmetic instead of
+// 11-bit f32 residues: a CRT needs ~5.5x fewer walks per bound bit,
+// which is what makes chesapeake-class cores reachable on a host when
+// no TPU is attached.  Requires odd p < 2^62 and 1 <= r <= 62.
+uint64_t sup_perman_mod_pruned(const uint64_t* a, int n, uint64_t p,
+                               const int64_t* ids, long long nids, int r,
+                               int threads) {
+  if (n <= 0) return 1 % p;
+  if (n == 1) return a[0] % p;
+  if (ids == nullptr) return sup_perman_mod(a, n, p);
+  if (nids == 0) return 0;
+#if SUP_HAVE_IFMA_BUILD
+  // lazy-residue bound: REDC output < 2p needs 4p < 2^52 (see mulmod52)
+  if (p < ((uint64_t)1 << 50) && n <= IFMA_MAX_N && r >= 1
+      && sup_cpu_ifma())
+    return perman_mod_pruned_ifma(a, n, p, ids, nids, r, threads);
+#endif
+  const Mont mg(p);
+  const uint64_t inv2 = mg.to((p + 1) / 2);
+  std::vector<uint64_t> x0(n), colp((size_t)(n - 1) * n), colm;
+  for (int j = 0; j < n; j++) {
+    uint64_t rs = 0;
+    for (int k = 0; k < n; k++) {
+      rs += mg.to(a[j * n + k]);
+      if (rs >= p) rs -= p;
+    }
+    uint64_t v = mg.to(a[j * n + (n - 1)]) + p - mg.mul(rs, inv2);
+    x0[j] = v >= p ? v - p : v;
+  }
+  for (int k = 0; k < n - 1; k++)
+    for (int j = 0; j < n; j++)
+      colp[(size_t)k * n + j] = mg.to(a[j * n + k]);
+  colm.resize(colp.size());
+  for (size_t i = 0; i < colp.size(); i++)
+    colm[i] = colp[i] ? p - colp[i] : 0;
+
+  threads = pick_threads(threads);
+  const uint64_t one_m = mg.to(1);
+  const uint64_t steps = 1ull << r;
+  uint64_t acc = 0;
+  std::atomic<long long> next(0);
+#pragma omp parallel num_threads(threads)
+  {
+    std::vector<uint64_t> x(n);
+    uint64_t lacc = 0;
+    for (;;) {
+      const long long ci = next.fetch_add(1, std::memory_order_relaxed);
+      if (ci >= nids) break;
+      // cold-start the chunk at base = id<<r: x(base) = x0 + the
+      // gray(base)-masked column sum (base is even for r >= 1, so the
+      // first term's sign is +)
+      const uint64_t base = (uint64_t)ids[ci] << r;
+      const uint64_t g0 = base ^ (base >> 1);
+      for (int j = 0; j < n; j++) x[j] = x0[j];
+      for (int k = 0; k < n - 1; k++)
+        if ((g0 >> k) & 1ull) {
+          const uint64_t* c = &colp[(size_t)k * n];
+          for (int j = 0; j < n; j++) {
+            uint64_t v = x[j] + c[j];
+            x[j] = v >= p ? v - p : v;
+          }
+        }
+      uint64_t prod = one_m;
+      for (int j = 0; j < n; j++) prod = mg.mul(prod, x[j]);
+      lacc += prod;
+      if (lacc >= p) lacc -= p;
+      for (uint64_t t = 1; t < steps; t++) {
+        // global m = base + t: ctz(m) == ctz(t) (base's low r bits are
+        // 0), term sign (-1)^m == (-1)^t, and the +/- column choice
+        // needs the GLOBAL gray bit (at k == r-1 it depends on id's
+        // parity — modp._walk_mod_scalar's smid row)
+        const uint64_t m = base + t;
+        const int k = __builtin_ctzll(t);
+        const uint64_t g = m ^ (m >> 1);
+        const uint64_t* c = ((g >> k) & 1ull) ? &colp[(size_t)k * n]
+                                              : &colm[(size_t)k * n];
+        uint64_t pr = one_m;
+        for (int j = 0; j < n; j++) {
+          uint64_t xv = x[j] + c[j];
+          if (xv >= p) xv -= p;
+          x[j] = xv;
+          pr = mg.mul(pr, xv);
+        }
+        lacc += (t & 1) ? p - pr : pr;
+        if (lacc >= p) lacc -= p;
+      }
+    }
+    // modular merge (a plain + reduction could overflow u64 for many
+    // threads: each lacc < p ~ 2^61)
+#pragma omp critical
+    {
+      acc += lacc;
+      if (acc >= p) acc -= p;
+    }
+  }
+  acc += acc;
+  if (acc >= p) acc -= p;
+  if (!(n & 1)) acc = acc ? p - acc : 0;
+  return mg.from(acc);
+}
+
+// ------------------------------------------- exact: Glynn Z_p walk
+//
+// SECOND independent exact algorithm: Glynn's polarization identity
+//   per(A) = 2^(1-n) * sum_{d in {+1}x{±1}^(n-1)} (prod_i d_i)
+//            * prod_j (sum_i d_i a_ij)
+// vs the Nijenhuis–Wilf/Ryser walk above (different identity, different
+// init — plain column sums, no x/2 halving — and a 2a update scale).
+// Its purpose is algorithmic cross-certification of EXACT_KNOWN rows:
+// the CRT held-out prime catches a WALK bug only if it perturbs
+// residues inconsistently across primes; a systematic bug (wrong plan,
+// wrong fold) corrupts every NW residue identically and sails through.
+// Agreement of an NW-certified integer with a Glynn residue at a fresh
+// prime closes that hole.  No reference counterpart (the reference has
+// one exact algorithm family; SURVEY §4).
+//
+// Gray enumeration: delta_0 = +1 fixed; bit k of gray(m) set means
+// delta_{k+1} = -1.  One Gray step flips one delta: y_j -+= 2 a_{k+1,j}.
+// prod_i d_i = (-1)^popcount(gray(m)) = (-1)^m (one flip per step).
+
+// Entries a[i*n+j] pre-reduced into [0, p); odd p < 2^62.
+uint64_t sup_perman_glynn_mod(const uint64_t* a, int n, uint64_t p) {
+  if (n <= 0) return 1 % p;
+  if (n == 1) return a[0] % p;
+  const Mont mg(p);
+  std::vector<uint64_t> y(n), g2p((size_t)(n - 1) * n), g2m;
+  for (int j = 0; j < n; j++) {
+    uint64_t s = 0;
+    for (int i = 0; i < n; i++) {
+      s += mg.to(a[(size_t)i * n + j]);       // all-(+1) column sums
+      if (s >= p) s -= p;
+    }
+    y[j] = s;
+  }
+  for (int k = 0; k < n - 1; k++)
+    for (int j = 0; j < n; j++) {
+      uint64_t v = a[(size_t)(k + 1) * n + j];
+      v += v;                                  // 2 a_{k+1,j} mod p
+      if (v >= p) v -= p;
+      g2p[(size_t)k * n + j] = mg.to(v);
+    }
+  g2m.resize(g2p.size());
+  for (size_t i = 0; i < g2p.size(); i++)
+    g2m[i] = g2p[i] ? p - g2p[i] : 0;
+
+  uint64_t acc = mg.to(1);
+  for (int j = 0; j < n; j++) acc = mg.mul(acc, y[j]);   // m = 0 term
+  const uint64_t one_m = mg.to(1);
+  const uint64_t total = 1ull << (n - 1);
+  for (uint64_t m = 1; m < total; m++) {
+    const int k = __builtin_ctzll(m);
+    const uint64_t g = m ^ (m >> 1);
+    // bit k's NEW value: 1 -> delta_{k+1} now -1 -> subtract 2a
+    const uint64_t* c = ((g >> k) & 1ull) ? &g2m[(size_t)k * n]
+                                          : &g2p[(size_t)k * n];
+    uint64_t prod = one_m;
+    for (int j = 0; j < n; j++) {
+      uint64_t yv = y[j] + c[j];
+      if (yv >= p) yv -= p;
+      y[j] = yv;
+      prod = mg.mul(prod, yv);
+    }
+    acc += (m & 1) ? p - prod : prod;
+    if (acc >= p) acc -= p;
+  }
+  const uint64_t inv2 = mg.to((p + 1) / 2);   // per = 2^(1-n) * acc
+  for (int i = 0; i < n - 1; i++) acc = mg.mul(acc, inv2);
+  return mg.from(acc);
+}
+
+#if SUP_HAVE_IFMA_BUILD
+namespace {
+
+// 8-lane chunked dense Glynn walk — the lane/chunk layout, lazy [0,2p)
+// residue discipline and interleaved partial products of
+// perman_mod_pruned_ifma, with Glynn init/update/scale.  Glynn has no
+// zero-structure pruning (y_j vanishes only by cancellation), so the
+// id space is always dense: chunk c covers m in [c<<r, (c+1)<<r).
+__attribute__((target("avx512f,avx512ifma")))
+uint64_t perman_glynn_mod_ifma(const uint64_t* a, int n, uint64_t p,
+                               int r, int threads) {
+  const Mont52 mg(p);
+  std::vector<uint64_t> y0(n), g2p((size_t)(n - 1) * n), g2m;
+  for (int j = 0; j < n; j++) {
+    uint64_t s = 0;
+    for (int i = 0; i < n; i++) {
+      s += mg.to(a[(size_t)i * n + j]);
+      if (s >= p) s -= p;
+    }
+    y0[j] = s;
+  }
+  for (int k = 0; k < n - 1; k++)
+    for (int j = 0; j < n; j++) {
+      uint64_t v = a[(size_t)(k + 1) * n + j];
+      v += v;
+      if (v >= p) v -= p;
+      g2p[(size_t)k * n + j] = mg.to(v);
+    }
+  g2m.resize(g2p.size());
+  for (size_t i = 0; i < g2p.size(); i++)
+    g2m[i] = g2p[i] ? p - g2p[i] : 0;
+
+  threads = pick_threads(threads);
+  const uint64_t one_s = mg.to(1);
+  const uint64_t steps = 1ull << r;
+  const long long nids = 1ll << (n - 1 - r);
+  const long long nbatch = (nids + 7) / 8;
+  uint64_t acc_total = 0;
+  std::atomic<long long> next(0);
+#pragma omp parallel num_threads(threads)
+  {
+    const __m512i vp = _mm512_set1_epi64((long long)p);
+    const __m512i vp2 = _mm512_set1_epi64((long long)(2 * p));
+    const __m512i vninv = _mm512_set1_epi64((long long)mg.ninv);
+    const __m512i vzero = _mm512_setzero_si512();
+    const __m512i vone = _mm512_set1_epi64(1);
+    const __m512i vone_m = _mm512_set1_epi64((long long)one_s);
+    alignas(64) uint64_t ybuf[IFMA_MAX_N][8];
+    alignas(64) uint64_t lanes[8];
+    uint64_t lacc = 0;
+    for (;;) {
+      const long long b = next.fetch_add(1, std::memory_order_relaxed);
+      if (b >= nbatch) break;
+      const int used = (int)std::min<long long>(8, nids - b * 8);
+      __mmask8 midflip = 0;            // odd-id lanes: global gray bit
+                                       // at the midpoint is 1 ^ (id&1)
+      for (int l = 0; l < 8; l++) {
+        const int64_t id = b * 8 + (l < used ? l : 0);
+        if ((id & 1) && l < used) midflip |= (__mmask8)(1u << l);
+        const uint64_t base = (uint64_t)id << r;
+        const uint64_t g0 = base ^ (base >> 1);
+        for (int j = 0; j < n; j++) ybuf[j][l] = y0[j];
+        for (int k = 0; k < n - 1; k++)
+          if ((g0 >> k) & 1ull)        // set bit: delta = -1 -> -2a
+            for (int j = 0; j < n; j++) {
+              uint64_t v = ybuf[j][l] + g2m[(size_t)k * n + j];
+              ybuf[j][l] = v >= p ? v - p : v;
+            }
+      }
+      __m512i prod = vone_m;           // m = base term (even: sign +)
+      for (int j = 0; j < n; j++)
+        prod = mulmod52(prod, _mm512_load_si512((const void*)ybuf[j]),
+                        vp, vninv, vzero, vone);
+      __m512i acc = prod;
+      for (uint64_t t = 1; t < steps; t++) {
+        const int k = __builtin_ctzll(t);
+        const uint64_t gt = t ^ (t >> 1);
+        const bool mid = (k == r - 1);
+        const uint64_t* gp = &g2p[(size_t)k * n];
+        const uint64_t* gm = &g2m[(size_t)k * n];
+        // new gray bit 1 -> subtract 2a (NW's csel, polarity swapped)
+        const uint64_t* csel = ((gt >> k) & 1ull) ? gm : gp;
+        __m512i p0 = vone_m, p1 = vone_m, p2 = vone_m, p3 = vone_m;
+        for (int j = 0; j < n; j++) {
+          __m512i cj;
+          if (mid) {
+            // even id: gray bit -> 1 -> -2a; odd id: -> 0 -> +2a
+            cj = _mm512_mask_blend_epi64(
+                midflip, _mm512_set1_epi64((long long)gm[j]),
+                _mm512_set1_epi64((long long)gp[j]));
+          } else {
+            cj = _mm512_set1_epi64((long long)csel[j]);
+          }
+          __m512i yj = _mm512_load_si512((const void*)ybuf[j]);
+          yj = addmod52(yj, cj, vp2);
+          _mm512_store_si512((void*)ybuf[j], yj);
+          switch (j & 3) {
+            case 0: p0 = mulmod52(p0, yj, vp, vninv, vzero, vone); break;
+            case 1: p1 = mulmod52(p1, yj, vp, vninv, vzero, vone); break;
+            case 2: p2 = mulmod52(p2, yj, vp, vninv, vzero, vone); break;
+            default: p3 = mulmod52(p3, yj, vp, vninv, vzero, vone);
+          }
+        }
+        prod = mulmod52(mulmod52(p0, p1, vp, vninv, vzero, vone),
+                        mulmod52(p2, p3, vp, vninv, vzero, vone),
+                        vp, vninv, vzero, vone);
+        if (t & 1)
+          prod = _mm512_sub_epi64(vp2, prod);
+        acc = addmod52(acc, prod, vp2);
+      }
+      _mm512_store_si512((void*)lanes, acc);
+      for (int l = 0; l < used; l++) {
+        lacc += lanes[l] >= p ? lanes[l] - p : lanes[l];
+        if (lacc >= p) lacc -= p;
+      }
+    }
+#pragma omp critical
+    {
+      acc_total += lacc;
+      if (acc_total >= p) acc_total -= p;
+    }
+  }
+  const uint64_t inv2 = mg.to((p + 1) / 2);
+  for (int i = 0; i < n - 1; i++) acc_total = mg.mul(acc_total, inv2);
+  return mg.from(acc_total);
+}
+
+}  // namespace
+#endif  // SUP_HAVE_IFMA_BUILD
+
+// Chunked dense Glynn walk: r >= 1 splits the 2^(n-1) Gray space into
+// 2^(n-1-r) chunks (IFMA lanes / OMP threads); r == 0 runs the plain
+// scalar walk.  Requires odd p < 2^62 (IFMA engages below 2^50,
+// matching the lazy-residue bound) and 1 <= r <= n-1 when chunking.
+uint64_t sup_perman_glynn_mod_chunked(const uint64_t* a, int n, uint64_t p,
+                                      int r, int threads) {
+  if (n <= 0) return 1 % p;
+  if (n == 1) return a[0] % p;
+  if (r < 1 || r > n - 1)
+    return sup_perman_glynn_mod(a, n, p);
+#if SUP_HAVE_IFMA_BUILD
+  if (p < ((uint64_t)1 << 50) && n <= IFMA_MAX_N && sup_cpu_ifma())
+    return perman_glynn_mod_ifma(a, n, p, r, threads);
+#endif
+  const Mont mg(p);
+  std::vector<uint64_t> y0(n), g2p((size_t)(n - 1) * n), g2m;
+  for (int j = 0; j < n; j++) {
+    uint64_t s = 0;
+    for (int i = 0; i < n; i++) {
+      s += mg.to(a[(size_t)i * n + j]);
+      if (s >= p) s -= p;
+    }
+    y0[j] = s;
+  }
+  for (int k = 0; k < n - 1; k++)
+    for (int j = 0; j < n; j++) {
+      uint64_t v = a[(size_t)(k + 1) * n + j];
+      v += v;
+      if (v >= p) v -= p;
+      g2p[(size_t)k * n + j] = mg.to(v);
+    }
+  g2m.resize(g2p.size());
+  for (size_t i = 0; i < g2p.size(); i++)
+    g2m[i] = g2p[i] ? p - g2p[i] : 0;
+
+  threads = pick_threads(threads);
+  const uint64_t one_m = mg.to(1);
+  const uint64_t steps = 1ull << r;
+  const long long nids = 1ll << (n - 1 - r);
+  uint64_t acc = 0;
+  std::atomic<long long> next(0);
+#pragma omp parallel num_threads(threads)
+  {
+    std::vector<uint64_t> y(n);
+    uint64_t lacc = 0;
+    for (;;) {
+      const long long ci = next.fetch_add(1, std::memory_order_relaxed);
+      if (ci >= nids) break;
+      const uint64_t base = (uint64_t)ci << r;
+      const uint64_t g0 = base ^ (base >> 1);
+      for (int j = 0; j < n; j++) y[j] = y0[j];
+      for (int k = 0; k < n - 1; k++)
+        if ((g0 >> k) & 1ull) {
+          const uint64_t* c = &g2m[(size_t)k * n];
+          for (int j = 0; j < n; j++) {
+            uint64_t v = y[j] + c[j];
+            y[j] = v >= p ? v - p : v;
+          }
+        }
+      uint64_t prod = one_m;
+      for (int j = 0; j < n; j++) prod = mg.mul(prod, y[j]);
+      lacc += prod;
+      if (lacc >= p) lacc -= p;
+      for (uint64_t t = 1; t < steps; t++) {
+        const uint64_t m = base + t;
+        const int k = __builtin_ctzll(t);
+        const uint64_t g = m ^ (m >> 1);
+        const uint64_t* c = ((g >> k) & 1ull) ? &g2m[(size_t)k * n]
+                                              : &g2p[(size_t)k * n];
+        uint64_t pr = one_m;
+        for (int j = 0; j < n; j++) {
+          uint64_t yv = y[j] + c[j];
+          if (yv >= p) yv -= p;
+          y[j] = yv;
+          pr = mg.mul(pr, yv);
+        }
+        lacc += (t & 1) ? p - pr : pr;
+        if (lacc >= p) lacc -= p;
+      }
+    }
+#pragma omp critical
+    {
+      acc += lacc;
+      if (acc >= p) acc -= p;
+    }
+  }
+  const uint64_t inv2 = mg.to((p + 1) / 2);
+  for (int i = 0; i < n - 1; i++) acc = mg.mul(acc, inv2);
+  return mg.from(acc);
+}
+
+// -------------------------------------------------------- approximation
+
+// Rasmussen estimator (min-degree heuristic), binary support matrix.
+double sup_rasmussen(const double* a, int n, long long trials, int threads,
+                     unsigned long long seed, double* zeros_out) {
+  threads = pick_threads(threads);
+  std::vector<double> partial(threads, 0.0);
+  std::vector<double> zeros(threads, 0.0);
+#pragma omp parallel num_threads(threads)
+  {
+#ifdef _OPENMP
+    int tid = omp_get_thread_num();
+#else
+    int tid = 0;
+#endif
+    pcg32 rng(seed, (uint64_t)tid * 2 + 1);
+    std::vector<int> nnz(n);
+    // liveness as byte flags, not a uint64_t bitmask: unbounded n (the
+    // reference caps at 672 columns, gpu_approximation_sparse.cu:228,
+    // and a 64-bit mask is UB past n=64 — round-2 verdict weak #1)
+    std::vector<char> rowlive(n), collive(n);
+    double acc = 0, zc = 0;
+#pragma omp for schedule(static)
+    for (long long t = 0; t < trials; t++) {
+      std::fill(rowlive.begin(), rowlive.end(), (char)1);
+      std::fill(collive.begin(), collive.end(), (char)1);
+      for (int i = 0; i < n; i++) {
+        nnz[i] = 0;
+        for (int j = 0; j < n; j++) nnz[i] += (a[i * n + j] != 0.0);
+      }
+      double logp = 0.0;
+      bool dead = false;
+      for (int step = 0; step < n && !dead; step++) {
+        int row = -1, best = n + 1;
+        for (int i = 0; i < n; i++)
+          if (rowlive[i])
+            if (nnz[i] < best) { best = nnz[i]; row = i; }
+        if (best <= 0) { dead = true; break; }
+        logp += std::log2((double)best);
+        int pick = (int)rng.below((uint32_t)best), col = -1;
+        for (int j = 0; j < n; j++)
+          if (collive[j] && a[row * n + j] != 0.0)
+            if (pick-- == 0) { col = j; break; }
+        collive[col] = 0;
+        rowlive[row] = 0;
+        for (int i = 0; i < n; i++)
+          if (rowlive[i] && a[i * n + col] != 0.0) nnz[i]--;
+      }
+      if (dead) zc += 1.0; else acc += std::exp2(logp);
+    }
+    partial[tid] = acc;
+    zeros[tid] = zc;
+  }
+  double total = 0, z = 0;
+  for (int t = 0; t < threads; t++) { total += partial[t]; z += zeros[t]; }
+  if (zeros_out) *zeros_out = z;
+  return total / (double)trials;
+}
+
+// Sinkhorn-scaling-guided estimator.
+double sup_approx_scaling(const double* a, int n, long long trials,
+                          int scale_intervals, int scale_times, int threads,
+                          unsigned long long seed, double* zeros_out) {
+  threads = pick_threads(threads);
+  std::vector<double> partial(threads, 0.0), zeros(threads, 0.0);
+#pragma omp parallel num_threads(threads)
+  {
+#ifdef _OPENMP
+    int tid = omp_get_thread_num();
+#else
+    int tid = 0;
+#endif
+    pcg32 rng(seed ^ 0x9e3779b97f4a7c15ULL, (uint64_t)tid * 2 + 1);
+    std::vector<double> dr(n), dc(n);
+    std::vector<char> rowlive(n), collive(n);  // byte flags: unbounded n
+    double acc = 0, zc = 0;
+#pragma omp for schedule(static)
+    for (long long t = 0; t < trials; t++) {
+      std::fill(rowlive.begin(), rowlive.end(), (char)1);
+      std::fill(collive.begin(), collive.end(), (char)1);
+      std::fill(dr.begin(), dr.end(), 1.0);
+      std::fill(dc.begin(), dc.end(), 1.0);
+      double logx = 0.0;
+      bool dead = false;
+      for (int step = 0; step < n && !dead; step++) {
+        // min residual-degree live row
+        int row = -1, best = n + 1;
+        for (int i = 0; i < n; i++)
+          if (rowlive[i]) {
+            int d = 0;
+            for (int j = 0; j < n; j++)
+              d += (collive[j] && a[i * n + j] != 0.0);
+            if (d < best) { best = d; row = i; }
+          }
+        if (step % scale_intervals == 0) {
+          for (int it = 0; it < scale_times && !dead; it++) {
+            for (int j = 0; j < n; j++)
+              if (collive[j]) {
+                double cs = 0;
+                for (int i = 0; i < n; i++)
+                  if (rowlive[i]) cs += dr[i] * a[i * n + j];
+                if (cs == 0) { dead = true; break; }
+                dc[j] = 1.0 / cs;
+              }
+            for (int i = 0; i < n && !dead; i++)
+              if (rowlive[i]) {
+                double rs = 0;
+                for (int j = 0; j < n; j++)
+                  if (collive[j]) rs += a[i * n + j] * dc[j];
+                if (rs == 0) { dead = true; break; }
+                dr[i] = 1.0 / rs;
+              }
+          }
+          if (dead) break;
+        }
+        double tot = 0;
+        for (int j = 0; j < n; j++)
+          if (collive[j] && a[row * n + j] != 0.0)
+            tot += dr[row] * a[row * n + j] * dc[j];
+        if (tot == 0) { dead = true; break; }
+        double u = rng.uniform() * tot, run = 0, pj = 0;
+        int col = -1;
+        for (int j = 0; j < n; j++)
+          if (collive[j] && a[row * n + j] != 0.0) {
+            double w = dr[row] * a[row * n + j] * dc[j];
+            run += w;
+            if (u <= run) { col = j; pj = w / tot; break; }
+          }
+        if (col < 0) { dead = true; break; }
+        // X *= a[row,col] / pj: including the a factor makes the
+        // estimator unbiased for weighted matrices (the reference's
+        // Xa /= pj alone, algo.h:551, estimates the 0/1-pattern
+        // permanent); identical on binary input.
+        logx += std::log2(a[row * n + col]) - std::log2(pj);
+        collive[col] = 0;
+        rowlive[row] = 0;
+      }
+      if (dead) zc += 1.0; else acc += std::exp2(logx);
+    }
+    partial[tid] = acc;
+    zeros[tid] = zc;
+  }
+  double total = 0, z = 0;
+  for (int t = 0; t < threads; t++) { total += partial[t]; z += zeros[t]; }
+  if (zeros_out) *zeros_out = z;
+  return total / (double)trials;
+}
+
+// ------------------------------------------------ libConnect-style facade
+
+void connect() { std::fprintf(stderr, "superman_tpu_torch native engine connected\n"); }
+
+static int read_triplet_file(const char* filename, std::vector<double>& mat,
+                             int& n, int binary) {
+  std::ifstream f(filename);
+  if (!f) return -1;
+  std::string line;
+  if (!std::getline(f, line)) return -1;
+  std::istringstream hdr(line);
+  long long nnz;
+  std::string type;
+  hdr >> n >> nnz >> type;
+  if (n <= 0) return -1;
+  mat.assign((size_t)n * n, 0.0);
+  while (std::getline(f, line)) {
+    std::istringstream iss(line);
+    int i, j;
+    double v;
+    if (!(iss >> i >> j >> v)) continue;
+    // out-of-range index = erroneous line (skip; an unchecked negative i
+    // would cast to a huge size_t and write wild heap memory)
+    if (i < 0 || i >= n || j < 0 || j >= n) continue;
+    mat[(size_t)i * n + j] = binary ? 1.0 : v;
+  }
+  return 0;
+}
+
+static void sort_order_cols(std::vector<double>& a, int n) {
+  std::vector<std::pair<int, int>> deg(n);
+  for (int j = 0; j < n; j++) {
+    int d = 0;
+    for (int i = 0; i < n; i++) d += (a[(size_t)i * n + j] != 0.0);
+    deg[j] = {d, j};
+  }
+  std::stable_sort(deg.begin(), deg.end());
+  std::vector<double> b((size_t)n * n);
+  for (int jj = 0; jj < n; jj++)
+    for (int i = 0; i < n; i++) b[(size_t)i * n + jj] = a[(size_t)i * n + deg[jj].second];
+  a.swap(b);
+}
+
+static void skip_order_perm(std::vector<double>& a, int n) {
+  std::vector<int> degs(n), colp(n), rowp;
+  std::vector<char> seen(n, 0);
+  for (int j = 0; j < n; j++) {
+    degs[j] = 0;
+    for (int i = 0; i < n; i++) degs[j] += (a[(size_t)i * n + j] != 0.0);
+  }
+  const int INF = 1 << 29;
+  for (int jj = 0; jj < n; jj++) {
+    int best = INF, c = 0;
+    for (int j = 0; j < n; j++)
+      if (degs[j] < best) { best = degs[j]; c = j; }
+    degs[c] = INF;
+    colp[jj] = c;
+    for (int i = 0; i < n; i++)
+      if (a[(size_t)i * n + c] != 0.0 && !seen[i]) {
+        seen[i] = 1;
+        rowp.push_back(i);
+        for (int k = 0; k < n; k++)
+          if (a[(size_t)i * n + k] != 0.0 && degs[k] != INF) degs[k]--;
+      }
+  }
+  for (int i = 0; i < n; i++) if (!seen[i]) rowp.push_back(i);
+  std::vector<double> b((size_t)n * n);
+  for (int i = 0; i < n; i++)
+    for (int j = 0; j < n; j++)
+      b[(size_t)i * n + j] = a[(size_t)rowp[i] * n + colp[j]];
+  a.swap(b);
+}
+
+static double dispatch_algo(std::vector<double>& a, int n, int algo, int nt,
+                            int x, int y, int z) {
+  // reference libConnect algo ids (interface_connector.c:19-59):
+  // 0 rasmussen_sparse, 1 rasmussen, 2 approx_sparse, 3 approx,
+  // 4 sparse exact, 5 dense exact, 6 skipper, 7 skipper balanced, 8 seq
+  double zeros = 0;
+  switch (algo) {
+    case 0:
+    case 1: return sup_rasmussen(a.data(), n, x, nt, 12345, &zeros);
+    case 2:
+    case 3: return sup_approx_scaling(a.data(), n, x, y, z, nt, 12345, &zeros);
+    case 4: return sup_perman_sparse(a.data(), n, nt, 0);
+    case 5: return sup_perman_dense(a.data(), n, nt, 0);
+    case 6:
+    case 7: return sup_perman_skipper(a.data(), n, nt, 0);
+    case 8: return sup_perman_dense(a.data(), n, 1, 0);
+    default: return 0.0;
+  }
+}
+
+double read_calculate_return(char* filename, int algorithm, int nt, int x,
+                             int y, int z) {
+  std::vector<double> a;
+  int n = 0;
+  if (read_triplet_file(filename, a, n, 0) != 0) return 0.0;
+  // same auto-preprocessing policy as the reference connector
+  if (algorithm == 0 || algorithm == 2 || algorithm == 4) sort_order_cols(a, n);
+  else if (algorithm == 6 || algorithm == 7) skip_order_perm(a, n);
+  return dispatch_algo(a, n, algorithm, nt, x, y, z);
+}
+
+double matlab_calculate_return_int(const int* mat, int algorithm, int nt,
+                                   int x, int y, int z, int nov, int nnz) {
+  (void)nnz;
+  std::vector<double> a((size_t)nov * nov);
+  for (size_t i = 0; i < a.size(); i++) a[i] = (double)mat[i];
+  if (algorithm == 0 || algorithm == 2 || algorithm == 4) sort_order_cols(a, nov);
+  else if (algorithm == 6 || algorithm == 7) skip_order_perm(a, nov);
+  return dispatch_algo(a, nov, algorithm, nt, x, y, z);
+}
+
+double matlab_calculate_return_double(const double* mat, int algorithm,
+                                      int nt, int x, int y, int z, int nov,
+                                      int nnz) {
+  (void)nnz;
+  std::vector<double> a(mat, mat + (size_t)nov * nov);
+  if (algorithm == 0 || algorithm == 2 || algorithm == 4) sort_order_cols(a, nov);
+  else if (algorithm == 6 || algorithm == 7) skip_order_perm(a, nov);
+  return dispatch_algo(a, nov, algorithm, nt, x, y, z);
+}
+
+}  // extern "C"

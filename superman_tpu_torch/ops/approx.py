@@ -19,8 +19,11 @@ whole batch, so the Sinkhorn gate (k % scale_intervals) and the
 resampling gate (k % _EVERY) are Python branches.  The trial state is
 float32 and the host accumulates in float64 and log2 space, as in the
 reference; random numbers come from one torch.Generator seeded from
-flags.seed, so they differ from jax.random's and the tests compare
-distributions.
+flags.seed (over a mesh, one per entry, seeded from the seed and the
+entry's index), so they differ from jax.random's and the tests compare
+distributions.  Over a mesh each batch's trials are dealt over the
+entries (parallel/mesh.py); with hybrid=True and cpu=True a thread of the
+native CPU engine takes trials from the same budget.
 
 Both the per-trial and the population estimators return the mean of an
 unbiased estimator of per(A); dead trials (a line ran out of partners)
@@ -32,7 +35,9 @@ reference's GPU kernel does (gpu_approximation_dense.cu:281).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
+import threading
 import time as _time
 
 import numpy as np
@@ -51,6 +56,9 @@ _MATCHED = 1e9
 _EVERY = 8
 #: the scale_intervals candidates of the SMC auto-selector
 _SI_CANDIDATES = (2, 4)
+#: trials the hybrid CPU worker takes from the budget at a time (the
+#: reference's cpu_chunk)
+_CPU_CHUNK = 50000
 
 
 @contextlib.contextmanager
@@ -425,8 +433,61 @@ def _lse2(x: np.ndarray) -> float:
     return m + float(np.log2(np.sum(np.exp2(x - m))))
 
 
-def _approximate_gurvits(a: np.ndarray, flags,
-                         device: torch.device) -> Result:
+class _Entries:
+    """Where a per-trial estimator's batches run: `device` alone, or each
+    batch split over the entries of a mesh (parallel/mesh.py), each on its
+    own stream with its own torch.Generator seeded from (seed, entry
+    index), so the same seed and the same device list give the same
+    value.  One device keeps one generator seeded from the seed."""
+
+    def __init__(self, flags, device: torch.device, make, mesh=None):
+        from ..parallel.mesh import mesh_for_flags
+        self.mesh = mesh if mesh is not None else mesh_for_flags(flags,
+                                                                 device)
+        devs = [device] if self.mesh is None else list(self.mesh)
+        self.gens, self.state = [], []
+        for e, d in enumerate(devs):
+            with self._on(e):
+                g = torch.Generator(device=d)
+                g.manual_seed(int(flags.seed) if self.mesh is None else
+                              int(np.random.SeedSequence(
+                                  (int(flags.seed), e)).generate_state(
+                                      1, np.uint64)[0] >> np.uint64(1)))
+                self.gens.append(g)
+                self.state.append(make(d))
+        self.devices = devs
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def _on(self, e: int):
+        return (contextlib.nullcontext() if self.mesh is None
+                else self.mesh.on(e))
+
+    def run(self, b: int, fn) -> list:
+        """fn(state, b_e, gen, device) -> tuple of device tensors, for b
+        trials dealt as evenly as the entries allow (the first b % k
+        entries take one more); returns the host arrays of each output,
+        the entries' trials one after another."""
+        k = len(self)
+        sizes = [b // k + (e < b % k) for e in range(k)]
+        outs = []
+        for e, b_e in enumerate(sizes):
+            if b_e:
+                with self._on(e):
+                    outs.append(fn(self.state[e], b_e, self.gens[e],
+                                   self.devices[e]))
+        if self.mesh is not None:
+            self.mesh.synchronize()
+        host = []
+        for e, out in enumerate(outs):
+            with self._on(e):
+                host.append([t.cpu().numpy() for t in out])
+        return [np.concatenate(parts) for parts in zip(*host)]
+
+
+def _approximate_gurvits(a: np.ndarray, flags, device: torch.device,
+                         mesh=None) -> Result:
     """Driver for the Gurvits/Glynn signed estimator (_gurvits_trial).
 
     Exact power-of-2 row scaling first (the exact walk's invariant):
@@ -449,8 +510,7 @@ def _approximate_gurvits(a: np.ndarray, flags,
                             "zero_row": True, "cpu_trials": 0})
     shift = np.floor(np.log2(rowmax))
     scale_l2 = float(np.sum(shift))
-    at = torch.as_tensor(a * np.exp2(-shift)[:, None], dtype=torch.float32,
-                         device=device)
+    a_scaled = a * np.exp2(-shift)[:, None]
     trials = int(flags.number_of_times)
     batch = min(trials, 1 << 13)
     dist = str(flags.gurvits_dist)
@@ -464,18 +524,20 @@ def _approximate_gurvits(a: np.ndarray, flags,
         xs = hr.choice([-1.0, 1.0], size=(64, n))
         frac0 = float(np.mean(np.any((xs @ a.T) == 0.0, axis=1)))
         gauss = frac0 > 0.5
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(flags.seed))
+    entries = _Entries(flags, device, lambda d: torch.as_tensor(
+        a_scaled, dtype=torch.float32, device=d), mesh)
+
+    def trial(at, b, gen, dev):
+        logm, sgn = _gurvits_trial(at, _gurvits_draws(b, n, gen, dev, gauss))
+        return logm, sgn.double()
+
     NEG = np.float64(-np.inf)
     pos_l2 = neg_l2 = ssq_l2 = NEG
     zeros = done = 0
     with _full_fp32():
         while done < trials:
             b = min(batch, trials - done)
-            logm, sgn = _gurvits_trial(
-                at, _gurvits_draws(b, n, gen, device, gauss))
-            logm = logm.cpu().numpy()
-            sgn = sgn.double().cpu().numpy()
+            logm, sgn = entries.run(b, trial)
             pos, neg = logm[sgn > 0], logm[sgn < 0]
             live = logm[sgn != 0]
             if pos.size:
@@ -547,7 +609,11 @@ def _run_batch(algo: str, mats, B: int, gen: torch.Generator, *,
                           scale_times)
 
 
-def approximate(dense: DenseMatrix, flags, device: torch.device) -> Result:
+def approximate(dense: DenseMatrix, flags, device: torch.device,
+                mesh=None) -> Result:
+    """The Monte-Carlo estimate of per(dense) by flags.perman_algo on
+    `device`, over `mesh` (a parallel.mesh.Mesh) where one is given, else
+    over the mesh the flags ask for (mesh_for_flags)."""
     a = np.asarray(dense.mat, dtype=np.float64)
     n = a.shape[0]
     algo = str(flags.perman_algo)
@@ -558,7 +624,7 @@ def approximate(dense: DenseMatrix, flags, device: torch.device) -> Result:
     if algo == "gurvits":
         # the signed-matrix estimator: its own driver, log-space signed
         # accumulation
-        return _approximate_gurvits(a, flags, device)
+        return _approximate_gurvits(a, flags, device, mesh)
     if algo == "rasmussen" and not np.all(np.isin(a[a != 0], [1])):
         # reference: "This algorithm only works for binary matrices"
         a = (a != 0).astype(np.float64)
@@ -572,9 +638,57 @@ def approximate(dense: DenseMatrix, flags, device: torch.device) -> Result:
     t0 = _time.perf_counter()
     trials = int(flags.number_of_times)
     batch = min(trials, 1 << 14)
-    mats = _device_matrices(a, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(flags.seed))
+    entries = _Entries(flags, device, lambda d: _device_matrices(a, d),
+                       mesh)
+    si, st = _si(flags), int(flags.scale_times)
+
+    def trial(mats, b, gen, dev):
+        return _run_batch(algo, mats, b, gen, scale_intervals=si,
+                          scale_times=st)
+
+    # the hybrid CPU worker (reference _multigpucpu_chunks estimators,
+    # gpu_approximation_dense.cu:411-524, cpu_chunk = 50000): a thread of
+    # native-engine trials and the device loop below take their trials
+    # from ONE shared budget, so exactly `trials` trials run in all
+    budget = {"left": trials}
+    budget_lock = threading.Lock()
+
+    def take(k: int) -> int:
+        with budget_lock:
+            t = min(k, budget["left"])
+            budget["left"] -= t
+            return t
+
+    cpu_state = {"sum": 0.0, "trials": 0, "zeros": 0}
+    cpu_thread = None
+    if flags.hybrid and flags.cpu:
+        from ..bindings.native import load, native_available
+        if native_available():
+            lib = load()
+            an = np.ascontiguousarray(a)
+
+            def cpu_worker():
+                seed = int(flags.seed) + 777
+                while True:
+                    t = take(_CPU_CHUNK)
+                    if t == 0:
+                        return
+                    z = ctypes.c_double(0.0)
+                    if algo == "rasmussen":
+                        m = lib.sup_rasmussen(an, n, t, int(flags.threads),
+                                              seed, ctypes.byref(z))
+                    else:
+                        m = lib.sup_approx_scaling(
+                            an, n, t, si, st, int(flags.threads), seed,
+                            ctypes.byref(z))
+                    cpu_state["sum"] += m * t
+                    cpu_state["trials"] += t
+                    cpu_state["zeros"] += int(z.value)
+                    seed += 1
+
+            cpu_thread = threading.Thread(target=cpu_worker,
+                                          name="approx-cpu")
+            cpu_thread.start()
     # log2-space accumulation: grid-scale estimates (36x36 -> counts
     # ~2^530) overflow float64 sums of squares; the reference's double
     # accumulators simply overflow there
@@ -582,39 +696,55 @@ def approximate(dense: DenseMatrix, flags, device: torch.device) -> Result:
     total_l2 = NEG            # log2 of the sum of trial values
     ssq_l2 = NEG              # log2 of the sum of squared trial values
     zeros = done = 0
-    with _full_fp32():
-        while done < trials:
-            # exactly `trials` trials in all: the last batch is the rest
-            b = min(batch, trials - done)
-            logs, dead = _run_batch(algo, mats, b, gen,
-                                    scale_intervals=_si(flags),
-                                    scale_times=int(flags.scale_times))
-            logs = logs.double().cpu().numpy()
-            dead = dead.cpu().numpy()
-            alive = logs[~dead]
-            if alive.size:
-                total_l2 = np.logaddexp2(total_l2, _lse2(alive))
-                ssq_l2 = np.logaddexp2(ssq_l2, _lse2(2.0 * alive))
-            zeros += int(dead.sum())
-            done += b
+    try:
+        with _full_fp32():
+            while True:
+                b = take(batch)
+                if b == 0:
+                    break
+                logs, dead = entries.run(b, trial)
+                alive = logs[~dead].astype(np.float64)
+                if alive.size:
+                    total_l2 = np.logaddexp2(total_l2, _lse2(alive))
+                    ssq_l2 = np.logaddexp2(ssq_l2, _lse2(2.0 * alive))
+                zeros += int(dead.sum())
+                done += b
+    except BaseException:
+        # a failed device batch fails the run: the CPU worker stops at its
+        # next chunk instead of finishing the budget on the host
+        take(trials)
+        if cpu_thread is not None:
+            cpu_thread.join()
+        raise
+    n_dev, dev_total_l2 = done, total_l2    # the stderr's basis
+    if cpu_thread is not None:
+        cpu_thread.join()
+        if cpu_state["sum"] > 0:
+            total_l2 = np.logaddexp2(total_l2, np.log2(cpu_state["sum"]))
+        done += cpu_state["trials"]
+        zeros += cpu_state["zeros"]
     # est = 2^total_l2 / done; beyond-f64 results become the honest inf
     with np.errstate(over="ignore"):
         est = float(np.exp2(total_l2 - np.log2(done))) + 0.0 \
             if done else 0.0
     # standard error of the MC mean (the reference reports only the
-    # mean; X_i are iid, so stderr = sqrt(var/N))
+    # mean; X_i are iid, so stderr = sqrt(var/N)).  The CPU worker's
+    # chunks report only their means, so the stderr covers the device's
+    # trials
     stderr = None
-    if done > 1 and np.isfinite(total_l2):
-        mean_l2 = total_l2 - np.log2(done)
+    if n_dev > 1 and np.isfinite(dev_total_l2):
+        mean_l2 = dev_total_l2 - np.log2(n_dev)
         # S2/mean^2 = 2^(ssq_l2 - 2 mean_l2); var = (S2 - N mean^2)/N
         ratio = float(np.exp2(min(ssq_l2 - 2.0 * mean_l2, 1024)))
-        rel_var = max(ratio - done, 0.0) / done
+        rel_var = max(ratio - n_dev, 0.0) / n_dev
         with np.errstate(over="ignore"):
             stderr = float(np.exp2(mean_l2)
-                           * np.sqrt(rel_var / done)) + 0.0
+                           * np.sqrt(rel_var / n_dev)) + 0.0
+    name = f"approx_{algo}" + ("_hybrid" if cpu_thread is not None else "")
     return Result(est, _time.perf_counter() - t0,
-                  algo_name=f"approx_{algo}", zeros=zeros,
+                  algo_name=name, zeros=zeros,
                   iterations=done,
-                  meta={"trials": done, "scale_intervals": _si(flags),
+                  meta={"trials": done, "scale_intervals": si,
                         "scale_times": flags.scale_times,
-                        "stderr": stderr, "cpu_trials": 0})
+                        "stderr": stderr,
+                        "cpu_trials": cpu_state["trials"]})

@@ -13,7 +13,8 @@ over enough primes plus Chinese remaindering.  One extra held-out prime
 verifies the reconstruction end to end, so a kernel bug cannot produce
 a silently wrong value.  The walks run on the card through the Z_p
 kernel (ops/modp.py, csrc/modp_walk.cu) at 31-bit primes; the CPU runs
-the kernel's plain version.
+the kernel's plain version.  engine="native" (and cpu=True) walks 61-bit
+primes with the native CPU engine instead (bindings/native.py).
 
 Degree-1 and degree-2 lines are folded exactly in bigint arithmetic
 first.
@@ -227,16 +228,58 @@ _EXACT_FIXED_S = 0.005
 #: 2^(n-1) / 2^31 of index space: 24 ms at n=32 (the same card's host)
 _PLAN_S_N32 = 0.024
 
+#: the native engine's price of a Z_p walk, seconds per (column update +
+#: Montgomery product) element step, and the cost of a dense native run
+#: above which it pays for a pruned plan (modp.core_plan) and runs the
+#: checkpointed CRT pipeline instead of the flat batch walk: the JAX
+#: package's figures (superman_tpu/ops/exact.py:279-310), with which it
+#: prices the same engine
+_NATIVE_S_PER_ELEMENT = 6e-9
+_NATIVE_PLAN_FLOOR_S = 60.0
+
+
+def _native_cost_estimate(core, bits: float, budget_s: float = None
+                          ) -> Tuple[float, int]:
+    """(seconds, nprimes) of perman_exact_fraction(engine="native") on a
+    folded core: the dense walk at 61-bit primes, or past
+    _NATIVE_PLAN_FLOOR_S the pruned plan's live steps at the IFMA or
+    scalar element rate.  inf where the engine does not build."""
+    from ..bindings.native import cpu_ifma, native_available
+    n = len(core)
+    npr = max(1, math.ceil(bits / 61.0)) + 1
+    if not native_available():
+        return math.inf, npr
+    secs = npr * (1 << max(0, n - 1)) * n * _NATIVE_S_PER_ELEMENT
+    if (secs > _NATIVE_PLAN_FLOOR_S
+            and (budget_s is None or budget_s > _NATIVE_PLAN_FLOOR_S)):
+        # the plan is cached by core fingerprint, so the run
+        # (crt_perman_core backend="native") reuses the plan priced here
+        from .modp import core_plan
+        ifma = cpu_ifma()
+        npr_nat = max(1, math.ceil(bits / (50.0 if ifma else 61.0))) + 1
+        pl_ = core_plan(core)
+        live_iters = ((len(pl_[1]) << pl_[2]) if pl_ is not None
+                      else (1 << max(0, n - 1)))
+        # per-element rates of the JAX package's measurement on one host
+        # core: 0.46 ns IFMA, 4.8 ns scalar, priced with headroom
+        secs = min(secs, npr_nat * live_iters * n
+                   * (0.5e-9 if ifma else _NATIVE_S_PER_ELEMENT))
+    return secs, npr
+
 
 def exact_cost_estimate(a: np.ndarray, device: torch.device,
-                        budget_s: float = None) -> Tuple[float, int, int]:
-    """(seconds, nprimes, core_n) for perman_exact_fraction on `device`.
+                        budget_s: float = None, engine: Optional[str] = None
+                        ) -> Tuple[float, int, int]:
+    """(seconds, nprimes, core_n) for perman_exact_fraction on `device`
+    with `engine`.
 
-    Every core with n >= 2 walks on the device: the price is the fixed
-    cost of a call, the plan, and (31-bit prime count + 1) walks of the
-    plan's live steps at the Z_p walk's measured rate on that device, the
-    kernel's on a card and the plain version's on the CPU
-    (modp.card_cost_estimate).
+    engine None or "device": every core with n >= 2 walks on the device;
+    the price is the fixed cost of a call, the plan, and (31-bit prime
+    count + 1) walks of the plan's live steps at the Z_p walk's measured
+    rate on that device, the kernel's on a card and the plain version's
+    on the CPU (modp.card_cost_estimate).
+    engine "native": the native CPU engine's price, the JAX package's
+    native branch (_native_cost_estimate); inf where it does not build.
 
     budget_s: the caller's acceptance threshold, if it has one.  Pricing
     the walks computes the real pruned plan (host bigint liveness over up
@@ -249,12 +292,34 @@ def exact_cost_estimate(a: np.ndarray, device: torch.device,
         return 0.0, 0, 0
     n = len(core)
     bits = _log2_bound(core) + 3
+    if engine == "native":
+        secs, npr = _native_cost_estimate(core, bits, budget_s)
+        return secs, npr, n
     from .modp import PRIME_CEIL, card_cost_estimate
     npr = max(1, math.ceil(bits / math.log2(PRIME_CEIL))) + 1
     secs = _EXACT_FIXED_S + _PLAN_S_N32 * 2.0 ** (n - 32)
     if budget_s is not None and budget_s <= secs:
         return secs, npr, n         # already over budget; skip the plan
     return secs + card_cost_estimate(core, bits, device), npr, n
+
+
+def _crt(residues, prs, need: int) -> int:
+    """The integer of |X| < P/2 with X = residues[i] mod prs[i] over the
+    first `need` primes, checked against the held-out prime prs[need]: a
+    walk or CRT bug cannot return silently (P covers |per| by the row-sum
+    bound, so X is forced and the verifier must match)."""
+    X, P = 0, 1
+    for r, p in zip(residues[:need], prs[:need]):
+        t = (r - X) * pow(P, -1, p) % p
+        X += P * t
+        P *= p
+    if X > P // 2:
+        X -= P
+    if X % prs[need] != residues[need]:
+        raise AssertionError(
+            "exact CRT verification prime mismatch -- modular walk or "
+            "reconstruction is broken")
+    return X
 
 
 def perman_exact_fraction(a: np.ndarray, device: torch.device,
@@ -266,11 +331,12 @@ def perman_exact_fraction(a: np.ndarray, device: torch.device,
 
     engine: None or "device" walks every prime with the Z_p kernel on
     `device` (its plain version on the CPU); "host" runs the pure-Python
-    walk for cores with n <= 16; "native" is the JAX package's C++
-    engine, not ported.  `threads` is that engine's thread count and is
-    accepted for the same signature.
+    walk for cores with n <= 16; "native" runs the native CPU engine with
+    `threads` threads (0: all), as the JAX package runs it: the flat batch
+    walk at 61-bit primes, or past _NATIVE_PLAN_FLOOR_S the pruned,
+    checkpointed CRT pipeline (modp.crt_perman_core backend="native").
+    meta["engine"] says which ran.
     """
-    from ..drivers.runner import unported
     t0 = time.perf_counter()
     a = np.asarray(a, dtype=np.float64)
     n0 = a.shape[0]
@@ -288,8 +354,6 @@ def perman_exact_fraction(a: np.ndarray, device: torch.device,
         nc = len(core)
         if engine is None:
             engine = "device"
-        if engine == "native":
-            raise unported("the native CPU exact engine", 12)
         if engine == "device":
             from .modp import crt_perman_core
             per_core, tmeta = crt_perman_core(
@@ -297,32 +361,46 @@ def perman_exact_fraction(a: np.ndarray, device: torch.device,
             meta.update(engine=tmeta["engine"], nprimes=tmeta["nprimes"],
                         bound_bits=tmeta["bound_bits"],
                         live_frac=tmeta["live_frac"])
-        elif engine == "host":
-            if nc > 16:
-                raise ValueError(f'engine="host" walks cores with n <= 16, '
-                                 f"got core n={nc}")
+        elif engine in ("host", "native"):
             bits = _log2_bound(core) + 3            # sign + slack headroom
             need = max(1, math.ceil(bits / 61.0))
-            prs = primes_desc(need + 1)         # +1 held-out verifier
-            residues = [_perman_mod_host(core, p) for p in prs]
-            X, P = 0, 1
-            for r, p in zip(residues[:need], prs[:need]):
-                t = (r - X) * pow(P, -1, p) % p
-                X += P * t
-                P *= p
-            if X > P // 2:
-                X -= P
-            # end-to-end certification against the held-out prime: a
-            # walk or CRT bug cannot return silently (P covers |per| by
-            # the row-sum bound, so X is forced -- the verifier must
-            # match)
-            if X % prs[need] != residues[need]:
-                raise AssertionError(
-                    "exact CRT verification prime mismatch -- modular "
-                    "walk or reconstruction is broken")
-            per_core = X
-            meta.update(engine="host_mod", nprimes=need,
-                        bound_bits=round(bits, 1))
+            if engine == "host" and nc > 16:
+                raise ValueError(f'engine="host" walks cores with n <= 16, '
+                                 f"got core n={nc}")
+            if engine == "native":
+                from ..bindings.native import (native_available,
+                                               perman_mod_batch)
+                if not native_available():
+                    raise RuntimeError("the native CPU engine does not "
+                                       "build on this host")
+            if engine == "native" and ((need + 1) * (1 << (nc - 1)) * nc
+                                       * _NATIVE_S_PER_ELEMENT
+                                       > _NATIVE_PLAN_FLOOR_S):
+                # a big core: the pruned-plan CRT pipeline (checkpointed,
+                # held-out-verified); the batch below would walk the whole
+                # 2^(nc-1) index space per prime
+                from .modp import crt_perman_core
+                per_core, tmeta = crt_perman_core(
+                    core, device, log=log, checkpoint_path=checkpoint_path,
+                    backend="native", threads=threads)
+                meta.update(engine=tmeta["engine"],
+                            nprimes=tmeta["nprimes"],
+                            bound_bits=tmeta["bound_bits"],
+                            live_frac=tmeta["live_frac"])
+            else:
+                prs = primes_desc(need + 1)         # +1 held-out verifier
+                if engine == "native":
+                    mats = np.empty((len(prs), nc, nc), dtype=np.uint64)
+                    for i, p in enumerate(prs):
+                        mats[i] = [[v % p for v in row] for row in core]
+                    residues = [int(r) for r in perman_mod_batch(
+                        mats, np.asarray(prs, np.uint64), threads)]
+                    meta["engine"] = "native_mod"
+                else:
+                    residues = [_perman_mod_host(core, p) for p in prs]
+                    meta["engine"] = "host_mod"
+                per_core = _crt(residues, prs, need)
+                meta.update(nprimes=need, bound_bits=round(bits, 1))
         else:
             raise ValueError(f"unknown exact engine {engine!r}")
     per_int = mult * per_core
@@ -358,7 +436,10 @@ def perman_exact(dense, flags, device: torch.device):
     from ..core.result import Result
 
     a = np.asarray(dense.mat, dtype=np.float64)
-    frac, meta = perman_exact_fraction(a, device, threads=flags.threads)
+    # cpu=True names the native CPU engine, as it does for the float walks
+    engine = "native" if (flags.cpu and not flags.gpu) else None
+    frac, meta = perman_exact_fraction(a, device, threads=flags.threads,
+                                       engine=engine)
     val = _float_of_fraction(frac)
     res = Result(val, meta["wall_s"], algo_name="exact_crt")
     res.meta["exact"] = {

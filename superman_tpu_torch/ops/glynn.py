@@ -59,11 +59,13 @@ def _pack_glynn(a_s: np.ndarray, n_pad: int):
     return x0, g
 
 
-def glynn_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
+def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
+                mesh=None) -> Result:
     """Exact permanent of `dense` on `device` by the Glynn formula, calc
     "df64", "f32", "f32k", "tf96" or "f64"; calc "quad" walks on the host
     in long double whatever the device (single-threaded, practical up to
-    n ~ 24)."""
+    n ~ 24).  mesh: deal the walk's blocks over a parallel.mesh.Mesh
+    (bitwise the single-device result), or None."""
     a = np.asarray(dense.mat)
     n = a.shape[0]
     calc = flags.resolved_calc()
@@ -121,7 +123,7 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
             x0, cols = _pack_glynn(a_s, plan.n_pad)
         with trace.timer("walk"):
             total = compute_total(ids_blocks, x0, cols, plan, device,
-                                  tier=calc)
+                                  tier=calc, mesh=mesh)
         # bounded cumulative shifts and a finite fallback (see ops/ryser.py)
         if not np.isfinite(total):
             break
@@ -146,4 +148,5 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device) -> Result:
                   meta={"calc": calc, "chunks": plan.num_chunks, "r": plan.r,
                         "lanes": plan.lanes, "scale_log2": E,
                         "iters_per_sec": iters / dt, "device": str(device),
-                        "exact_storage": exact_storage})
+                        "exact_storage": exact_storage,
+                        "mesh": None if mesh is None else len(mesh)})

@@ -59,7 +59,8 @@ def pad_n(n: int) -> int:
 
 
 def make_plan(n: int, lanes: int = 1024, chunk_log2=None, *,
-              sms: int = DEFAULT_SMS, grid_multip: int = 1) -> RyserPlan:
+              sms: int = DEFAULT_SMS, grid_multip: int = 1,
+              min_blocks: int = 1) -> RyserPlan:
     """Chunk-decomposition planner for the one-thread-per-chunk kernel.
 
     With chunk_log2 given, r and lanes follow the reference planner
@@ -69,10 +70,14 @@ def make_plan(n: int, lanes: int = 1024, chunk_log2=None, *,
     threads (times grid_multip, the reference's -e over-decomposition):
     at n=32 on 132 SMs that is 2^17 chunks of 2^14 steps.  Every chunk
     costs the same, so more chunks only shorten the last wave.
+    min_blocks: without chunk_log2, r is lowered further (down to 1) until
+    there are at least this many blocks of `lanes` ids; the hybrid
+    scheduler's unit queue asks for 32.
     """
     total = n - 1
     if chunk_log2 is None:
-        want = max(1, sms * RESIDENT_CHUNKS_PER_SM * max(1, grid_multip))
+        want = max(1, sms * RESIDENT_CHUNKS_PER_SM * max(1, grid_multip),
+                   min_blocks * lanes)
         r = total - (want - 1).bit_length()
     else:
         r = chunk_log2

@@ -302,7 +302,8 @@ def card_cost_estimate(core, bound_bits: float,
 # ------------------------------------------------------------ the driver
 
 def crt_perman_core(core, device: torch.device, *, log=None,
-                    checkpoint_path=None):
+                    checkpoint_path=None, backend: str = "device",
+                    threads: int = 0):
     """EXACT ``per(core)`` of a bigint core, CRT over Z_p walks.
 
     Residues come from `perman_core_mod` at 31-bit primes descending
@@ -310,6 +311,13 @@ def crt_perman_core(core, device: torch.device, *, log=None,
     bigint arithmetic and shared by every prime, and a held-out
     verification prime certifies the reconstruction end to end -- a
     kernel or CRT bug cannot return silently.  Returns ``(per, meta)``.
+
+    backend="native" runs the same plan, CRT, verifier and checkpoint
+    with the native CPU engine's Montgomery walks
+    (bindings.native.perman_mod_pruned, `threads` threads) at primes
+    below 2^61, or below 2^50 on a host with AVX-512 IFMA, where every
+    walk runs on its 8-lane path (bindings.native.cpu_ifma), as the JAX
+    package's backend="native" does.
 
     checkpoint_path: optional JSONL of ``{"p": .., "res": .., "fp": ..}``
     rows -- per-prime residues survive a crash mid-run, and a restarted
@@ -319,13 +327,21 @@ def crt_perman_core(core, device: torch.device, *, log=None,
     (its residues are mutually consistent with the OLD core) and return
     the wrong matrix's permanent as certified-exact.
     """
-    from .exact import _is_prime_u64, _log2_bound
+    from .exact import _PRIME_CEIL, _is_prime_u64, _log2_bound
     t0 = time.perf_counter()
-    engine = "cuda_mod" if device.type == "cuda" else "plain_mod"
     n = len(core)
     fp = core_fingerprint(core)
     bits = _log2_bound(core) + 3
-    need_primes, cov, c = [], 0.0, PRIME_CEIL
+    if backend == "native":
+        from ..bindings.native import cpu_ifma
+        engine = "native_mod_crt"
+        ceil_p = ((1 << 50) - 1) if cpu_ifma() else _PRIME_CEIL
+    elif backend == "device":
+        engine = "cuda_mod" if device.type == "cuda" else "plain_mod"
+        ceil_p = PRIME_CEIL
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    need_primes, cov, c = [], 0.0, ceil_p
     while cov < bits or not need_primes:
         while not _is_prime_u64(c):
             c -= 2
@@ -354,12 +370,31 @@ def crt_perman_core(core, device: torch.device, *, log=None,
         work = [[core[i][j] for j in col_perm] for i in range(n)]
     else:
         work, ids, r, live_frac = core, None, None, 1.0
+    if backend == "native":
+        from ..bindings.native import perman_mod_batch, perman_mod_pruned
+
+        def residue(p):
+            am = np.asarray([[int(v) % p for v in row] for row in work],
+                            dtype=np.uint64)
+            if ids is not None:
+                return perman_mod_pruned(am, p, ids, r, threads)
+            if n >= 10:
+                # the dense index space as 64 chunks: the chunked walk
+                # runs on the IFMA lanes and over the host's threads, the
+                # one-shot batch walk does neither
+                return perman_mod_pruned(am, p, np.arange(64, dtype=np.int64),
+                                         n - 1 - 6, threads)
+            return int(perman_mod_batch(am[None], np.asarray([p], np.uint64),
+                                        threads)[0])
+    else:
+        def residue(p):
+            return perman_core_mod(work, p, device, ids=ids, r=r)
     residues = []
     for i, p in enumerate(need_primes + [verifier]):
         if p in known:
             residues.append(known[p])
             continue
-        residues.append(perman_core_mod(work, p, device, ids=ids, r=r))
+        residues.append(residue(p))
         if checkpoint_path:
             with open(checkpoint_path, "a") as f:
                 f.write(json.dumps({"p": p, "res": residues[-1],

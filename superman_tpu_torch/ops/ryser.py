@@ -2,10 +2,13 @@
 sparse, tiers df64, f32, f32k, tf96 and f64; quad on the host), and the
 amplitude walk that prices those tiers for calc="auto".
 
-Port of ``superman_tpu/ops/ryser.py`` for one device.  The host side (row
-scales, sparse plan, pack, underflow retry, sign and 2^E) is the
-reference's; the walk is the CUDA kernel of ops/ryser_cuda.py, or its
-plain version when the device is the CPU.
+Port of ``superman_tpu/ops/ryser.py``.  The host side (row scales,
+sparse plan, pack, underflow retry, sign and 2^E) is the reference's; the
+walk is the CUDA kernel of ops/ryser_cuda.py, or its plain version when
+the device is the CPU, on one device or dealt over a mesh
+(parallel/sharding.py), through the hybrid scheduler with the native CPU
+engine beside the card (parallel/scheduler.py), and split over several
+processes (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -237,7 +240,7 @@ def _sm_count(device: torch.device) -> int:
 
 
 def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
-                chunk_ids: Optional[np.ndarray] = None) -> Result:
+                chunk_ids: Optional[np.ndarray] = None, mesh=None) -> Result:
     """Exact permanent of `dense` on `device`, calc "df64", "f32",
     "f32k", "tf96" or "f64"; calc "quad" walks on the host in long
     double whatever the device (single-threaded, practical up to
@@ -248,6 +251,12 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
     exists).  Without it the engine prunes by itself under flags.sparse,
     and on clearly sparse matrices (n >= 28, density < 0.30) unless
     flags.skip_pruning is False.
+
+    mesh: a parallel.mesh.Mesh to deal the walk's blocks over (the result
+    is bitwise the single-device one), or None.  flags.hybrid or
+    flags.checkpoint_path route the walk through the hybrid scheduler
+    (the CPU worker joins under flags.cpu); the tf96 tier and factored
+    rows fall back there, as in the reference.
     """
     a = np.asarray(dense.mat)
     n = a.shape[0]
@@ -285,10 +294,13 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                       meta={"calc": calc, "device": str(device)})
 
     exact_storage = _exact_storage(dense)
-    if calc == "tf96" and not exact_storage:
-        # tf96 needs x updates that are exact in f32 (the int suites); the
-        # hybrid and checkpoint routes the reference also names here are
-        # refused before this engine is reached
+    # the hybrid scheduler (and a checkpoint journal, which routes through
+    # it even without the CPU worker) journals float64 unit sums of the
+    # unweighted walk: no tf96, no factored rows
+    scheduler = bool(flags.hybrid or flags.checkpoint_path)
+    if calc == "tf96" and (not exact_storage or scheduler):
+        # tf96 needs x updates that are exact in f32 (the int suites) and
+        # the long-double reduction
         import warnings
         warnings.warn("tf96 requires exact-f32 storage and the non-hybrid "
                       "path; falling back to df64")
@@ -304,8 +316,14 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
         return Result(0.0, time.perf_counter() - t0, algo_name=name,
                       iterations=0, meta={"reason": "empty row/col"})
 
+    from ..parallel.mesh import process_info
+    from ..parallel.multihost import combine_host_totals, host_slice
     from ..parallel.sharding import compute_total, pad_ids
     sms = _sm_count(device)
+    num_shards = 1 if mesh is None else len(mesh)
+    # several processes: each walks its interleaved share of the blocks
+    # and the totals are combined (parallel/multihost.py)
+    proc_index, nprocs = process_info()
     plan = None
     factor_rows = None
     alive_rows = None
@@ -322,7 +340,8 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
         from .pruning import plan_sparse
         with trace.timer("sparse_plan"):
             sp = plan_sparse(a, chunk_log2=flags.chunk_log2,
-                             giters=K1_GITERS[calc])
+                             giters=K1_GITERS[calc],
+                             allow_factor=not scheduler)
         if sp is not None:
             a = np.ascontiguousarray(a[:, sp.col_perm])
             chunk_ids = sp.ids
@@ -341,9 +360,11 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                            "r": sp.r}
     if plan is None:
         plan = gray.make_plan(n, flags.lanes, flags.chunk_log2, sms=sms,
-                              grid_multip=int(flags.grid_multip))
+                              grid_multip=int(flags.grid_multip),
+                              min_blocks=32 if scheduler else 1)
     # a pruned list goes through the weighted, block-reduced walk, which
-    # masks its own sentinels; the dense walk keeps per-chunk partials
+    # masks its own sentinels; the dense walk keeps per-chunk partials,
+    # and so does the scheduler, on the pruned list too
     pruned = chunk_ids is not None
     if pruned:
         chunk_ids = np.asarray(chunk_ids, dtype=np.int64)
@@ -351,15 +372,18 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
         if live == 0:
             return Result(0.0, time.perf_counter() - t0, algo_name=name,
                           iterations=0, meta={"reason": "all chunks pruned"})
-        ids_blocks = chunk_ids
     else:
         live = plan.num_chunks
-        ids_blocks = pad_ids(np.arange(live, dtype=np.int64), plan.lanes)
+        chunk_ids = np.arange(live, dtype=np.int64)
+    reduced = pruned and not scheduler
+    ids_blocks = chunk_ids if reduced else pad_ids(chunk_ids, plan.lanes)
     trace.log(f"plan: n={n} n_pad={plan.n_pad} r={plan.r} "
               f"lanes={plan.lanes} chunks={live}/{plan.num_chunks} "
-              f"calc={calc} device={device}", level=2)
+              f"calc={calc} device={device} shards={num_shards} "
+              f"processes={nprocs}", level=2)
 
     scales = _center_scales(a, _row_scales(a))
+    hybrid_stats = None
     best = None                 # (total, E) of the last FINITE attempt
     shifted = 0                 # cumulative per-row downshift (log2)
     shift_cap = max(1, 100 // n)   # total growth <= 2^100 across attempts
@@ -378,14 +402,28 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                                            len(factor_rows))
                 a_pack = a_s[alive_rows]
             else:
-                if pruned:
+                if reduced:
                     factors = (np.empty(0), np.empty((n - 1, 0)))
                 a_pack = a_s
             x0, cols = gray.pack_matrix(a_pack, plan.n_pad)
         with trace.timer("walk"):
-            # a float; np.longdouble for tf96, kept until the last rounding
-            total = compute_total(ids_blocks, x0, cols, plan, device,
-                                  tier=calc, factors=factors, sms=sms)
+            if scheduler:
+                from ..parallel.scheduler import compute_partials_hybrid
+                total, hybrid_stats = compute_partials_hybrid(
+                    a_s, host_slice(ids_blocks, proc_index, nprocs), x0,
+                    cols, plan, device, tier=calc, mesh=mesh,
+                    threads=flags.threads, cpu_helper=flags.cpu,
+                    checkpoint_path=flags.checkpoint_path)
+            else:
+                # a float; np.longdouble for tf96, kept until the last
+                # rounding
+                total = compute_total(ids_blocks, x0, cols, plan, device,
+                                      tier=calc, factors=factors, sms=sms,
+                                      mesh=mesh, host=(proc_index, nprocs))
+            if nprocs > 1:
+                # one (hi, lo) pair a process; also keeps the underflow
+                # retry's decision below the same in every process
+                total = combine_host_totals(total)
         # scaled sums far below 1 may have lost underflowed terms; shift
         # the row scales to center the result near 2^0 and rerun (scaling
         # is exact, so a rerun is a pure exponent adjustment).  Shifts are
@@ -414,11 +452,23 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
     meta = {"calc": calc, "chunks": live, "r": plan.r,
             "lanes": plan.lanes, "scale_log2": E,
             "iters_per_sec": iters / dt, "device": str(device),
-            "exact_storage": exact_storage}
-    if pruned:
+            "exact_storage": exact_storage,
+            "mesh": None if mesh is None else num_shards}
+    if nprocs > 1:
+        meta["processes"] = nprocs
+    if reduced:
         # the walked list: each live chunk cut into 2^split_log2 pieces
         meta["split_log2"] = gray.split_shift(
             live, plan.r, sms * gray.SPLIT_CHUNKS_PER_SM)
     if sparse_meta is not None:
         meta["sparse"] = sparse_meta
+    if hybrid_stats is not None:
+        name = name.replace("ryser_", "ryser_hybrid_", 1)
+        meta["hybrid"] = {
+            "units": hybrid_stats.units_total,
+            "device": hybrid_stats.units_device,
+            "cpu": hybrid_stats.units_cpu,
+            "resumed": hybrid_stats.units_resumed,
+            "retries": hybrid_stats.retries,
+            "handoffs": hybrid_stats.handoffs}
     return Result(p, dt, algo_name=name, iterations=iters, meta=meta)

@@ -1,22 +1,35 @@
-"""Chunk-id layout and the single-device partial-sum launch.
+"""Chunk-id layout and the partial-sum launch, on one device or a mesh.
 
-Port of the single-device branch of ``superman_tpu/parallel/sharding.py``.
-Every chunk costs exactly 2^r Gray steps, so an equal split is balanced by
-construction; the final, exactness-critical reduction happens on the host
-in float64, and for the tf96 tier as a double-double (tf96.sum_words).
-The sparse engine's pruned plan goes through the weighted, block-reduced
-walk (compute_total with factors).  Multi-device runs come with the rest of
-the parallel layer.
+Port of ``superman_tpu/parallel/sharding.py``.  Every chunk costs exactly
+2^r Gray steps, so an equal split is balanced by construction; the final,
+exactness-critical reduction happens on the host in float64, and for the
+tf96 tier as a double-double (tf96.sum_words).  The sparse engine's
+pruned plan goes through the weighted, block-reduced walk (compute_total
+with factors).
+
+Over a mesh (parallel/mesh.py) the blocks are dealt round-robin: entry e
+of k walks block rows e, e+k, e+2k, ... (the dense walk's (B, L) rows, or
+the reduced walk's blocks of 128 chunks), on its own device and stream.
+Every decision that shapes a block (the lane count, the split of a short
+pruned list into sub-chunks, the padding to whole blocks) is made once,
+before the blocks are dealt, and the per-chunk partials, the reduced
+blocks' pairs or the tf96 words come back into the single-device order
+before the host sums them.  The result over any mesh is therefore BITWISE
+equal to the single-device result, in every tier, dense and sparse.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ops import gray
-from ..ops.ryser_cuda import ryser_amp, ryser_partials, ryser_reduced
+from ..ops.ryser_cuda import BLOCK, ryser_amp, ryser_partials, ryser_reduced
 from ..ops.tf96 import sum_words
+from .mesh import Mesh
+from .multihost import host_slice
 
 
 def pad_ids(ids: np.ndarray, lanes: int) -> np.ndarray:
@@ -28,57 +41,115 @@ def pad_ids(ids: np.ndarray, lanes: int) -> np.ndarray:
     return padded.reshape(blocks, lanes)
 
 
+def _deal(blocks: np.ndarray, mesh: Optional[Mesh], device: torch.device,
+          launch) -> np.ndarray:
+    """Run launch(device, rows) -> (len(rows), ...) device tensor over the
+    rows of `blocks` (block rows of ids, or the indices of block rows): on
+    `device` alone, or dealt round-robin over the mesh's entries, each on
+    its own stream.  Returns the host array of the results in the rows'
+    order."""
+    if mesh is None or len(mesh) == 1:
+        dev = device if mesh is None else mesh[0]
+        return launch(dev, blocks).cpu().numpy()
+    k = len(mesh)
+    outs = []
+    for e in range(k):
+        with mesh.on(e):
+            outs.append(launch(mesh[e], blocks[e::k]))
+    # the copies back run once every entry's walk is queued, so the
+    # entries' walks overlap on a card
+    mesh.synchronize()
+    parts = []
+    for e in range(k):
+        with mesh.on(e):
+            parts.append(outs[e].cpu().numpy())
+    full = np.empty((len(blocks),) + parts[0].shape[1:], parts[0].dtype)
+    for e in range(k):
+        full[e::k] = parts[e]
+    return full
+
+
 def _walk_words(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
-                plan: gray.RyserPlan, device: torch.device,
-                tier: str) -> np.ndarray:
+                plan: gray.RyserPlan, device: torch.device, tier: str,
+                mesh: Optional[Mesh] = None) -> np.ndarray:
     """The (B * L, 2) float64 host array of the chunks' (hi, lo) words."""
-    ids = torch.as_tensor(ids_blocks.reshape(-1), dtype=torch.int64)
-    out = ryser_partials(ids.to(device),
-                         torch.as_tensor(x0, dtype=torch.float64).to(device),
-                         torch.as_tensor(cols, dtype=torch.float64).to(device),
-                         n=plan.n, r=plan.r, tier=tier)
-    return out.cpu().numpy().astype(np.float64)
+    def launch(dev, rows):
+        ids = torch.as_tensor(rows.reshape(-1), dtype=torch.int64)
+        out = ryser_partials(
+            ids.to(dev), torch.as_tensor(x0, dtype=torch.float64).to(dev),
+            torch.as_tensor(cols, dtype=torch.float64).to(dev),
+            n=plan.n, r=plan.r, tier=tier)
+        return out.reshape(rows.shape + (2,))
+
+    out = _deal(ids_blocks, mesh, device, launch)
+    return out.reshape(-1, 2).astype(np.float64)
 
 
 def compute_partials(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                      plan: gray.RyserPlan, device: torch.device,
-                     tier: str = "df64") -> np.ndarray:
-    """Walk the (B, L) chunk ids on `device` in `tier` ("df64", "f32",
-    "f32k" or "tf96") and return the per-chunk partial sums hi + lo as a
-    (B, L) host array (0 for sentinel ids): float64, and np.longdouble for
-    tf96, whose pair holds more bits than a double.
+                     tier: str = "df64", mesh: Optional[Mesh] = None
+                     ) -> np.ndarray:
+    """Walk the (B, L) chunk ids on `device`, or over `mesh`, in `tier`
+    ("df64", "f32", "f32k" or "tf96") and return the per-chunk partial
+    sums hi + lo as a (B, L) host array (0 for sentinel ids): float64, and
+    np.longdouble for tf96, whose pair holds more bits than a double.
 
     x0 (n_pad,) and cols (n-1, n_pad) are the float64 pack
     (gray.pack_matrix)."""
-    out = _walk_words(ids_blocks, x0, cols, plan, device, tier)
+    out = _walk_words(ids_blocks, x0, cols, plan, device, tier, mesh)
     if tier == "tf96":
         out = out.astype(np.longdouble)
     return (out[:, 0] + out[:, 1]).reshape(ids_blocks.shape)
 
 
+def split_rows(live: torch.Tensor, shift: int, rows: torch.Tensor
+               ) -> torch.Tensor:
+    """The chunk ids of block rows `rows` of a pruned list split for the
+    reduced walk: each live chunk cut into 2^shift aligned sub-chunks
+    (what gray.split_chunks gives, in its order), the list padded with -1
+    to whole blocks of BLOCK, row b holding its entries BLOCK*b ..
+    BLOCK*(b+1)-1.  Made on the device of `live` from the live list alone,
+    so that no split list crosses to the card.  live: (C,) int64; rows:
+    1-D int64 on the same device.  Returns (len(rows) * BLOCK,) int64."""
+    q = rows[:, None] * BLOCK + torch.arange(BLOCK, device=live.device)
+    valid = q < live.numel() << shift
+    q = torch.where(valid, q, 0)
+    ids = (live[q >> shift] << shift) | (q & ((1 << shift) - 1))
+    return torch.where(valid, ids, -1).reshape(-1)
+
+
 def _reduced_words(ids: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                    factors, plan: gray.RyserPlan, device: torch.device,
-                   tier: str, sms: int):
+                   tier: str, want: int, mesh: Optional[Mesh] = None,
+                   host: tuple = (0, 1)) -> np.ndarray:
     """The (blocks, 2) float64 host array of the block pairs of a pruned,
-    factored walk.  A list of fewer live chunks than the card has thread
-    slots is split into aligned sub-chunks first (gray.split_chunks), on
-    the device."""
-    def dev(v):
-        return torch.as_tensor(v, dtype=torch.float64).to(device)
-
-    ids_t, r = gray.split_chunks(
-        torch.as_tensor(ids, dtype=torch.int64).to(device), plan.r,
-        sms * gray.SPLIT_CHUNKS_PER_SM)
+    factored walk of the live ids, split to at least `want` chunks
+    (gray.split_shift): this process's share of the blocks
+    (multihost.host_slice), in their order."""
+    shift = gray.split_shift(len(ids), plan.r, want)
+    nblocks = -(-(len(ids) << shift) // BLOCK)
+    rows = host_slice(np.arange(nblocks, dtype=np.int64), *host)
+    if not len(rows):
+        return np.zeros((0, 2))
     fx0, fcols = factors
-    out = ryser_reduced(ids_t, dev(x0), dev(cols), dev(fx0),
-                        dev(fcols).contiguous(), n=plan.n, r=r, tier=tier)
-    return out.cpu().numpy()
+
+    def launch(dev, rows_e):
+        def on(v):
+            return torch.as_tensor(v).to(dev)
+
+        split = split_rows(on(ids), shift, on(rows_e))
+        return ryser_reduced(split, on(x0), on(cols), on(fx0),
+                             on(fcols).contiguous(), n=plan.n,
+                             r=plan.r - shift, tier=tier)
+
+    return _deal(rows, mesh, device, launch)
 
 
 def compute_total(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                   plan: gray.RyserPlan, device: torch.device,
                   tier: str = "df64", factors=None,
-                  sms: int = gray.DEFAULT_SMS):
+                  sms: int = gray.DEFAULT_SMS, mesh: Optional[Mesh] = None,
+                  host: tuple = (0, 1)):
     """The scaled total of the walk: the sum of compute_partials over all
     chunks, a float, or for tf96 an np.longdouble summed from the words
     (tf96.sum_words: pairwise as double-doubles).
@@ -86,18 +157,30 @@ def compute_total(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
     factors: None for the dense walk.  For the sparse engine's pruned
     plan, the (fx0, fcols) pack of the factored rows ((0,) and (n-1, 0)
     when no row is factored): ids_blocks is then the 1-D list of live
-    chunk ids, x0 and cols are the alive rows' pack, the walk goes
-    through ryser_reduced, split to fill `sms` SMs."""
+    chunk ids, x0 and cols are the alive rows' pack, and the walk goes
+    through ryser_reduced, the list split to fill `sms` SMs.
+    mesh: deal the blocks over these entries (bitwise the same total).
+    host: (index, count) of this process; it walks its interleaved share
+    of the blocks (multihost.host_slice) and returns its part of the
+    total."""
+    zero = np.longdouble(0.0) if tier == "tf96" else 0.0
     if factors is not None:
-        words = _reduced_words(ids_blocks, x0, cols, factors, plan, device,
-                               tier, sms)
+        words = _reduced_words(np.asarray(ids_blocks, dtype=np.int64), x0,
+                               cols, factors, plan, device, tier,
+                               sms * gray.SPLIT_CHUNKS_PER_SM, mesh, host)
+        if not len(words):
+            return zero
         if tier == "tf96":
             return sum_words(words)
         return float(words.sum(axis=1).sum(dtype=np.float64))
+    ids_blocks = host_slice(ids_blocks, *host)
+    if not len(ids_blocks):
+        return zero
     if tier == "tf96":
-        return sum_words(_walk_words(ids_blocks, x0, cols, plan, device, tier))
-    return float(compute_partials(ids_blocks, x0, cols, plan, device,
-                                  tier).sum(dtype=np.float64))
+        return sum_words(_walk_words(ids_blocks, x0, cols, plan, device,
+                                     tier, mesh))
+    return float(compute_partials(ids_blocks, x0, cols, plan, device, tier,
+                                  mesh).sum(dtype=np.float64))
 
 
 def compute_amp(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,

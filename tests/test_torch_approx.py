@@ -351,5 +351,25 @@ def test_float32_products_stay_full_precision():
     ({"hybrid": True}, 12), ({"perman_algo": "3"}, 12),
     ({"mesh_shape": (2,)}, 11)])
 def test_unported_estimator_paths_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        spt.permanent(_binary(1), approximation=True, device="cpu", **flags)
+    """The lifted estimator paths run (the name is kept from when they
+    raised).  The estimator paths that ROADMAP item 11 or 12 refused until they
+    were ported now run: the hybrid flag (with the CPU trial worker under
+    cpu=True), the Rasmussen hybrid-chunks id "3" (a mesh of gpu_num
+    entries and the hybrid flag) and a mesh of 2 "cpu" entries; each
+    within 4 stderr of the exact permanent, with exactly the trials asked
+    for, and the mesh run deterministic for its seed."""
+    a = _binary(1)
+    want = float(perman_brute(a))
+    for cpu in (False, True):
+        got = spt.permanent(a, approximation=True, device="cpu",
+                            number_of_times=100000, threads=2, cpu=cpu,
+                            seed=item, **flags)
+        assert got.meta["trials"] == got.iterations == 100000
+        assert abs(got.permanent - want) <= SIGMAS * got.meta["stderr"]
+        hybrid = cpu and (flags.get("hybrid") or flags.get("perman_algo"))
+        assert got.algo_name.endswith("_hybrid") == bool(hybrid)
+        assert (got.meta["cpu_trials"] > 0) == bool(hybrid)
+    if not hybrid:
+        again = spt.permanent(a, approximation=True, device="cpu",
+                              number_of_times=100000, seed=item, **flags)
+        assert again.permanent == got.permanent

@@ -129,8 +129,9 @@ def test_engine_selection():
     got, meta = exact.perman_exact_fraction(a, CPU, engine="host")
     assert got == want and meta["engine"] == "host_mod"
     assert exact.perman_exact_fraction(a, CPU, engine="device")[0] == want
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        exact.perman_exact_fraction(a, CPU, engine="native")
+    got, meta = exact.perman_exact_fraction(a, CPU, engine="native",
+                                            threads=2)
+    assert got == want and meta["engine"] == "native_mod"
     with pytest.raises(ValueError, match="unknown exact engine"):
         exact.perman_exact_fraction(a, CPU, engine="tpu")
     big = random_int_matrix(np.random.default_rng(17), 17, 0.9)
@@ -151,16 +152,24 @@ def test_exact_routes_before_the_guards(flags):
 
 
 def test_exact_with_approximation_still_raises():
-    """approximation=True wins over calc="exact", as in the JAX package:
-    the estimator runs (not the exact engine), and what the estimators
-    still lack, the hybrid CPU trial worker, is refused by name."""
+    """calc="exact" with approximation=True runs the estimator (the name
+    is kept from when that pair raised).  approximation=True wins over calc="exact", as in the JAX package:
+    the estimator runs (not the exact engine), with hybrid=True too, where
+    the estimators' hybrid CPU trial worker (cpu=True) takes its trials
+    from the same budget."""
     res = spt.permanent(_matrix("int8"), calc="exact", approximation=True,
                         number_of_times=1000, device="cpu")
     assert res.algo_name == "approx_scaling"
     assert "exact_fraction" not in res.meta
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        spt.permanent(_matrix("int8"), calc="exact", approximation=True,
-                      hybrid=True, device="cpu")
+    want = float(exact.perman_exact_fraction(_matrix("int8"), CPU)[0])
+    for cpu in (False, True):
+        hyb = spt.permanent(_matrix("int8"), calc="exact",
+                            approximation=True, hybrid=True, cpu=cpu,
+                            number_of_times=60000, threads=2, device="cpu")
+        assert hyb.algo_name == "approx_scaling" + ("_hybrid" if cpu else "")
+        assert "exact_fraction" not in hyb.meta
+        assert hyb.meta["trials"] == 60000
+        assert abs(hyb.permanent - want) <= 4 * hyb.meta["stderr"]
 
 
 def test_exact_without_cuda_raises(monkeypatch):

@@ -9,6 +9,7 @@ tests run it (Pallas in interpret mode).
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -157,7 +158,7 @@ def test_auto_sparse_gate_engages(monkeypatch):
     seen = []
 
     def half(ids_blocks, x0, cols, plan, device, tier="df64", factors=None,
-             sms=0):
+             sms=0, mesh=None, host=(0, 1)):
         seen.append((ids_blocks, x0, factors, plan))
         return 0.5
 
@@ -209,46 +210,100 @@ def test_device_none_without_cuda_raises(monkeypatch):
     {"dm_prune": True, "cpu": True, "gpu": False},
     {"rectangular": True, "checkpoint_path": "journal"},
 ])
-def test_unported_features_raise(flags):
-    """What is still refused by name (ROADMAP items 11 and 12), also under
-    the drivers, the estimators and rectangular input, which run now."""
+def test_unported_features_raise(flags, tmp_path):
+    """The lifted features match the JAX package (the name is kept from
+    when these flags raised).  What ROADMAP items 11 and 12 refused by name until they were
+    ported (several devices, the hybrid scheduler and its journal, the
+    native CPU engine, the estimators' hybrid and sharded batches), also
+    under the drivers, the estimators and rectangular input: each set of
+    flags now runs on device="cpu" and agrees with sp.permanent on the
+    same flags, the exact engines within 1e-10 (the card's df64 walk
+    against the JAX package's f32-pair walk) or, where both take the
+    native engine, 1e-12; the estimators within 4 combined stderr."""
     a = random_int_matrix(np.random.default_rng(2), 20, 0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        spt.permanent(a, device="cpu", **flags)
+    kw = dict(flags)
+    if "checkpoint_path" in kw:
+        kw["checkpoint_path"] = str(tmp_path / "port.jsonl")
+    jkw = dict(kw, checkpoint_path=str(tmp_path / "jax.jsonl")) \
+        if "checkpoint_path" in kw else dict(kw)
+    if flags.get("approximation"):
+        kw["number_of_times"] = jkw["number_of_times"] = 20000
+    else:
+        kw["chunk_log2"] = jkw["chunk_log2"] = 6
+    with warnings.catch_warnings():
+        # calc="tf96" under the scheduler falls back to df64, with a
+        # warning, in both packages
+        warnings.simplefilter("ignore")
+        got = spt.permanent(a, device="cpu", threads=2, **kw)
+        want = sp.permanent(a, threads=2, **jkw)
+    if flags.get("approximation"):
+        sig = np.hypot(got.meta["stderr"], want.meta["stderr"])
+        assert abs(got.permanent - want.permanent) <= 4 * sig
+        assert got.meta["trials"] == want.meta["trials"] == 20000
+        return
+    native = flags.get("cpu") and not flags.get("gpu", True)
+    assert got.permanent == pytest.approx(want.permanent,
+                                          rel=1e-12 if native else 1e-10)
+    if native:
+        assert got.algo_name == want.algo_name
+        assert got.algo_name.startswith("cpu_")
+    if flags.get("hybrid") or flags.get("checkpoint_path"):
+        assert "hybrid" in got.algo_name and got.meta["hybrid"]["units"] >= 1
+    if "mesh_shape" in flags or flags.get("perman_algo") == "5":
+        assert got.meta["mesh"] == 2
 
 
 @pytest.mark.parametrize("algo", ["ryser", "glynn"])
 @pytest.mark.parametrize("kind,n", [("int", 8), ("int", 12), ("real", 12),
                                     ("int", 20)])
 def test_quad_is_the_host_long_double_walk(algo, kind, n):
-    """calc="quad" walks on the host in long double, as the JAX package
-    serves it without its native library: the exact integer at n <= 12
-    (perman_brute), and within 1e-15 of sp.permanent(calc="quad") (the
-    reference's native __float128 engine where it is built, its own host
-    walk otherwise), under Ryser and Glynn, whatever the device."""
+    """calc="quad" routes to the native engine (the name is kept from
+    when quad was the host long-double walk, which now runs only on
+    long-double storage: see the test after next).  calc="quad" runs the native engine's parallel __float128 walk, as
+    the JAX package routes it (whatever perman_algo, the algorithm name is
+    the native route's "cpu_ryser_quad"): the exact integer at n <= 12
+    (perman_brute), and within 1e-15 of sp.permanent(calc="quad")."""
     rng = np.random.default_rng(100 + n)
     a = (rng.integers(0, 5, (n, n)) if kind == "int"
          else rng.uniform(-1, 1, (n, n)))
     kw = {"perman_algo": "glynn"} if algo == "glynn" else {}
-    got = spt.permanent(a, calc="quad", device="cpu", **kw)
-    assert got.algo_name == ("glynn_host" if algo == "glynn"
-                             else "ryser_quad_host")
+    got = spt.permanent(a, calc="quad", device="cpu", threads=2, **kw)
+    ref = sp.permanent(a, calc="quad", threads=2, **kw)
+    assert got.algo_name == ref.algo_name == "cpu_ryser_quad"
     assert got.iterations == 1 << (n - 1)
     if kind == "int" and n <= 12:
         assert got.permanent == float(perman_brute(a))
-    ref = sp.permanent(a, calc="quad", **kw)
     assert got.permanent == pytest.approx(ref.permanent, rel=1e-15)
 
 
 def test_quad_under_sparse_flags_names_sparyser():
-    """sparse=True hands the quad walk the preprocessed matrix and names
-    the result sparyser, as in the reference."""
+    """sparse=True hands the native quad walk the preprocessed matrix and
+    names the result as the JAX package does: the SkipPer walk under
+    preprocessing=2."""
     a = random_int_matrix(np.random.default_rng(11), 11, 0.4)
     np.fill_diagonal(a, 1)
     got = spt.permanent(a, calc="quad", sparse=True, preprocessing=2,
-                        device="cpu")
-    assert got.algo_name == "sparyser_quad_host"
+                        device="cpu", threads=2)
+    ref = sp.permanent(a, calc="quad", sparse=True, preprocessing=2,
+                       threads=2)
+    assert got.algo_name == ref.algo_name == "cpu_skipper_quad"
     assert got.permanent == float(perman_brute(a))
+    got = spt.permanent(a, calc="quad", sparse=True, device="cpu",
+                        threads=2)
+    assert got.algo_name == "cpu_sparyser_quad"
+    assert got.permanent == float(perman_brute(a))
+
+
+def test_quad_on_long_double_storage_walks_on_the_host():
+    """Long-double storage that is not exact in float64 stays off the
+    native engine (its ABI takes float64): the host long-double walk
+    keeps the storage bits, as in the JAX package."""
+    rng = np.random.default_rng(12)
+    a = rng.uniform(-1, 1, (12, 12)).astype(np.longdouble) / 3
+    assert not np.all(a.astype(np.float64).astype(np.longdouble) == a)
+    got = spt.permanent(a, calc="quad", device="cpu")
+    assert got.algo_name == "ryser_quad_host"
+    assert got.permanent == float(perman64(a, dtype=np.longdouble))
 
 
 @pytest.mark.parametrize("flags,algo", [
