@@ -27,26 +27,33 @@ stderr is informative (a diagonally dominant signed n=24 matrix under
 Rademacher draws, the same form at n=6 under Gaussian draws) and its
 trial against float64 on the same draws, and grid_permanent's
 SMC estimate of the 36 x 36 grid (n=648) against the Kasteleyn closed
-form, with the scale-interval selector on the 16 x 16 grid.  Last the
-host layer (host_layer_phases): the native CPU engine, built from this
+form, with the scale-interval selector on the 16 x 16 grid (both through
+tools/smc_flagship.py).  Then the host layer (host_layer_phases): the
+native CPU engine, built from this
 checkout, at n=32 (its double walk, its exact CRT pipeline) and its Z_p
 walk against K3; ryser_exact and glynn_exact over a mesh of 4 streams of
 the card, bitwise against one device in every tier and on the sparse
 n=36 matrix; the hybrid scheduler (card and native engine) with a
 journal and a resumed run; two processes joined over gloo on the card;
-Rasmussen over 2 streams, twice, and with the native trial worker.  It
-checks their values, times kernels and plain versions, and prints:
+Rasmussen over 2 streams, twice, and with the native trial worker.  Last
+the tools (tools_phase), each through its function on the seeded corpus
+of tools/corpus.py: the fuzzer's 40 trials at seed 0, the accuracy sweep
+at n=30, suite_check at n=30 and 32, sparse_report at n=32, modp_rate at
+n=32, scaling_measure at n=30 and 32, exact_known (a row declined by the
+budget and certified by a merge, the native reverify, K3 under Glynn)
+and real_suite --quick.  It checks their values, times kernels and plain
+versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
     path (the counts are set to 0 before every path and read after it;
     `driver_launches` holds them on the driver paths, `mesh_launches`,
     `mesh_glynn_launches`, `hybrid_launches` and `multihost_launches`
-    on the host layer's),
+    on the host layer's, `tools_launches` over the tools' phase),
     its largest difference from the plain version, both times, and its
     bound: the least time the card could take for the same work, the
     larger of bytes moved over the memory rate and operations over the
-    peak rate of their type (PEAK below); with the walks' registers at
+    peak rate of their type (kernel_time.PEAK); with the walks' registers at
     their path's N_PAD (cuobjdump -res-usage of the library) and every
     timed kernel's SM clock, sampled (nvidia-smi clocks.sm) while more of
     its launches run;
@@ -66,8 +73,9 @@ from fractions import Fraction
 
 import numpy as np
 
-from superman_tpu_torch.tools.kernel_time import (random_int_matrix, smi,
-                                                sparse_int_matrix)
+from superman_tpu_torch.tools import modp_rate, smc_flagship
+from superman_tpu_torch.tools.kernel_time import (PEAK, random_int_matrix,
+                                                smi, sparse_int_matrix)
 
 SEED = 32
 #: per(A) of random_int_matrix(np.random.default_rng(32), 32, 0.5), the
@@ -107,16 +115,11 @@ SPARSE_TOL = {"df64": 1e-9, "f32": F32_TOL, "f32k": F32K_TOL, "tf96": 1e-13}
 #: operations of the amp walk's TwoSum accumulator: 6 adds and the add
 #: that gathers the compensation
 AMP_ACC_OPS = 7
-#: peak rates of one H100 SXM.  Memory (3.35 TB/s) and float32 (67
-#: TFLOP/s, a fused multiply-add counted as two) are NVIDIA's data-sheet
-#: figures; float64 outside the tensor cores runs on 64 of an SM's 128
-#: lanes, half the float32 rate; int32 has 64 lanes an SM too and one
-#: operation an instruction, a quarter of it.  `bound_ms` divides by
-#: these.  No multiply or add of a Ryser walk can fuse (x += +-col is an
-#: add, the product tree is multiplies, the accumulators are adds), so
-#: its operations issue at best at half the floating-point peaks:
+#: `bound_ms` divides by the card's peak rates (kernel_time.PEAK).  No
+#: multiply or add of a Ryser walk can fuse (x += +-col is an add, the
+#: product tree is multiplies, the accumulators are adds), so its
+#: operations issue at best at half the floating-point peaks:
 #: `issue_bound_ms` of the walk kernels divides by FMA_SLOTS of them
-PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 33.5e12, "int32": 16.75e12}
 FMA_SLOTS = 0.5
 #: operations of the tier's accumulator per term, counted whole as the
 #: tier defines it (TwoSum is 6).  One add is what no accumulator could
@@ -149,15 +152,11 @@ DRIVER_TOL = 1e-9
 #: permanents lose more than DRIVER_TOL in df64, but a wrong core walk or
 #: a wrong sum of the cores is off by far more than this
 PIPELINE_TOL = 1e-6
-#: an estimate against the exact value, in its own reported stderr; the
-#: SMC log2 estimate against the Kasteleyn count in sigma_log2 =
-#: stderr_rel / ln 2 (as superman_tpu/tools/smc_flagship.py computes z)
+#: an estimate against the exact value, in its own reported stderr
 EST_SIGMAS = 4.0
-GRID_Z = 3.0
 #: the Gurvits cases built to be informative must also reach a
 #: stderr/exact below this, so that EST_SIGMAS stderr is a real limit
 GURVITS_INFO = 0.1
-#: the grid flagship: the reference's default grid (-i -m 36 -n 36)
 #: the native engine's double walk at n=32 against the exact integer: its
 #: OpenMP threads add their partial sums in long double in another order
 #: than the JAX package's pinned run (PINNED_N32, 5.5e-13 from it)
@@ -170,7 +169,21 @@ RESUME_TOL = 1e-12
 MULTIHOST_TOL = 1e-12
 #: the mesh of streams of one card that the multi-device code runs on
 MESH_ENTRIES = 4
+#: phase 6, the tools: the fuzzer's trials at seed 0 (every one must
+#: pass); suite_check's and sparse_report's limit against the native
+#: double engine; exact_known's two budgets, the first under the card's
+#: price of the seeded corpus's B2 file (its core of 36, ~3.7 s) so that
+#: it declines, the second over it so that --merge certifies it (the C
+#: file, n=60 dense, declines at both); the native engine's price above
+#: which --reverify skips a row
+FUZZ_TRIALS = 40
+SUITE_TOL = 1e-8
+KNOWN_BUDGETS = (1.0, 600.0)
+REVERIFY_BUDGET_S = 60.0
 
+#: the grid flagship, the reference's default grid (-i -m 36 -n 36): the
+#: SMC log2 estimate against the Kasteleyn count within
+#: smc_flagship.Z_LIMIT = 3 of sigma_log2 = stderr_rel / ln 2
 FLAGSHIP = dict(approximation=True, perman_algo="scaling", smc=1,
                 number_of_times=32768, seed=11)
 
@@ -770,6 +783,170 @@ def host_layer_phases(dev, a32, a36, bin32, zero_counts,
     return out
 
 
+def tools_phase(dev, zero_counts) -> dict:
+    """Phase 6: the tools of superman_tpu_torch/tools on the card, each
+    through its own function, on the seeded corpus of tools/corpus.py in a
+    temporary directory; each limit raises.  Returns the walls, what the
+    tools measured and the launches of every kernel over the phase."""
+    import os
+    import tempfile
+
+    from superman_tpu_torch.ops import modp_cuda, ryser_cuda
+    from superman_tpu_torch.tools import (accuracy, corpus, exact_known,
+                                          fuzz, real_suite, scaling_measure,
+                                          sparse_report, suite_check)
+
+    out = {"walls": {}}
+    walls = out["walls"]
+
+    def log(s):
+        print(f"  {s}", flush=True)
+
+    def timed(tag, fn):
+        t = time.perf_counter()
+        res = fn()
+        walls[tag] = time.perf_counter() - t
+        return res
+
+    def jsonl(path):
+        with open(path) as f:
+            return {d["file"]: d for d in map(json.loads, f)}
+
+    zero_counts()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 6a. the fuzzer: K1 in three tiers, the reduced entry, the amp
+        # walks and K3 under random flags, against the f64 oracle
+        fails = timed("fuzz", lambda: fuzz.run(FUZZ_TRIALS, 0, dev, log=log))
+        out["fuzz_trials_per_s"] = FUZZ_TRIALS / walls["fuzz"]
+        print(f"fuzz: {FUZZ_TRIALS - fails}/{FUZZ_TRIALS} ok at seed 0 in "
+              f"{walls['fuzz']:.2f} s ({out['fuzz_trials_per_s']:.2f} "
+              f"trials/s)")
+        if fails:
+            raise AssertionError(f"fuzz: {fails} failures")
+
+        # ---- 6b. the accuracy sweep on the seeded n=30 file
+        path30, path32 = corpus.write_int_suite(tmp, 0, ns=(30, 32),
+                                                densities=("0.50",))
+        recs, bad = timed("accuracy", lambda: accuracy.run_sweep(
+            [path30], device=dev, log=lambda s: None))
+        print("accuracy n=30: " + "; ".join(
+            f"{r['config']} {r['time']:.3f} s"
+            + (f" rel {r['rel_err']:.2e}" if "rel_err" in r else "")
+            for r in recs) + f"; {walls['accuracy']:.2f} s")
+        if bad or len(recs) != len(accuracy.SWEEP):
+            raise AssertionError(f"accuracy: {bad}")
+
+        # ---- 6c. suite_check: df64 against the native double engine
+        rows, worst = timed("suite_check", lambda: suite_check.check(
+            [path30, path32], device=dev, log=log))
+        print(f"suite_check n=30, 32 d=0.50: worst {worst:.3e} (limit "
+              f"{SUITE_TOL}); {walls['suite_check']:.2f} s")
+        if not worst <= SUITE_TOL or len(rows) != 2:
+            raise AssertionError(f"suite_check: worst {worst}")
+
+        # ---- 6d. sparse_report: the pruned walk against the dense one
+        sparse = corpus.write_int_suite(tmp, 0, ns=(32,),
+                                        densities=("0.10", "0.15"))
+        rows, worst = timed("sparse_report", lambda: sparse_report.run(
+            sparse, device=dev, log=log))
+        out["sparse_report"] = [{k: r[k] for k in (
+            "file", "rel_diff", "sparse_wall_s", "dense_wall_s", "speedup",
+            "plan")} for r in rows]
+        print(f"sparse_report n=32 d=0.10, 0.15: worst {worst:.3e} (limit "
+              f"{SUITE_TOL}); {walls['sparse_report']:.2f} s")
+        if not worst <= SUITE_TOL or len(rows) != 2:
+            raise AssertionError(f"sparse_report: worst {worst}")
+
+        # ---- 6e. modp_rate at n=32
+        out["modp_rate"] = timed("modp_rate", lambda: modp_rate.measure(
+            32, device=dev, log=log))
+        print(f"modp_rate: {json.dumps(out['modp_rate'])}")
+        if not out["modp_rate"]["value"] > 0:
+            raise AssertionError("modp_rate: no rate")
+
+        # ---- 6f. scaling_measure at n=30 and 32 (the mesh's value must
+        # be the one device's, bit for bit: the tool raises otherwise)
+        sm = timed("scaling_measure", lambda: scaling_measure.measure(
+            (30, 32), root=tmp, device=dev, log=log))
+        out["scaling"] = {
+            "overheads_s": {k: {"mesh1": c["mesh1_overhead_s"],
+                                "streams": c["streams_overhead_s"],
+                                "plain_s": c["plain"]["wall_mean"],
+                                "one_s": c["one"]["wall_mean"]}
+                            for k, c in sm["cases"].items()},
+            "efficiency_bound": sm["efficiency_bound"],
+            "sparse_layout": sm["sparse_layout"]}
+        print(f"scaling_measure: {json.dumps(out['scaling'])}")
+
+        # ---- 6g. exact_known on the seeded corpus: one row declined by
+        # the budget, then certified by --merge; --reverify on the native
+        # engine, --algo2-card (K3 under Glynn)
+        root = os.path.join(tmp, "corpus")
+        corpus.write_real_corpus(root, 0)
+        paths = corpus.corpus(root)
+        known = os.path.join(tmp, "known.jsonl")
+        report = os.path.join(tmp, "report.json")
+
+        def certify_twice():
+            failed = exact_known.certify(paths, known, KNOWN_BUDGETS[0], dev,
+                                         log=log)
+            first = {k for k, r in jsonl(known).items() if r.get("declined")}
+            failed += exact_known.certify(paths, known, KNOWN_BUDGETS[1],
+                                          dev, merge=True, log=log)
+            return failed, first
+
+        failed, first = timed("exact_known", certify_twice)
+        rows = jsonl(known)
+        certified = sorted(k for k in first if rows[k].get("engine"))
+        still = sorted(k for k, r in rows.items() if r.get("declined"))
+        bad_rev = timed("exact_known_reverify", lambda: exact_known.reverify(
+            paths, known, REVERIFY_BUDGET_S, dev, report=report, log=log))
+        bad_alg = timed("exact_known_algo2_card",
+                        lambda: exact_known.algo2_card(paths, known, dev,
+                                                       report=report,
+                                                       log=log))
+        with open(report) as f:
+            rep = json.load(f)["rows"]
+        matched = sum(bool(r.get("crt_match")) for r in rep)
+        glynn = sum(bool(r.get("glynn_card_ok")) for r in rep)
+        out["exact_known"] = {
+            "declined_then_certified": certified, "declined": still,
+            "reverify_match": matched, "algo2_card_ok": glynn,
+            "walls_s": {r["file"]: r["wall_s"] for r in rows.values()
+                        if r.get("engine")}}
+        print(f"exact_known: {json.dumps(out['exact_known'])}")
+        if failed or bad_rev or bad_alg or not certified or not matched \
+                or glynn < len(certified) or any(
+                    not r.get("glynn_card_ok") for r in rep
+                    if "glynn_card_ok" in r):
+            raise AssertionError("exact_known: a certification raised, no "
+                                 "row went from declined to certified, or "
+                                 "a check failed")
+
+        # ---- 6h. real_suite --quick, arbitrated by exact_known's rows
+        suite_out = os.path.join(tmp, "real.jsonl")
+        fails = timed("real_suite", lambda: real_suite.run_suite(
+            root, suite_out, quick=True, device=dev, known=known, log=log))
+        with open(suite_out) as f:
+            srows = [json.loads(x) for x in f]
+        classes = sorted({r["class"] for r in srows})
+        print(f"real_suite --quick: {len(srows)} rows, classes {classes}, "
+              f"{fails} FAIL; {walls['real_suite']:.2f} s")
+        if fails or not srows:
+            raise AssertionError(f"real_suite: {fails} failures")
+    walls["phase"] = time.perf_counter() - t_phase
+    out["launches"] = {
+        "k1": dict(ryser_cuda.TIER_LAUNCHES),
+        "batch": ryser_cuda.BATCH_LAUNCHES,
+        "reduced": dict(ryser_cuda.REDUCED_LAUNCHES),
+        "amp": ryser_cuda.AMP_LAUNCHES - ryser_cuda.AMP_COND_LAUNCHES,
+        "cond": ryser_cuda.AMP_COND_LAUNCHES, "modp": modp_cuda.LAUNCHES}
+    print(f"tools phase: walls (s) {json.dumps(walls)}; launches "
+          f"{json.dumps(out['launches'])}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -787,11 +964,13 @@ def main() -> int:
     def zero_counts():
         ryser_cuda.LAUNCHES = ryser_cuda.BATCH_LAUNCHES = 0
         ryser_cuda.AMP_LAUNCHES = ryser_cuda.AMP_COND_LAUNCHES = 0
-        for tier in ryser_cuda.REDUCED_LAUNCHES:
+        for tier in TIERS:
             ryser_cuda.REDUCED_LAUNCHES[tier] = 0
+            ryser_cuda.TIER_LAUNCHES[tier] = 0
         modp_cuda.LAUNCHES = 0
 
     # ---- 1. probe and build
+    t_script = time.perf_counter()
     card = smi()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1421,7 +1600,6 @@ def main() -> int:
     # engine's price on the card fits runner.CERT_BUDGET_S
     from superman_tpu_torch.drivers import runner
     from superman_tpu_torch.prep.dulmage_mendelsohn import dm_prune
-    from superman_tpu_torch.prep.gridgraph import kasteleyn_log2
     driver_launches = {"k1": {}, "reduced": {}, "modp": {}}
     walls = {}
 
@@ -1660,33 +1838,28 @@ def main() -> int:
 
     # the grid flagship: SMC on the 36 x 36 grid (n = 648) against the
     # Kasteleyn closed form; then the selector (scale_intervals=-1) on the
-    # 16 x 16 grid
-    def grid_z(res, g):
-        exact_l2 = kasteleyn_log2(g, g)
-        sig_l2 = float(res.meta["stderr_rel"]) / math.log(2.0)
-        est_l2 = float(res.meta["log2_estimate"])
-        return ((est_l2 - exact_l2) / sig_l2 if sig_l2 > 0 else math.inf,
-                est_l2, exact_l2, sig_l2)
-
+    # 16 x 16 grid; both through tools/smc_flagship.py's function
     for g, si in ((36, 2), (16, -1)):
         tag = f"grid {g}x{g} si={si}"
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = spt.grid_permanent(g, g, scale_intervals=si, **FLAGSHIP)
-        wall = time.perf_counter() - t
-        z, est_l2, exact_l2, sig_l2 = grid_z(res, g)
+        row = smc_flagship.flagship(g, FLAGSHIP["number_of_times"],
+                                    FLAGSHIP["seed"], dev,
+                                    scale_intervals=si, warmup=False)
+        wall, z = row["warm_wall_s"], row["z"]
         # the selector runs both candidates in full: twice the particles
-        run = res.meta["trials"] * (2 if si < 0 else 1)
-        estimates[tag] = {"wall_s": wall, "trials": res.meta["trials"],
+        run = row["trials"] * (2 if si < 0 else 1)
+        estimates[tag] = {"wall_s": wall, "trials": row["trials"],
                           "particles_run": run, "trials_per_s": run / wall,
-                          "z": z, "stderr_rel": res.meta["stderr_rel"]}
-        print(f"{tag} (n={g * g // 2}): log2 {est_l2:.4f} vs Kasteleyn "
-              f"{exact_l2:.4f}, sigma_log2 {sig_l2:.4f}, z {z:+.3f} (limit "
-              f"{GRID_Z}); {res.algo_name}, {res.meta['trials']} particles "
-              f"in {res.meta['populations']} populations, si "
-              f"{res.meta['scale_intervals']}, zeros {res.zeros}, "
-              f"si_auto {res.meta.get('si_auto')}; {wall:.3f} s")
-        if not abs(z) <= GRID_Z or res.algo_name != "approx_scaling_smc":
+                          "z": z, "stderr_rel": row["stderr_rel"]}
+        print(f"{tag} (n={row['n']}): log2 {row['est_log2']:.4f} vs "
+              f"Kasteleyn {row['exact_log2']:.4f}, sigma_log2 "
+              f"{row['sigma_log2']:.4f}, z {z:+.3f} (limit "
+              f"{smc_flagship.Z_LIMIT}); "
+              f"{row['algo_name']}, {row['trials']} particles in "
+              f"{row['populations']} populations, si "
+              f"{row['scale_intervals']}, zeros {row['zeros']}, si_auto "
+              f"{row['si_auto']}; {wall:.3f} s")
+        if not abs(z) <= smc_flagship.Z_LIMIT \
+                or row["algo_name"] != "approx_scaling_smc":
             raise AssertionError(f"{tag}: z {z}")
     # the flagship's device-busy share: one population of it under the
     # profiler
@@ -1816,14 +1989,20 @@ def main() -> int:
           f"{mod_plain_ms:.1f} ms")
     mod_err = max(mod_err, compare_mod(kern, plain, ids, p))
     # a Z_p step cannot avoid n modular adds (add, conditional subtract)
-    # and n-1 Montgomery products (3 multiplies, 3 more) and the sum
-    mod_bound = bound(nbytes_of(ids, mx0, mcols, kern),
-                      (1 << 31) * (2 * 32 + 6 * 31 + 2), "int32")
+    # and n-1 Montgomery products (3 multiplies, 3 more) and the sum:
+    # tools/modp_rate.py's ledger
+    mod_bound = bound(nbytes_of(ids, mx0, mcols, kern), (1 << 31)
+                      * modp_rate.ledger_ops_per_step(32)["total"], "int32")
 
     # ---- 5. the host layer: the native engine, the mesh, the hybrid
     # scheduler, several processes, the estimators' new paths
     host = host_layer_phases(dev, a32, a36, bin32, zero_counts)
     print(f"host layer walls (s): {json.dumps(host['walls'])}")
+
+    # ---- 6. the tools: fuzz, accuracy, suite_check, sparse_report,
+    # modp_rate, scaling_measure, exact_known, real_suite
+    tools = tools_phase(dev, zero_counts)
+    tl = tools["launches"]
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **more):
@@ -1850,6 +2029,7 @@ def main() -> int:
                      **({"driver_launches": driver_launches["k1"]}
                         if tier == "df64" else {}),
                      mesh_launches=host["mesh"][tier]["k1"],
+                     tools_launches=tl["k1"][tier],
                      **({"mesh_glynn_launches":
                          host["mesh"]["glynn df64"]["k1"],
                          "hybrid_launches": host["hybrid"],
@@ -1861,7 +2041,8 @@ def main() -> int:
     kernels += [entry("ryser_batch", "superman_tpu_torch/csrc/ryser_batch.cu",
                       "superman_tpu/ops/ryser_pallas.py:685",
                       k2_launches[tier], k2[tier]["err"], *k2[tier]["n24"],
-                      tier=tier, registers=regs.get(
+                      tier=tier, tools_launches=tl["batch"],
+                      registers=regs.get(
                           f"ryser_batch_kernel<24,{TIERS.index(tier)}>"),
                       clocks_sm_mhz=k2[tier]["clock"],
                       ms_n32=k2[tier]["n32"][0],
@@ -1879,6 +2060,7 @@ def main() -> int:
                       "superman_tpu/ops/ryser_pallas.py:541",
                       reduced_launches[tier], sparse36[tier]["err"],
                       *reduced[tier], tier=tier,
+                      tools_launches=tl["reduced"][tier],
                       registers=sparse36[tier]["registers"],
                       clocks_sm_mhz=clocks[f"reduced_{tier}"],
                       plain_ms_chunks=sparse36[tier]["plain_chunks"],
@@ -1894,7 +2076,8 @@ def main() -> int:
                       "superman_tpu_torch/csrc/ryser_walk.cu",
                       "superman_tpu/ops/ryser_pallas.py:541",
                       amp_launches[variant], v["err"], v["ms"], v["plain_ms"],
-                      v["bound"], variant=variant, registers=v["registers"],
+                      v["bound"], variant=variant,
+                      tools_launches=tl[variant], registers=v["registers"],
                       clocks_sm_mhz=clocks[f"amp_{variant}"],
                       plain_ms_chunks=int(sampled_ids.numel()))
                 for variant, v in amp_sampled.items()]
@@ -1902,7 +2085,12 @@ def main() -> int:
                          "superman_tpu/ops/modp.py:413", mod_launches,
                          mod_err, mod_ms, mod_plain_ms, mod_bound,
                          clocks_sm_mhz=clocks["modp"],
-                         driver_launches=driver_launches["modp"]))
+                         driver_launches=driver_launches["modp"],
+                         tools_launches=tl["modp"]))
+    total = time.perf_counter() - t_script
+    print(f"chip_smoke: {total:.1f} s from the probe to here, of it the "
+          f"tools' phase {tools['walls']['phase']:.1f} s "
+          f"({tools['walls']['phase'] / total:.1%})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

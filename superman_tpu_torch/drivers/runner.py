@@ -30,17 +30,6 @@ from ..core.matrix import DenseMatrix
 from ..core.result import Result
 from ..utils import trace
 
-#: ROADMAP.md Queue 1 items that carry what is not ported yet
-ROADMAP_ITEMS = {
-    12: "tools",
-}
-
-
-def unported(feature: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to superman_tpu_torch yet (ROADMAP.md "
-        f"Queue 1 item {item}: {ROADMAP_ITEMS[item]})")
-
 
 def run(dense: DenseMatrix, flags: Flags, device: torch.device) -> Result:
     # resolve the reference algorithm id up front (the same table as the

@@ -45,6 +45,8 @@ from .tf96 import dd_mul, tree_prod_dd
 #: kernel launches made by ryser_partials; a run reads it to show that the
 #: main path went through the kernel
 LAUNCHES = 0
+#: the same launches, per tier
+TIER_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0, "tf96": 0}
 #: kernel launches made by batch_partials
 BATCH_LAUNCHES = 0
 #: kernel launches made by ryser_reduced, per tier
@@ -168,6 +170,7 @@ def _launch(ids, x0, cols, n: int, r: int, tier: str) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"ryser_walk_{tier} launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    TIER_LAUNCHES[tier] += 1
     return out
 
 

@@ -78,6 +78,13 @@ BATCH = 256
 FACTORED = 4
 #: seconds of launches during which the clock and power are sampled
 SAMPLE_S = 1.0
+#: peak rates of one H100 SXM.  Memory (3.35 TB/s) and float32 (67
+#: TFLOP/s, a fused multiply-add counted as two) are NVIDIA's data-sheet
+#: figures; float64 outside the tensor cores runs on 64 of an SM's 128
+#: lanes, half the float32 rate; int32 has 64 lanes an SM too and one
+#: operation an instruction, a quarter of it.  chip_smoke.py's bounds
+#: and tools/modp_rate.py's share divide by these
+PEAK = {"bytes": 3.35e12, "fp32": 67e12, "fp64": 33.5e12, "int32": 16.75e12}
 
 
 def smi(query: str = "name,power.limit") -> str:
@@ -204,6 +211,26 @@ def batch_launch(tier, n, count, dev, sms):
             count << (n - 1), what)
 
 
+def time_launches(launch, reps: int, on_card: bool):
+    """(ms of each of `reps` calls of launch(), the last output): by CUDA
+    events on the card, by the host clock on the CPU."""
+    times, out = [], None
+    for _ in range(reps):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = launch()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t = time.perf_counter()
+            out = launch()
+            times.append((time.perf_counter() - t) * 1e3)
+    return times, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", default="k1", choices=tuple(TIERS))
@@ -260,22 +287,9 @@ def main(argv=None) -> int:
             launch, steps, what = reduced_launch(tier, n, dev, sms)
         else:
             launch, steps, what = batch_launch(tier, n, BATCH, dev, sms)
-        out = launch()                                    # build, warm-up
+        launch()                                          # build, warm-up
         sync()
-        times = []
-        for _ in range(args.reps):
-            if on_card:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = launch()
-                end.record()
-                sync()
-                times.append(start.elapsed_time(end))
-            else:
-                t = time.perf_counter()
-                out = launch()
-                times.append((time.perf_counter() - t) * 1e3)
+        times, out = time_launches(launch, args.reps, on_card)
         med = statistics.median(times)
         sample = {}
         if on_card:
