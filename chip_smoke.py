@@ -41,8 +41,13 @@ of tools/corpus.py: the fuzzer's 40 trials at seed 0, the accuracy sweep
 at n=30, suite_check at n=30 and 32, sparse_report at n=32, modp_rate at
 n=32, scaling_measure at n=30 and 32, exact_known (a row declined by the
 budget and certified by a merge, the native reverify, K3 under Glynn)
-and real_suite --quick.  It checks their values, times kernels and plain
-versions, and prints:
+and real_suite --quick.  Last of all the NaN switch (nan_switch_phase):
+with SUPERMAN_DEBUG_NANS set, the n=32 df64 permanent and the 256 x n=24
+batch give their bits and launches, walls beside those without it; a NaN
+x0 through every kernel entry at its path's shapes, the float64 walk and
+each estimator's trial raises FloatingPointError naming it; a NaN entry
+is a ValueError before any launch.  It checks their values, times kernels
+and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
@@ -944,6 +949,248 @@ def tools_phase(dev, zero_counts) -> dict:
         "cond": ryser_cuda.AMP_COND_LAUNCHES, "modp": modp_cuda.LAUNCHES}
     print(f"tools phase: walls (s) {json.dumps(walls)}; launches "
           f"{json.dumps(out['launches'])}")
+    return out
+
+
+def nan_switch_phase(dev, a32, a36, stack_a, card) -> dict:
+    """Phase 7, SUPERMAN_DEBUG_NANS (superman_tpu_torch/utils/debug.py) on
+    the card.  With the variable set, the n=32 df64 permanent and the
+    256 x n=24 df64 batch give the bits and the launches they give
+    without it (walls best of 3, the two settings in turns); a NaN in the
+    packed x0 of each kernel entry at its path's shapes (K1 in every
+    tier, the reduced entry on the n=36 plan in every tier, both amp
+    walks, K2 in every tier at 256 x n=24), in the float64 walk and in
+    each estimator's trial raises FloatingPointError naming it, and the
+    kernel was launched; a NaN entry given to permanent or
+    permanent_batch is a ValueError before any launch.  The environment
+    is restored in `finally`.  Returns the walls and what was checked."""
+    import os
+
+    import torch
+    import superman_tpu_torch as spt
+    from superman_tpu_torch.ops import approx, batch, gray, pruning
+    from superman_tpu_torch.ops import modp_cuda, ryser_cuda
+    from superman_tpu_torch.ops.ryser import (K1_GITERS, _center_scales,
+                                              _row_scales, _sm_count)
+    from superman_tpu_torch.ops.ryser_walk import ryser_walk
+    from superman_tpu_torch.parallel import sharding
+    from superman_tpu_torch.utils import debug
+
+    def counts():
+        """Every kernel's launch count, by kernel and tier."""
+        return {**{f"k1 {t}": n for t, n in ryser_cuda.TIER_LAUNCHES.items()},
+                **{f"reduced {t}": n
+                   for t, n in ryser_cuda.REDUCED_LAUNCHES.items()},
+                "batch": ryser_cuda.BATCH_LAUNCHES,
+                "amp": ryser_cuda.AMP_LAUNCHES,
+                "amp cond": ryser_cuda.AMP_COND_LAUNCHES,
+                "modp": modp_cuda.LAUNCHES}
+
+    def launched(before):
+        """The launches since `before` (a counts()), those not 0."""
+        return {k: n - before[k] for k, n in counts().items()
+                if n != before[k]}
+
+    def switch(on: bool):
+        if on:
+            os.environ[debug.ENV] = "1"
+        else:
+            os.environ.pop(debug.ENV, None)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    def same_with_and_without(fn, values, words):
+        """fn() three times under each setting, in turns (off first):
+        the values' bits and the launches of every run must agree.
+        Returns the walls in ms of each setting, their best, and the
+        host time in ms of the check alone on `words`, the host array
+        the path checks (median of 21)."""
+        walls = {"off_ms": [], "on_ms": []}
+        seen = set()
+        for _ in range(3):
+            for on in (False, True):
+                switch(on)
+                before = counts()
+                res, dt = wall(fn)
+                walls["on_ms" if on else "off_ms"].append(dt * 1e3)
+                seen.add(json.dumps([values(res), launched(before)]))
+        if len(seen) != 1:
+            raise AssertionError(f"the values or launches differ between "
+                                 f"runs or settings: {seen}")
+        switch(True)
+        check = []
+        for _ in range(21):
+            t = time.perf_counter()
+            debug.check_nan("words", words)
+            check.append((time.perf_counter() - t) * 1e3)
+        switch(False)
+        best = {k: min(v) for k, v in walls.items()}
+        return {"best_off_ms": best["off_ms"], "best_on_ms": best["on_ms"],
+                "overhead": best["on_ms"] / best["off_ms"] - 1, **walls,
+                "check_ms": float(np.median(check)),
+                "words": list(words.shape),
+                "launches": json.loads(seen.pop())[1]}
+
+    def raises(name, fn, kernel=None):
+        """fn() under the switch must raise FloatingPointError naming
+        `name`, after one launch of `kernel` (a key of counts()) where one
+        is given."""
+        before = counts()
+        try:
+            fn()
+        except FloatingPointError as e:
+            if not str(e).endswith(f"output of {name}"):
+                raise AssertionError(f"{name}: the message names "
+                                     f"something else: {e}") from e
+        else:
+            raise AssertionError(f"{name}: a NaN went through unreported")
+        if kernel is not None and launched(before) != {kernel: 1}:
+            raise AssertionError(f"{name}: launches {launched(before)}, "
+                                 f"not one of {kernel}")
+        return name
+
+    out = {}
+    t_phase = time.perf_counter()
+    saved = os.environ.get(debug.ENV)
+    try:
+        # ---- 7a. clean input: bits, launches and walls with and without;
+        # the check's own host time on the words each path checks (K1's
+        # words at the n=32 plan, K2's at 256 x n=24)
+        sms = _sm_count(dev)
+        plan = gray.make_plan(len(a32), sms=sms)
+        nb = stack_a.shape[1]
+        rb = gray.batch_plan(nb, len(stack_a), sms=sms)
+        out["n32_df64"] = same_with_and_without(
+            lambda: spt.permanent(a32, calc="df64", device=dev),
+            lambda res: res.permanent.hex(),
+            np.zeros((plan.num_chunks, 2)))
+        mats = list(stack_a)
+        out["batch_256_n24_df64"] = same_with_and_without(
+            lambda: spt.permanent_batch(mats, calc="df64", device=dev),
+            lambda res: [r.permanent.hex() for r in res],
+            np.zeros((len(stack_a), (1 << (nb - 1 - rb)) // 128, 2)))
+        print(f"NaN switch, clean input, bit for bit and the same launches "
+              f"with and without it (3 runs each in turns; {card}): "
+              f"{json.dumps(out)}")
+
+        # ---- 7b. a NaN x0 through each kernel entry at its path's shapes
+        switch(True)
+        checked = []
+        a_s = np.ldexp(a32.astype(np.float64),
+                       -_center_scales(a32, _row_scales(a32))[:, None])
+        x0, cols = gray.pack_matrix(a_s, plan.n_pad)
+        x0 = x0.copy()
+        x0[0] = np.nan
+        ids = sharding.pad_ids(np.arange(plan.num_chunks), plan.lanes)
+        for tier in TIERS:
+            checked.append(raises(
+                f"ryser_walk_{tier}",
+                lambda: sharding.compute_partials(ids, x0, cols, plan, dev,
+                                                  tier), f"k1 {tier}"))
+        checked.append(raises(
+            "ryser_walk_amp",
+            lambda: sharding.compute_amp(ids, x0, cols, plan, dev, False),
+            "amp"))
+        before = counts()
+        checked.append(raises(
+            "ryser_walk_amp_cond",
+            lambda: sharding.compute_amp(ids, x0, cols, plan, dev, True)))
+        if launched(before) != {"amp": 1, "amp cond": 1}:
+            raise AssertionError(f"ryser_walk_amp_cond: launches "
+                                 f"{launched(before)}")
+        for tier in TIERS:
+            sp36 = pruning.plan_sparse(a36, giters=K1_GITERS[tier])
+            ap = np.ascontiguousarray(a36[:, sp36.col_perm]).astype(
+                np.float64)
+            ap_s = np.ldexp(ap, -_center_scales(ap, _row_scales(ap))[:, None])
+            rx0, rcols = gray.pack_matrix(ap_s[sp36.alive_rows],
+                                          gray.pad_n(len(sp36.alive_rows)))
+            rx0 = rx0.copy()
+            rx0[0] = np.nan
+            factors = gray.pack_matrix(ap_s[sp36.factor_rows],
+                                       len(sp36.factor_rows))
+            rplan = gray.RyserPlan(n=len(a36), n_pad=len(rx0), r=sp36.r,
+                                   lanes=512,
+                                   num_chunks=1 << (len(a36) - 1 - sp36.r))
+            checked.append(raises(
+                f"ryser_walk_reduced ({tier})",
+                lambda: sharding.compute_total(
+                    sp36.ids, rx0, rcols, rplan, dev, tier, factors=factors,
+                    sms=sms), f"reduced {tier}"))
+        x0p, colsT, _, _ = batch.pack_stack(np.asarray(stack_a, np.float64))
+        x0p[len(x0p) // 2, 0] = np.nan
+        for tier in TIERS:
+            checked.append(raises(
+                f"ryser_batch ({tier})",
+                lambda: batch.walk_stack(x0p, colsT, n=nb, r=rb, calc=tier,
+                                         device=dev), "batch"))
+        # the float64 walk at the n < 19 route's widest order
+        a18 = random_int_matrix(np.random.default_rng(18), 18, 0.5).astype(
+            np.float64)
+        a18[4, 7] = np.nan
+        checked.append(raises("walk_lanes (float64)",
+                              lambda: ryser_walk(a18, dev)))
+        # the estimators' trials at the shapes of the phases that run them:
+        # a batch of 2^14 (Rasmussen, scaling) or 2^13 (Gurvits) trials at
+        # n=32 and n=24, one SMC population of 4096 at n=64; row 3 NaN
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+
+        def nan_mats(n):
+            a = (np.random.default_rng(n).random((n, n)) < 0.5) + np.eye(n)
+            a[3] = np.nan
+            return approx._device_matrices(a, dev)
+
+        m32, m24, m64 = nan_mats(32), nan_mats(24), nan_mats(64)
+        nz = m32[2].clone()
+        nz[3] = float("nan")
+        checked.append(raises("_rasmussen_trial",
+                              lambda: approx._rasmussen_trial(nz, 1 << 14,
+                                                              gen)))
+        checked.append(raises("_gurvits_trial", lambda: approx._gurvits_trial(
+            m24[0], torch.randn(1 << 13, 24, generator=gen, device=dev))))
+        checked.append(raises("_scaling_trial", lambda: approx._scaling_trial(
+            *m32, 1 << 14, gen, 4, 5)))
+        ones = torch.ones(64, device=dev)
+        checked.append(raises("_smc_population",
+                              lambda: approx._smc_population(
+                                  *m64, ones, ones, gen, scale_intervals=2,
+                                  scale_times=5, B=4096)))
+        out["raised"] = checked
+        print(f"NaN switch, a NaN below the API: FloatingPointError from "
+              f"each of {len(checked)} entries, naming it: {checked}")
+
+        # ---- 7c. a NaN entry of the input: refused before any launch
+        bad = a32.astype(np.float64)
+        bad[5, 9] = np.nan
+        before = counts()
+        for call in (lambda: spt.permanent(bad, device=dev),
+                     lambda: spt.permanent_batch(mats[:3] + [bad],
+                                                 device=dev)):
+            try:
+                call()
+            except ValueError as e:
+                if "entry (5, 9) is nan" not in str(e):
+                    raise AssertionError(f"the ValueError says: {e}") from e
+            else:
+                raise AssertionError("a NaN entry was not refused")
+        if launched(before):
+            raise AssertionError(f"a refused input launched "
+                                 f"{launched(before)}")
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"NaN switch: a NaN entry given to permanent and "
+              f"permanent_batch is a ValueError, 0 launches; phase "
+              f"{out['phase_s']:.1f} s")
+    finally:
+        if saved is None:
+            os.environ.pop(debug.ENV, None)
+        else:
+            os.environ[debug.ENV] = saved
     return out
 
 
@@ -2004,6 +2251,9 @@ def main() -> int:
     tools = tools_phase(dev, zero_counts)
     tl = tools["launches"]
 
+    # ---- 7. the NaN switch (SUPERMAN_DEBUG_NANS)
+    nans = nan_switch_phase(dev, a32, a36, stack_a, card)
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **more):
         return {"name": name, "route": "cuda", "source": source,
@@ -2090,7 +2340,8 @@ def main() -> int:
     total = time.perf_counter() - t_script
     print(f"chip_smoke: {total:.1f} s from the probe to here, of it the "
           f"tools' phase {tools['walls']['phase']:.1f} s "
-          f"({tools['walls']['phase'] / total:.1%})")
+          f"({tools['walls']['phase'] / total:.1%}), the NaN switch's "
+          f"{nans['phase_s']:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

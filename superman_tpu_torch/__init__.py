@@ -19,16 +19,24 @@ permanents, and the Monte-Carlo estimators, grid graphs included.
     spt.permanent(a, compression=True)            # folded core, certified
     spt.permanent(a, approximation=True)          # an estimate and stderr
     spt.grid_permanent(8, 8)          # perfect matchings of the 8x8 grid
+
+A NaN or infinite entry is refused with a ValueError before any walk.
+SUPERMAN_DEBUG_NANS=1 in the environment, read at every call
+(utils/debug.py), makes a NaN in the output of a walk or an estimator's
+trial raise FloatingPointError, as the reference's jax_debug_nans does.
 """
 
 from .core.flags import Flags
 from .core.result import Result
-from .core.matrix import DenseMatrix
-from .io.triplet import read_triplet
-from .io.matrixmarket import read_any
+from .core.matrix import DenseMatrix, SparseMatrix, matrix2compressed
+from .io.triplet import read_triplet, write_triplet
+from .io.matrixmarket import read_matrix_market, read_any
 from .api import grid_permanent, permanent, permanent_batch
 
 __version__ = "0.1.0"
 
-__all__ = ["Flags", "Result", "DenseMatrix", "read_triplet", "read_any",
-           "permanent", "permanent_batch", "grid_permanent"]
+__all__ = [
+    "Flags", "Result", "DenseMatrix", "SparseMatrix", "matrix2compressed",
+    "read_triplet", "write_triplet", "read_matrix_market", "read_any",
+    "permanent", "permanent_batch", "grid_permanent",
+]

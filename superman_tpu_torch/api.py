@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .core.flags import Flags
-from .core.matrix import DenseMatrix, SparseMatrix
+from .core.matrix import DenseMatrix, SparseMatrix, require_finite
 from .core.result import Result
 from .drivers.runner import run
 from .utils import trace
@@ -142,6 +142,8 @@ def _as_dense(m, flags: Flags
     if dm.mat.ndim != 2 or (dm.mat.shape[0] != dm.mat.shape[1]
                             and not flags.rectangular):
         raise ValueError("matrix must be square")
+    # before the binarization, which would turn a NaN into a 1
+    require_finite(dm.mat)
     if flags.binary_graph:
         dm = dm.binarized()
     dm, rect = _pad_rect(dm, flags)

@@ -21,7 +21,7 @@ import time
 
 import numpy as np
 
-from ..core.matrix import DenseMatrix
+from ..core.matrix import DenseMatrix, require_finite
 from ..core.result import Result
 
 
@@ -136,7 +136,11 @@ def perman_glynn_mod(am: np.ndarray, p: int, r: int = None,
 
 def read_calculate_return(filename: str, algorithm: int, nt: int = 16,
                           x: int = 100000, y: int = 4, z: int = 5) -> float:
-    """Reference superPython entry point (superPython.py:21-29)."""
+    """Reference superPython entry point (superPython.py:21-29).  The
+    file is read here first and refused, as `permanent` refuses it, if an
+    entry is NaN or infinite."""
+    from ..io.triplet import read_triplet
+    require_finite(read_triplet(filename).mat, filename)
     return float(load().read_calculate_return(
         filename.encode(), algorithm, nt, x, y, z))
 

@@ -43,6 +43,22 @@ class DenseMatrix:
         return DenseMatrix((self.mat != 0).astype(self.mat.dtype), self.type)
 
 
+def require_finite(a: np.ndarray, what: str = "matrix") -> None:
+    """Raise ValueError naming the first NaN, +Inf or -Inf entry of `a`
+    (row-major order), which `what` names.  The permanent of such a matrix
+    is not a number the engines can give: the reference's row scales turn
+    a NaN into INT64_MIN (superman_tpu/ops/ryser.py:60), which ends in a
+    `nan` result below n=19 and an OverflowError from it."""
+    a = np.asarray(a)
+    if a.dtype.kind not in "fc":
+        return                        # integers are finite
+    bad = ~np.isfinite(a)
+    if bad.any():
+        idx = tuple(int(k) for k in np.argwhere(bad)[0])
+        raise ValueError(f"{what}: entry {idx} is {a[idx]}; NaN and "
+                         f"infinite entries are rejected")
+
+
 @dataclasses.dataclass
 class SparseMatrix:
     """CCS + CRS compressed views of a square matrix.

@@ -16,7 +16,9 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..core.matrix import require_finite
 from ..core.result import Result
+from ..utils.debug import check_nan
 from . import gray
 from .oracle import gray_init_lanes, perman_brute
 from .ryser_walk import walk_lanes
@@ -84,6 +86,21 @@ def pack_stack(mats: np.ndarray):
     return x0p, colsT, s, zero
 
 
+def walk_stack(x0p: np.ndarray, colsT: np.ndarray, *, n: int, r: int,
+               calc: str, device: torch.device) -> np.ndarray:
+    """The serving-batch kernel over a packed stack (pack_stack's x0p and
+    colsT): the (B, blocks, 2) float64 host array of every block's words,
+    checked for NaN under SUPERMAN_DEBUG_NANS (utils/debug.py)."""
+    from .ryser_cuda import batch_partials
+    out = batch_partials(torch.as_tensor(x0p).to(device),
+                         torch.as_tensor(colsT).to(device),
+                         n=n, r=r, tier=calc)
+    # one small copy per group
+    o = out.cpu().numpy().astype(np.float64)
+    check_nan(f"ryser_batch ({calc})", o)
+    return o
+
+
 def permanent_batch_kernel(mats: np.ndarray, calc: str = "df64", device=None,
                            chunk_log2=None):
     """(B, n, n) stack, 13 <= n <= 32 -> (permanents, meta) via the
@@ -109,7 +126,6 @@ def permanent_batch_kernel(mats: np.ndarray, calc: str = "df64", device=None,
     from ..core.flags import Flags
     from ..utils import trace
     from .ryser import _sm_count
-    from .ryser_cuda import batch_partials
     from .tf96 import sum_words
 
     device = resolve_device(device, Flags())
@@ -134,13 +150,10 @@ def permanent_batch_kernel(mats: np.ndarray, calc: str = "df64", device=None,
         x0p, colsT, s, zero = pack_stack(mats)
     r = gray.batch_plan(n, B, chunk_log2, sms=_sm_count(device))
     with trace.timer("batch_walk"):
-        out = batch_partials(torch.as_tensor(x0p).to(device),
-                             torch.as_tensor(colsT).to(device),
-                             n=n, r=r, tier=calc)       # (B, blocks, 2)
-        # one small copy per group; a matrix's few blocks are summed as
-        # the single-matrix path sums its chunks: hi + lo, then float64
-        # (tf96: all the words as double-doubles, tf96.sum_words)
-        o = out.cpu().numpy().astype(np.float64)
+        o = walk_stack(x0p, colsT, n=n, r=r, calc=calc, device=device)
+    # a matrix's few blocks are summed as the single-matrix path sums its
+    # chunks: hi + lo, then float64 (tf96: all the words as double-doubles,
+    # tf96.sum_words)
     if calc == "tf96":
         tot = sum_words(o)
     else:
@@ -178,7 +191,12 @@ def permanent_batch(mats: Sequence[np.ndarray], device=None,
     orders below 13 run one by one, where the long-double host route
     keeps the tier's precision.
     device=None means cuda:{device_id} and raises without CUDA; "cpu"
-    runs the kernels' plain versions."""
+    runs the kernels' plain versions.
+
+    Every matrix is checked before any walk: one that is not square, or
+    that holds a NaN or infinite entry, fails the whole call with a
+    ValueError naming its index (and the entry), and no result is
+    computed."""
     from ..api import permanent, resolve_device
     from ..core.flags import Flags
     from ..utils import trace
@@ -195,12 +213,14 @@ def permanent_batch(mats: Sequence[np.ndarray], device=None,
                   level=0)
 
     mats = [np.asarray(m) for m in mats]
+    for i, m in enumerate(mats):
+        if m.ndim != 2 or m.shape[0] != m.shape[1]:
+            raise ValueError(f"matrix {i} is not square")
+        require_finite(m, f"matrix {i}")
     t0 = time.perf_counter()
     results: List[Result] = [None] * len(mats)
     groups: dict = {}
     for i, m in enumerate(mats):
-        if m.ndim != 2 or m.shape[0] != m.shape[1]:
-            raise ValueError(f"matrix {i} is not square")
         n = m.shape[0]
         if 2 < n <= BATCH_MAX_N and batchable and (n >= KERNEL_MIN_N
                                                    or calc != "tf96"):

@@ -10,7 +10,8 @@ in [0, p).
 The TPU walked primes p <= 2039 as lazy f32 residues; the card walks
 any odd p < 2^31 in 32-bit Montgomery arithmetic.  Every output is a
 canonical residue, so kernel and plain version agree exactly, whatever
-order either multiplies in.
+order either multiplies in.  Residues are integers and cannot be NaN, so
+SUPERMAN_DEBUG_NANS (utils/debug.py) checks nothing here.
 """
 
 from __future__ import annotations

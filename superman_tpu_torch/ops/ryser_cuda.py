@@ -32,6 +32,11 @@ plain version agree to the last bit on any input where nvcc keeps IEEE
 order (no fast-math; the only multiply nvcc may fuse into an add, s * col
 with s = +-1, is exact; the tf96 products are written with intrinsics it
 does not fuse).
+
+The wrappers return the outputs unchecked.  Under SUPERMAN_DEBUG_NANS
+(utils/debug.py) they are checked for NaN where they reach the host:
+K1's words, the reduced entry's and the amp walk's in
+parallel/sharding.py, K2's in ops/batch.py ``walk_stack``.
 """
 
 from __future__ import annotations

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.debug import check_nan
 from .oracle import gray_init_lanes, perman_brute
 
 
@@ -26,7 +27,8 @@ def walk_lanes(X: torch.Tensor, sign_mid: torch.Tensor, cols: torch.Tensor,
 
     X: (..., C, n) lane x-vectors and sign_mid: (C,) from
     oracle.gray_init_lanes; cols: (..., n-1, n) matrix columns, one table
-    per leading index of X.  Returns (..., C)."""
+    per leading index of X.  Returns (..., C), checked for NaN under
+    SUPERMAN_DEBUG_NANS (utils/debug.py) on the device it ran on."""
     acc = torch.prod(X, dim=-1)                # m = 0 terms, sign +1
     for m in range(1, 1 << r):
         k = (m & -m).bit_length() - 1
@@ -36,6 +38,7 @@ def walk_lanes(X: torch.Tensor, sign_mid: torch.Tensor, cols: torch.Tensor,
             s = 1.0 - 2.0 * ((m >> (k + 1)) & 1)
         X = X + s * cols[..., k, None, :]
         acc = acc + (1.0 - 2.0 * (m & 1)) * torch.prod(X, dim=-1)
+    check_nan(f"walk_lanes ({str(acc.dtype).removeprefix('torch.')})", acc)
     return acc
 
 

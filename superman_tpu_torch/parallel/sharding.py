@@ -16,6 +16,11 @@ before the blocks are dealt, and the per-chunk partials, the reduced
 blocks' pairs or the tf96 words come back into the single-device order
 before the host sums them.  The result over any mesh is therefore BITWISE
 equal to the single-device result, in every tier, dense and sparse.
+
+Under SUPERMAN_DEBUG_NANS (utils/debug.py) the host array of every
+walk's words is checked for NaN once they are all back, naming the
+kernel and its tier: the host copy is made anyway, so the switch adds no
+device work, and one check covers every mesh entry.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from ..ops import gray
 from ..ops.ryser_cuda import BLOCK, ryser_amp, ryser_partials, ryser_reduced
 from ..ops.tf96 import sum_words
+from ..utils.debug import check_nan
 from .mesh import Mesh
 from .multihost import host_slice
 
@@ -82,6 +88,7 @@ def _walk_words(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
         return out.reshape(rows.shape + (2,))
 
     out = _deal(ids_blocks, mesh, device, launch)
+    check_nan(f"ryser_walk_{tier}", out)
     return out.reshape(-1, 2).astype(np.float64)
 
 
@@ -142,7 +149,9 @@ def _reduced_words(ids: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                              on(fcols).contiguous(), n=plan.n,
                              r=plan.r - shift, tier=tier)
 
-    return _deal(rows, mesh, device, launch)
+    words = _deal(rows, mesh, device, launch)
+    check_nan(f"ryser_walk_reduced ({tier})", words)
+    return words
 
 
 def compute_total(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
@@ -195,5 +204,6 @@ def compute_amp(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                     torch.as_tensor(x0, dtype=torch.float64).to(device),
                     torch.as_tensor(cols, dtype=torch.float64).to(device),
                     n=plan.n, r=plan.r, cond=cond).cpu().numpy()
+    check_nan("ryser_walk_amp_cond" if cond else "ryser_walk_amp", out)
     return (out[:, 0::2] + out[:, 1::2]).T.reshape(
         (out.shape[1] // 2,) + ids_blocks.shape)
