@@ -41,20 +41,26 @@ of tools/corpus.py: the fuzzer's 40 trials at seed 0, the accuracy sweep
 at n=30, suite_check at n=30 and 32, sparse_report at n=32, modp_rate at
 n=32, scaling_measure at n=30 and 32, exact_known (a row declined by the
 budget and certified by a merge, the native reverify, K3 under Glynn)
-and real_suite --quick.  Last of all the NaN switch (nan_switch_phase):
+and real_suite --quick.  Then the NaN switch (nan_switch_phase):
 with SUPERMAN_DEBUG_NANS set, the n=32 df64 permanent and the 256 x n=24
 batch give their bits and launches, walls beside those without it; a NaN
 x0 through every kernel entry at its path's shapes, the float64 walk and
 each estimator's trial raises FloatingPointError naming it; a NaN entry
-is a ValueError before any launch.  It checks their values, times kernels
-and plain versions, and prints:
+is a ValueError before any launch.  Then the bench (bench_phase):
+tools/bench.py's measuring function once (the seeded n=32 matrices of
+tools/corpus.py in df64, f32, f32k and tf96, and the d=0.20 one dense
+beside sparse=True, each error within its limit), then
+tools/capture_bench.py once in a subprocess, whose record must hold rc 0
+and a parsed line within the same limits.  It checks their values, times
+kernels and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
     path (the counts are set to 0 before every path and read after it;
     `driver_launches` holds them on the driver paths, `mesh_launches`,
     `mesh_glynn_launches`, `hybrid_launches` and `multihost_launches`
-    on the host layer's, `tools_launches` over the tools' phase),
+    on the host layer's, `tools_launches` over the tools' phase,
+    `bench_launches` over the bench's measuring run),
     its largest difference from the plain version, both times, and its
     bound: the least time the card could take for the same work, the
     larger of bytes moved over the memory rate and operations over the
@@ -185,6 +191,9 @@ FUZZ_TRIALS = 40
 SUITE_TOL = 1e-8
 KNOWN_BUDGETS = (1.0, 600.0)
 REVERIFY_BUDGET_S = 60.0
+#: phase 8: how long tools/capture_bench.py gives its run of the bench,
+#: whose kernels are built by then (the phase's own run takes seconds)
+CAPTURE_TIMEOUT_S = 300
 
 #: the grid flagship, the reference's default grid (-i -m 36 -n 36): the
 #: SMC log2 estimate against the Kasteleyn count within
@@ -1192,6 +1201,71 @@ def nan_switch_phase(dev, a32, a36, stack_a, card) -> dict:
         else:
             os.environ[debug.ENV] = saved
     return out
+
+
+def bench_phase(dev, zero_counts) -> dict:
+    """Phase 8: the bench.  tools/bench.py's measuring function once on
+    the card (the seeded n=32 matrices, every tier, the sparse walk beside
+    the dense one), then tools/capture_bench.py once in a subprocess,
+    recording its own run of the bench to a temporary path.  An error past
+    its limit, a capture that fails or parses no line, or a kernel of the
+    bench's path that was not launched raises.  Returns the measuring
+    run's launches of K1 per tier and of the reduced entry, and the walls
+    of the run and of the capture."""
+    import os
+    import subprocess
+    import tempfile
+
+    from superman_tpu_torch.ops import ryser_cuda
+    from superman_tpu_torch.tools import bench
+
+    zero_counts()
+    t = time.perf_counter()
+    line = bench.measure(dev, log=lambda s: print(f"  bench: {s}",
+                                                  flush=True))
+    wall = time.perf_counter() - t
+    launches = {"k1": dict(ryser_cuda.TIER_LAUNCHES),
+                "reduced": dict(ryser_cuda.REDUCED_LAUNCHES)}
+    print("bench: " + json.dumps(line))
+    bad = bench.failures(line)
+    if bad:
+        raise AssertionError(f"bench: {bad}")
+    if not all(launches["k1"][t] for t in TIERS) \
+            or not launches["reduced"]["df64"]:
+        raise AssertionError(f"bench: a kernel of its path was not "
+                             f"launched: {launches}")
+    d = line["detail"]
+    print(f"bench: {line['value']:.4f} G iters/s df64 (vs_baseline "
+          f"{line['vs_baseline']:.3f}), f32 {d['f32_g_iters_per_sec']:.4f}, "
+          f"f32k {d['f32k_g_iters_per_sec']:.4f}, tf96 "
+          f"{d['tf96_g_iters_per_sec']:.4f}; sparse/dense speedup "
+          f"{d['sparse_vs_dense_speedup']:.3f}; errors "
+          f"{json.dumps(bench.errors(line))}; {wall:.1f} s; launches "
+          f"{json.dumps(launches)}; {d['card']}")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bench_torch_r00.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "superman_tpu_torch.tools.capture_bench",
+             "--n", "0", "--out", out, "--timeout", str(CAPTURE_TIMEOUT_S)],
+            cwd=repo, capture_output=True, text=True,
+            timeout=CAPTURE_TIMEOUT_S + 60)
+        with open(out) as f:
+            rec = json.load(f)
+    capture_wall = time.perf_counter() - t
+    parsed = rec["parsed"]
+    print(f"capture_bench: {proc.stdout.strip()}; rc {proc.returncode}, "
+          f"record rc {rec['rc']}, {capture_wall:.1f} s")
+    if proc.returncode != 0 or rec["rc"] != 0 or parsed is None:
+        raise AssertionError(f"capture_bench: rc {proc.returncode}, record "
+                             f"rc {rec['rc']}; tail {rec['tail'][-2000:]}")
+    bad = bench.failures(parsed)
+    if bad or parsed["metric"] != line["metric"]:
+        raise AssertionError(f"capture_bench: {bad or parsed['metric']}")
+    return {"launches": launches, "wall_s": wall,
+            "capture_wall_s": capture_wall}
 
 
 def main() -> int:
@@ -2254,6 +2328,10 @@ def main() -> int:
     # ---- 7. the NaN switch (SUPERMAN_DEBUG_NANS)
     nans = nan_switch_phase(dev, a32, a36, stack_a, card)
 
+    # ---- 8. the bench (tools/bench.py) and its capture
+    bp = bench_phase(dev, zero_counts)
+    bl = bp["launches"]
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **more):
         return {"name": name, "route": "cuda", "source": source,
@@ -2280,6 +2358,7 @@ def main() -> int:
                         if tier == "df64" else {}),
                      mesh_launches=host["mesh"][tier]["k1"],
                      tools_launches=tl["k1"][tier],
+                     bench_launches=bl["k1"][tier],
                      **({"mesh_glynn_launches":
                          host["mesh"]["glynn df64"]["k1"],
                          "hybrid_launches": host["hybrid"],
@@ -2311,6 +2390,7 @@ def main() -> int:
                       reduced_launches[tier], sparse36[tier]["err"],
                       *reduced[tier], tier=tier,
                       tools_launches=tl["reduced"][tier],
+                      bench_launches=bl["reduced"][tier],
                       registers=sparse36[tier]["registers"],
                       clocks_sm_mhz=clocks[f"reduced_{tier}"],
                       plain_ms_chunks=sparse36[tier]["plain_chunks"],
@@ -2341,7 +2421,8 @@ def main() -> int:
     print(f"chip_smoke: {total:.1f} s from the probe to here, of it the "
           f"tools' phase {tools['walls']['phase']:.1f} s "
           f"({tools['walls']['phase'] / total:.1%}), the NaN switch's "
-          f"{nans['phase_s']:.1f} s")
+          f"{nans['phase_s']:.1f} s, the bench's {bp['wall_s']:.1f} s and "
+          f"its capture's {bp['capture_wall_s']:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
