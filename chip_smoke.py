@@ -51,7 +51,14 @@ tools/bench.py's measuring function once (the seeded n=32 matrices of
 tools/corpus.py in df64, f32, f32k and tf96, and the d=0.20 one dense
 beside sparse=True, each error within its limit), then
 tools/capture_bench.py once in a subprocess, whose record must hold rc 0
-and a parsed line within the same limits.  It checks their values, times
+and a parsed line within the same limits.  Last the lane walks' range
+(walk_range_phase): seeded matrices whose permanents overflow, underflow
+or lie far from 1 through the default entry points on the card (the
+float64 and float32 lane walks below n=19 and under calc="f64", the
+batch walk below n=13, Glynn's float64 route), each held to calc="exact"
+(no NaN, no -0.0), with the walls of those routes
+(tools/lane_walls.py), the host time of the row scales alone and the
+native engine's double walk on the same matrices, recorded.  It checks their values, times
 kernels and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
@@ -194,6 +201,28 @@ REVERIFY_BUDGET_S = 60.0
 #: phase 8: how long tools/capture_bench.py gives its run of the bench,
 #: whose kernels are built by then (the phase's own run takes seconds)
 CAPTURE_TIMEOUT_S = 300
+#: phase 9, the lane walks' range: (label, (n, seed, scale), overrides) on
+#: np.random.default_rng(seed).integers(1, 5, (n, n)) * scale through the
+#: port's default entry points, each held to calc="exact": f32 within
+#: F32_TOL, every other tier within RANGE_TOL, inf where the exact value
+#: is beyond a double, +0.0 where it is below one
+RANGE_CASES = (("n18x30 f32", (18, 18, 30.0), dict(calc="f32")),
+               ("n18x1e-5 f32", (18, 18, 1e-5), dict(calc="f32")),
+               ("n18x1e-5 df64", (18, 18, 1e-5), {}),
+               ("n18x1e-5 glynn", (18, 18, 1e-5), dict(perman_algo="glynn")),
+               ("n12x1e25 df64", (12, 12, 1e25), {}),
+               ("n12x1e25 glynn", (12, 12, 1e25), dict(perman_algo="glynn")),
+               ("n12x1e-30 df64", (12, 12, 1e-30), {}),
+               ("n22x1e14 f64", (22, 22, 1e14), dict(calc="f64")),
+               ("n22x1e14 df64", (22, 22, 1e14), {}),
+               ("n18x1e297 f32", (18, 18, 1e297), dict(calc="f32")),
+               ("n24x2^1020 f64", (24, 24, 2.0 ** 1020), dict(calc="f64")),
+               ("n12s11x1e-27 auto", (12, 11, 1e-27), dict(calc="auto")))
+RANGE_BATCH = ((12, 12, 1e25), (14, 14, 1e25))
+RANGE_TOL = 1e-10
+#: the walls of the lane routes (tools/lane_walls.py) and the scales'
+#: host time: median of RANGE_REPS calls
+RANGE_REPS = 21
 
 #: the grid flagship, the reference's default grid (-i -m 36 -n 36): the
 #: SMC log2 estimate against the Kasteleyn count within
@@ -1268,6 +1297,107 @@ def bench_phase(dev, zero_counts) -> dict:
             "capture_wall_s": capture_wall}
 
 
+def walk_range_phase(dev, card) -> dict:
+    """Phase 9: the range of the float lane walks (ops/ryser_walk.py, the
+    batch below n=13, Glynn's float64 route), each row or column scaled
+    by an exact power of two.  Every RANGE_CASES row and the RANGE_BATCH
+    batch through the default entry points on the card, held to
+    calc="exact" (the modular engine, K3; a NaN, a -0.0 or a value past
+    its limit raises, and so does a lane route that did not run on the
+    card); the walls of the lane routes through the
+    entry points (tools/lane_walls.py) and the host time of the scales
+    alone; the native CPU engine's double walk on the same matrices,
+    recorded and not held (it walks the matrix as given).  Returns the
+    rows, the walls and the native values."""
+    import statistics
+
+    import superman_tpu_torch as spt
+    from superman_tpu_torch.bindings.native import native_available
+    from superman_tpu_torch.ops.ryser_walk import times_pow2, walk_scales
+    from superman_tpu_torch.tools import lane_walls
+
+    t_phase = time.perf_counter()
+
+    def mat(n, seed, scale):
+        return np.random.default_rng(seed).integers(1, 5, (n, n)) * scale
+
+    def show(x) -> str:
+        try:
+            return repr(float(x))
+        except OverflowError:
+            return "inf" if x > 0 else "-inf"
+
+    def held(got: float, exact, tol: float) -> bool:
+        want = show(exact)
+        if math.isnan(got):
+            return False
+        if want in ("inf", "-inf"):
+            return got == float(want)
+        if float(want) == 0.0:
+            return got == 0.0 and math.copysign(1.0, got) > 0
+        return rel_err(got, exact) <= tol
+
+    exact = {}
+    rows = []
+
+    def hold(label, shape, res, tol):
+        if shape not in exact:
+            exact[shape] = spt.permanent(mat(*shape),
+                                         calc="exact").meta["exact_fraction"]
+        ok = held(res.permanent, exact[shape], tol)
+        on_card = (res.algo_name.startswith(("ryser_cuda", "glynn_cuda"))
+                   or res.meta.get("device") == str(dev))
+        rows.append({"case": label, "algo": res.algo_name,
+                     "value": show(res.permanent),
+                     "exact": show(exact[shape]), "ok": ok,
+                     "on_card": on_card})
+        if not ok or not on_card:
+            raise AssertionError(f"walk range: {rows[-1]}")
+
+    for label, shape, kw in RANGE_CASES:
+        hold(label, shape, spt.permanent(mat(*shape), **kw),
+             F32_TOL if kw.get("calc") == "f32" else RANGE_TOL)
+    for shape, res in zip(RANGE_BATCH, spt.permanent_batch(
+            [mat(*shape) for shape in RANGE_BATCH])):
+        hold(f"batch n{shape[0]}x{shape[2]:g}", shape, res, RANGE_TOL)
+
+    # the lane routes through the entry points (their walls before the
+    # scales: lane_walls.py --against the tree before them)
+    walls = {name: w["this tree"] for name, w in
+             lane_walls.walls({"this tree": spt}, dev, RANGE_REPS).items()}
+
+    def scale_work(a):
+        """The host work that the row scales add to ryser_walk."""
+        s = walk_scales(a)
+        np.ldexp(a, -s[:, None])
+        return times_pow2(1.0, int(s.sum()))
+
+    scales_ms = {}
+    for n in (12, 18):
+        a = mat(n, n, 1.0).astype(np.float64)
+        times = []
+        for _ in range(RANGE_REPS):
+            t = time.perf_counter()
+            scale_work(a)
+            times.append(time.perf_counter() - t)
+        scales_ms[f"n={n}"] = statistics.median(times) * 1e3
+
+    native = []
+    if native_available():
+        for shape in dict.fromkeys(s for _, s, _ in RANGE_CASES):
+            res = spt.permanent(mat(*shape), cpu=True, gpu=False, threads=8)
+            native.append({"matrix": shape, "algo": res.algo_name,
+                           "value": show(res.permanent),
+                           "exact": show(exact[shape]),
+                           "ok": held(res.permanent, exact[shape],
+                                      RANGE_TOL)})
+    out = {"rows": rows, "walls": walls, "scales_ms": scales_ms,
+           "native": native,
+           "card": card, "phase_s": time.perf_counter() - t_phase}
+    print("walk range: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2332,6 +2462,9 @@ def main() -> int:
     bp = bench_phase(dev, zero_counts)
     bl = bp["launches"]
 
+    # ---- 9. the lane walks' range (row and column scales)
+    wr = walk_range_phase(dev, card)
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **more):
         return {"name": name, "route": "cuda", "source": source,
@@ -2422,7 +2555,8 @@ def main() -> int:
           f"tools' phase {tools['walls']['phase']:.1f} s "
           f"({tools['walls']['phase'] / total:.1%}), the NaN switch's "
           f"{nans['phase_s']:.1f} s, the bench's {bp['wall_s']:.1f} s and "
-          f"its capture's {bp['capture_wall_s']:.1f} s")
+          f"its capture's {bp['capture_wall_s']:.1f} s, the lane walks' "
+          f"range {wr['phase_s']:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ from ..core.result import Result
 from ..utils.debug import check_nan
 from . import gray
 from .oracle import gray_init_lanes, perman_brute
-from .ryser_walk import walk_lanes
+from .ryser import _row_scales
+from .ryser_walk import times_pow2, walk_lanes, walk_scales
 
 #: largest order the serving batch groups
 BATCH_MAX_N = 32
@@ -42,11 +43,16 @@ def exact_storage_mask(mats: np.ndarray) -> np.ndarray:
 def permanent_batch_same_n(mats: np.ndarray, device: torch.device,
                            max_lanes: int = 1 << 11) -> np.ndarray:
     """Exact permanents of a (B, n, n) stack by one batched float64 walk
-    on `device` (the reference's vmapped XLA walk, no kernel there)."""
+    on `device` (the reference's vmapped XLA walk, no kernel there).
+    Each matrix's rows are scaled as ryser_walk scales them (the
+    reference walks them as given, batch.py:31-58), so that each value is
+    finite where a double holds it, +-inf beyond and +0.0 below."""
     mats = np.asarray(mats, dtype=np.float64)
     B, n, _ = mats.shape
     if n <= 2:
         return np.array([perman_brute(m) for m in mats])
+    s = walk_scales(mats)                                 # (B, n)
+    mats = np.ldexp(mats, -s[:, :, None])
     total = 1 << (n - 1)
     C = min(total >> 1, max_lanes)
     r = (total // C).bit_length() - 1
@@ -60,7 +66,7 @@ def permanent_batch_same_n(mats: np.ndarray, device: torch.device,
         mats[:, :, : n - 1].transpose(0, 2, 1)), device=device)  # (B, n-1, n)
     acc = walk_lanes(X, sign_mid, colss, r)               # (B, C)
     sums = acc.cpu().numpy().sum(axis=1)
-    return (4 * (n & 1) - 2) * sums
+    return times_pow2((4 * (n & 1) - 2) * sums, s.sum(axis=1))
 
 
 def pack_stack(mats: np.ndarray):
@@ -70,11 +76,7 @@ def pack_stack(mats: np.ndarray):
     (B, n-1, n_pad) as gray.pack_matrix lays one out, and the mask of
     matrices with an empty row or column (permanent 0)."""
     B, n, _ = mats.shape
-    ab = np.abs(mats)
-    xmax = ab[:, :, -1] + ab.sum(axis=2) / 2
-    with np.errstate(divide="ignore"):
-        s = np.ceil(np.log2(np.maximum(xmax, 1e-300)))
-    s = np.clip(s, -980, 980).astype(np.int64)
+    s = _row_scales(mats)
     a_s = np.ldexp(mats, -s[:, :, None])
     zero = (((mats != 0).sum(axis=2) == 0).any(axis=1)
             | ((mats != 0).sum(axis=1) == 0).any(axis=1))

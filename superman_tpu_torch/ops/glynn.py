@@ -59,6 +59,40 @@ def _pack_glynn(a_s: np.ndarray, n_pad: int):
     return x0, g
 
 
+def glynn_scaled(a: np.ndarray, walk) -> float:
+    """Glynn's float64 route: walk(a') is the permanent of a', the matrix
+    with column j scaled by 2^-s_j (ryser_walk.walk_scales over columns),
+    times 2^E, E the sum of the s_j.  The reference walks the matrix as
+    given (glynn.py:73-78), and returns NaN where a product overflows;
+    here a permanent that a double holds comes back finite, one beyond
+    its range as +-inf, one below it as +0.0."""
+    from .ryser_walk import times_pow2, walk_scales
+    a = np.asarray(a, dtype=np.float64)
+    s = walk_scales(a, axis=-2)
+    return float(times_pow2(walk(np.ldexp(a, -s[None, :])), int(s.sum())))
+
+
+def glynn_lanes(a: np.ndarray, device: torch.device) -> float:
+    """oracle.perman_glynn's walk in float64 as plain PyTorch on
+    `device`: ryser_walk.walk_lanes over Glynn's lanes
+    (oracle.glynn_init_lanes) and flip table, up to ryser_walk.MAX_LANES
+    lanes, the lane sums added in float64 on the host."""
+    from .oracle import glynn_init_lanes, perman_glynn
+    from .ryser_walk import MAX_LANES, walk_lanes
+    a = np.asarray(a, dtype=np.float64)
+    n = a.shape[0]
+    if n <= 1:
+        return perman_glynn(a)
+    total = 1 << (n - 1)
+    C = min(total >> 1, MAX_LANES)
+    r = (total // C).bit_length() - 1
+    X, sign_mid, flips = glynn_init_lanes(a, np.arange(C, dtype=np.int64),
+                                          r)
+    acc = walk_lanes(*(torch.as_tensor(v, device=device)
+                       for v in (X, sign_mid, flips)), r)
+    return float(np.sum(acc.cpu().numpy()) * 2.0 ** (1 - n))
+
+
 def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
                 mesh=None) -> Result:
     """Exact permanent of `dense` on `device` by the Glynn formula, calc
@@ -74,12 +108,21 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
     t0 = time.perf_counter()
     if n <= 2 or calc in ("quad", "f64") or n < 19:
         from .oracle import perman_glynn
-        # quad (and small-n tf96) keep long-double precision on the host
-        # walk, the same contract as ryser_exact's host route
-        dt = np.longdouble if calc in ("quad", "tf96") else np.float64
-        p = perman_glynn(a, dtype=dt)
+        iters = 1 << max(n - 1, 0)
+        if calc in ("quad", "tf96"):
+            # quad (and small-n tf96) keep long-double precision on the
+            # host walk, the same contract as ryser_exact's host route
+            p = perman_glynn(a, dtype=np.longdouble)
+        elif device.type == "cpu":
+            p = glynn_scaled(a, perman_glynn)
+        else:
+            # the float64 lane walk on the card, as ryser_walk walks Ryser
+            p = glynn_scaled(a, lambda m: glynn_lanes(m, device))
+            return Result(p, time.perf_counter() - t0,
+                          algo_name=f"glynn_walk_{calc}", iterations=iters,
+                          meta={"calc": calc, "device": str(device)})
         return Result(float(p), time.perf_counter() - t0,
-                      algo_name="glynn_host", iterations=1 << max(n - 1, 0))
+                      algo_name="glynn_host", iterations=iters)
 
     where = "cuda" if device.type == "cuda" else "plain"
     # trivial zero: an empty row or column zeroes every Glynn term, and

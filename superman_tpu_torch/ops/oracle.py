@@ -30,6 +30,19 @@ def _ctz(m: int) -> int:
     return (m & -m).bit_length() - 1
 
 
+def _lane_bits(l: np.ndarray, n: int, r: int, dtype) -> np.ndarray:
+    """(L, n-1) bits of gray(l * 2^r) for the uint64 lane indices l: bits
+    >= r are those of gray(l), bit r-1 is the parity of l, the rest 0."""
+    gray_l = l ^ (l >> np.uint64(1))
+    bits = np.zeros((len(l), n - 1), dtype=dtype)
+    for b in range(n - 1):
+        if b >= r:
+            bits[:, b] = ((gray_l >> np.uint64(b - r)) & np.uint64(1))
+        elif b == r - 1:
+            bits[:, b] = (l & np.uint64(1))
+    return bits
+
+
 def gray_init_lanes(a: np.ndarray, bases_l: np.ndarray, r: int,
                     dtype=np.float64):
     """x-vectors and mid-step signs for aligned chunks [l*2^r, (l+1)*2^r).
@@ -41,14 +54,8 @@ def gray_init_lanes(a: np.ndarray, bases_l: np.ndarray, r: int,
     """
     n = a.shape[0]
     l = bases_l.astype(np.uint64)
-    gray_l = l ^ (l >> np.uint64(1))
-    bits = np.zeros((len(l), n - 1), dtype=dtype)
-    for b in range(n - 1):
-        if b >= r:
-            bits[:, b] = ((gray_l >> np.uint64(b - r)) & np.uint64(1))
-        elif b == r - 1:
-            bits[:, b] = (l & np.uint64(1))
     x0 = a[:, n - 1].astype(dtype) - a.sum(axis=1, dtype=dtype) / 2
+    bits = _lane_bits(l, n, r, dtype)
     X = x0[None, :] + bits @ a[:, :n - 1].T.astype(dtype)
     sign_mid = 1.0 - 2.0 * (l & np.uint64(1)).astype(dtype)
     return X, sign_mid
@@ -116,6 +123,21 @@ def perman_brute(a: np.ndarray):
     return res if is_int else float(res)
 
 
+def glynn_init_lanes(a: np.ndarray, bases_l: np.ndarray, r: int,
+                     dtype=np.float64):
+    """Glynn's counterpart of gray_init_lanes: (X, sign_mid, flips) with
+    X[l] = sum_i delta_i a_ij at delta = gray(base_l) (the column sums,
+    -2 a[k, :] added for every set bit k), sign_mid as there, and the
+    flip table flips[k] = -2 a[k, :], k < n-1."""
+    a = np.asarray(a, dtype=dtype)
+    n = a.shape[0]
+    l = bases_l.astype(np.uint64)
+    flips = -2.0 * a[: n - 1, :]               # flip vector for bit k
+    X = a.sum(axis=0)[None, :] + _lane_bits(l, n, r, dtype) @ flips
+    sign_mid = 1.0 - 2.0 * (l & np.uint64(1)).astype(dtype)
+    return X, sign_mid, flips
+
+
 def perman_glynn(a: np.ndarray, dtype=np.float64,
                  max_lanes: int = 1 << 14) -> float:
     """Exact permanent via the Glynn formula (host, lane-vectorized):
@@ -137,17 +159,8 @@ def perman_glynn(a: np.ndarray, dtype=np.float64,
     total = 1 << (n - 1)
     L = min(total >> 1, max_lanes) or 1
     r = int(math.log2(total // L))
-    l = np.arange(L, dtype=np.uint64)
-    gray_l = l ^ (l >> np.uint64(1))
-    bits = np.zeros((L, n - 1), dtype=dtype)
-    for b in range(n - 1):
-        if b >= r:
-            bits[:, b] = ((gray_l >> np.uint64(b - r)) & np.uint64(1))
-        elif b == r - 1:
-            bits[:, b] = (l & np.uint64(1))
-    flips = -2.0 * a[: n - 1, :]               # flip vector for bit k
-    X = a.sum(axis=0)[None, :] + bits @ flips
-    sign_mid = 1.0 - 2.0 * (l & np.uint64(1)).astype(dtype)
+    X, sign_mid, flips = glynn_init_lanes(a, np.arange(L, dtype=np.uint64),
+                                          r, dtype)
 
     acc = X.prod(axis=1).sum(dtype=dtype)      # m = 0 terms (sign +1)
     for m in range(1, 1 << r):

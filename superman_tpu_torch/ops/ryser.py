@@ -52,10 +52,11 @@ def _row_scales(a: np.ndarray) -> np.ndarray:
     Power-of-two scaling is EXACT in binary floating point, so the walk
     keeps its exactness guarantees while every intermediate tree product
     stays <= 1 in magnitude — overflow becomes impossible.
-    The permanent is recovered as result * 2**sum(s).
+    The permanent is recovered as result * 2**sum(s).  On a (B, n, n)
+    stack, the (B, n) exponents of every matrix.
     """
     ab = np.abs(np.asarray(a, dtype=np.float64))
-    xmax = ab[:, -1] + ab.sum(axis=1) / 2
+    xmax = ab[..., -1] + ab.sum(axis=-1) / 2
     with np.errstate(divide="ignore"):
         s = np.ceil(np.log2(np.maximum(xmax, 1e-300)))
     # wide clip: compression drivers can concentrate magnitude into rows

@@ -6,6 +6,13 @@ where a kernel launch costs more than the walk: in float32 for
 calc="f32", in float64 for every other tier, as the reference chooses.
 The card's float64 is native IEEE double, so the walk runs on whatever
 device it is given.
+
+Unlike the reference's walk, which runs on the matrix as given (and so
+returns NaN where a product overflows and -0.0 where every product
+underflows, ryser_xla.py:45-73), each row is scaled by an exact power of
+two first (walk_scales), as the kernel route scales its rows: a permanent
+that a double holds comes back finite, one beyond its range as +-inf,
+one below it as +0.0.
 """
 
 from __future__ import annotations
@@ -42,15 +49,46 @@ def walk_lanes(X: torch.Tensor, sign_mid: torch.Tensor, cols: torch.Tensor,
     return acc
 
 
+def walk_scales(a: np.ndarray, axis: int = -1) -> np.ndarray:
+    """Exponents s for the lane walks: 2^-s_j scales row j (Glynn, axis=-2:
+    column j) of an (n, n) matrix, or of each matrix of a (B, n, n) stack,
+    so that every |x_j| stays below 1 along the walk.  The bound of |x_j|
+    is ryser._row_scales' (|a[j, n-1]| + abs row sum / 2), or for Glynn's
+    columns glynn._col_scales' (abs column sum), but taken on the line
+    times 2^-e_j, e_j the exponent of its largest |entry| (np.frexp), so
+    that no sum overflows, and not clipped: ldexp takes any exponent.  A
+    non-finite entry leaves its line's exponent finite (frexp gives 0),
+    so its NaN reaches the walk's sum, where SUPERMAN_DEBUG_NANS names the
+    walk."""
+    ab = np.abs(np.asarray(a, dtype=np.float64))
+    e = np.frexp(ab.max(axis=axis, keepdims=True))[1]
+    b = np.ldexp(ab, -e)
+    xmax = b.sum(axis=axis)
+    if axis == -1:
+        xmax = b[..., -1] + xmax / 2
+    return (np.squeeze(e, axis) + np.frexp(xmax)[1]).astype(np.int64)
+
+
+def times_pow2(total, E):
+    """total * 2^E in float64 (elementwise on arrays), exact where the
+    result is a normal double: +-inf beyond a double's range, +0.0 (never
+    -0.0) where it underflows or is zero."""
+    with np.errstate(over="ignore"):
+        return np.ldexp(np.asarray(total, dtype=np.float64), E) + 0.0
+
+
 def ryser_walk(a: np.ndarray, device: torch.device,
                dtype: torch.dtype = torch.float64) -> float:
-    """Exact permanent via the walk on `device`.  The lanes are set up
-    in float64 and walked in `dtype`; the lane sums are added in float64
-    on the host."""
+    """Exact permanent via the walk on `device`.  The rows are scaled by
+    walk_scales, the lanes set up in float64 and walked in `dtype`; the
+    lane sums are added in float64 on the host and multiplied back by
+    2^E, E the sum of the row exponents."""
     a = np.asarray(a, dtype=np.float64)
     n = a.shape[0]
     if n <= 2:
         return float(perman_brute(a))
+    s = walk_scales(a)
+    a = np.ldexp(a, -s[:, None])
     total = 1 << (n - 1)
     C = min(total >> 1, MAX_LANES)
     r = (total // C).bit_length() - 1
@@ -62,4 +100,4 @@ def ryser_walk(a: np.ndarray, device: torch.device,
                            device=device).to(dtype)
     acc = walk_lanes(X, sign_mid, cols, r)
     total_sum = float(np.sum(acc.cpu().numpy().astype(np.float64)))
-    return (4 * (n & 1) - 2) * total_sum
+    return float(times_pow2((4 * (n & 1) - 2) * total_sum, int(s.sum())))

@@ -123,6 +123,26 @@ def test_tiers_and_glynn_on_card(algo, calc, rel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,calc", [(12, "df64"), (18, "f32"), (22, "f64")])
+def test_glynn_float64_route_on_card(n, calc):
+    """Glynn's float64 route (below n=19, and under calc="f64") walks on
+    the card: the lane walk of ops/glynn.py, glynn_walk_<calc>, within
+    1e-12 of the host walk perman_glynn, and inf where a double cannot
+    hold the permanent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import superman_tpu_torch as spt
+    from superman_tpu_torch.ops.oracle import perman_glynn
+    a = np.random.default_rng(n).integers(1, 5, (n, n)).astype(np.float64)
+    got = spt.permanent(a, perman_algo="glynn", calc=calc)
+    assert got.algo_name == f"glynn_walk_{calc}"
+    assert got.meta["device"] == "cuda:0"
+    assert abs(got.permanent - perman_glynn(a)) <= 1e-12 * perman_glynn(a)
+    big = spt.permanent(a * 1e25, perman_algo="glynn", calc=calc)
+    assert big.permanent == float("inf")
+
+
+@pytest.mark.cuda
 def test_tf96_batch_on_card_matches_exact():
     """permanent_batch(calc="tf96") on a card: integer matrices from
     n=13 go through K2's tf96 tier and land within 1e-15 of the exact
