@@ -51,15 +51,20 @@ tools/bench.py's measuring function once (the seeded n=32 matrices of
 tools/corpus.py in df64, f32, f32k and tf96, and the d=0.20 one dense
 beside sparse=True, each error within its limit), then
 tools/capture_bench.py once in a subprocess, whose record must hold rc 0
-and a parsed line within the same limits.  Last the lane walks' range
-(walk_range_phase): seeded matrices whose permanents overflow, underflow
-or lie far from 1 through the default entry points on the card (the
-float64 and float32 lane walks below n=19 and under calc="f64", the
-batch walk below n=13, Glynn's float64 route), each held to calc="exact"
-(no NaN, no -0.0), with the walls of those routes
-(tools/lane_walls.py), the host time of the row scales alone and the
-native engine's double walk on the same matrices, recorded.  It checks their values, times
-kernels and plain versions, and prints:
+and a parsed line within the same limits.  Last the range of every
+route (walk_range_phase): seeded matrices whose permanents overflow,
+underflow or lie far from 1 through the default entry points on the card
+(the float64 and float32 lane walks below n=19 and under calc="f64", the
+batch walk below n=13, Glynn's float64 route), then through the routes
+on the host by design (the long-double walks of calc="tf96" below n=19,
+dense and sparse, calc="auto", Glynn's tf96 and quad, calc="quad" with
+the native engine hidden and through it, cpu=True dense, sparse and
+SkipPer, read_calculate_return), orders 1 and 2, the scaling estimator
+on the card and the native double walk on every lane-walk matrix, each
+held to calc="exact" (no NaN, no -0.0), with the walls of the lane and
+host routes (tools/lane_walls.py) and the host time of the row scales
+alone.  It checks their values, times kernels and plain versions, and
+prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
@@ -67,7 +72,8 @@ kernels and plain versions, and prints:
     `driver_launches` holds them on the driver paths, `mesh_launches`,
     `mesh_glynn_launches`, `hybrid_launches` and `multihost_launches`
     on the host layer's, `tools_launches` over the tools' phase,
-    `bench_launches` over the bench's measuring run),
+    `bench_launches` over the bench's measuring run, `range_launches`
+    over the range phase),
     its largest difference from the plain version, both times, and its
     bound: the least time the card could take for the same work, the
     larger of bytes moved over the memory rate and operations over the
@@ -223,6 +229,20 @@ RANGE_TOL = 1e-10
 #: the walls of the lane routes (tools/lane_walls.py) and the scales'
 #: host time: median of RANGE_REPS calls
 RANGE_REPS = 21
+#: phase 9's host routes and estimators (the long-double host walks, the
+#: native engine, orders 1-2, the scaling estimator): the seed-18 n=18
+#: matrix of RANGE_CASES at these (label, scale, signed) — a random sign
+#: on each entry from default_rng(19) — each route held to calc="exact",
+#: within LONG_TOL on the long-double and __float128 walks, RANGE_TOL on
+#: the double ones, 4 stderr for an estimate; "rows2^+-600" moves
+#: alternate rows by 2^600 and 2^-600 (Glynn: columns), a permanent a
+#: double holds whose unscaled products overflow
+HOST_SCALES = (("1e300s", 1e300, True), ("1e25", 1e25, False),
+               ("1e-30", 1e-30, False), ("1e-300", 1e-300, False),
+               ("rows2^+-600", None, False))
+LONG_TOL = 1e-14
+#: the host routes' walls (lane_walls --host): median of this many calls
+RANGE_HOST_REPS = 3
 
 #: the grid flagship, the reference's default grid (-i -m 36 -n 36): the
 #: SMC log2 estimate against the Kasteleyn count within
@@ -1297,29 +1317,53 @@ def bench_phase(dev, zero_counts) -> dict:
             "capture_wall_s": capture_wall}
 
 
-def walk_range_phase(dev, card) -> dict:
-    """Phase 9: the range of the float lane walks (ops/ryser_walk.py, the
-    batch below n=13, Glynn's float64 route), each row or column scaled
-    by an exact power of two.  Every RANGE_CASES row and the RANGE_BATCH
-    batch through the default entry points on the card, held to
-    calc="exact" (the modular engine, K3; a NaN, a -0.0 or a value past
-    its limit raises, and so does a lane route that did not run on the
-    card); the walls of the lane routes through the
-    entry points (tools/lane_walls.py) and the host time of the scales
-    alone; the native CPU engine's double walk on the same matrices,
-    recorded and not held (it walks the matrix as given).  Returns the
-    rows, the walls and the native values."""
+def walk_range_phase(dev, card, zero_counts) -> dict:
+    """Phase 9: the range of every exact and estimating route, each row or
+    column scaled by an exact power of two.  Every RANGE_CASES row and the
+    RANGE_BATCH batch through the default entry points on the card (the
+    float lane walks, ops/ryser_walk.py, the batch below n=13, Glynn's
+    float64 route); then the routes on the host by design at HOST_SCALES
+    (calc="tf96" below n=19 dense and sparse, calc="auto", Glynn's tf96,
+    calc="quad" through the host walk with the native engine hidden and
+    through the native engine, cpu=True dense, sparse and SkipPer,
+    read_calculate_return on a triplet file in a temporary directory),
+    orders 1 and 2 (the cancelling [[s, s], [s, -s]], also through
+    permanent_batch), the scaling estimator on the card (its batch of
+    trials and the SMC populations, n=16) and the native double walk on
+    every RANGE_CASES matrix.  Each is held to calc="exact" (the modular
+    engine, K3): a NaN, a -0.0 or a value past its limit raises, and so
+    does a card route that did not run on the card; a route on the host
+    by design says so by its algo_name.  The walls of the lane routes and
+    of the host routes (tools/lane_walls.py) and the host time of the
+    scales alone.  Returns the rows, the walls, the launches of every
+    kernel over the phase and its wall."""
+    import os
     import statistics
+    import tempfile
 
     import superman_tpu_torch as spt
-    from superman_tpu_torch.bindings.native import native_available
+    from superman_tpu_torch.bindings import native as nat
+    from superman_tpu_torch.core.matrix import DenseMatrix
+    from superman_tpu_torch.io.triplet import write_triplet
+    from superman_tpu_torch.ops import modp_cuda, ryser_cuda, tf96
     from superman_tpu_torch.ops.ryser_walk import times_pow2, walk_scales
     from superman_tpu_torch.tools import lane_walls
 
+    zero_counts()
     t_phase = time.perf_counter()
 
     def mat(n, seed, scale):
         return np.random.default_rng(seed).integers(1, 5, (n, n)) * scale
+
+    def host_mat(scale, signed):
+        a = mat(18, 18, 1.0)
+        if scale is None:
+            return np.ldexp(a, np.where(np.arange(18) % 2, -600,
+                                        600)[:, None])
+        if signed:
+            a = a * np.where(np.random.default_rng(19).random((18, 18))
+                             < 0.5, -1, 1)
+        return a * scale
 
     def show(x) -> str:
         try:
@@ -1327,7 +1371,7 @@ def walk_range_phase(dev, card) -> dict:
         except OverflowError:
             return "inf" if x > 0 else "-inf"
 
-    def held(got: float, exact, tol: float) -> bool:
+    def held(got: float, exact, tol: float, stderr=None) -> bool:
         want = show(exact)
         if math.isnan(got):
             return False
@@ -1335,45 +1379,158 @@ def walk_range_phase(dev, card) -> dict:
             return got == float(want)
         if float(want) == 0.0:
             return got == 0.0 and math.copysign(1.0, got) > 0
+        if stderr is not None:
+            return abs(got - float(want)) <= 4 * stderr
         return rel_err(got, exact) <= tol
 
     exact = {}
     rows = []
 
-    def hold(label, shape, res, tol):
-        if shape not in exact:
-            exact[shape] = spt.permanent(mat(*shape),
-                                         calc="exact").meta["exact_fraction"]
-        ok = held(res.permanent, exact[shape], tol)
-        on_card = (res.algo_name.startswith(("ryser_cuda", "glynn_cuda"))
-                   or res.meta.get("device") == str(dev))
-        rows.append({"case": label, "algo": res.algo_name,
-                     "value": show(res.permanent),
-                     "exact": show(exact[shape]), "ok": ok,
-                     "on_card": on_card})
-        if not ok or not on_card:
+    def exact_of(a):
+        key = a.tobytes() + bytes(a.shape)
+        if key not in exact:
+            exact[key] = spt.permanent(a, calc="exact").meta[
+                "exact_fraction"]
+        return exact[key]
+
+    def on_the_host(res) -> bool:
+        """A route that runs on the host by design, by its name."""
+        name = res.algo_name
+        return (name in ("ryser_quad_host", "ryser_tf96_host",
+                         "sparyser_tf96_host", "ryser_exact")
+                or name.startswith("cpu_")
+                or (name == "glynn_host"
+                    and res.meta.get("calc") in ("tf96", "quad")))
+
+    def hold(label, a, res, tol, stderr=None):
+        """res: a Result, or the float of read_calculate_return."""
+        got = res if isinstance(res, float) else res.permanent
+        ok = held(got, exact_of(a), tol, stderr)
+        if isinstance(res, float):
+            algo, where = "read_calculate_return", "host"
+        elif on_the_host(res):
+            algo, where = res.algo_name, "host"
+        else:
+            algo = res.algo_name
+            where = ("card" if algo.startswith(("ryser_cuda", "glynn_cuda",
+                                                "approx_"))
+                     or res.meta.get("device") == str(dev) else "not card")
+        rows.append({"case": label, "algo": algo, "route": where,
+                     "value": show(got), "exact": show(exact_of(a)),
+                     "ok": ok})
+        if not ok or where == "not card":
             raise AssertionError(f"walk range: {rows[-1]}")
 
     for label, shape, kw in RANGE_CASES:
-        hold(label, shape, spt.permanent(mat(*shape), **kw),
+        hold(label, mat(*shape), spt.permanent(mat(*shape), **kw),
              F32_TOL if kw.get("calc") == "f32" else RANGE_TOL)
     for shape, res in zip(RANGE_BATCH, spt.permanent_batch(
             [mat(*shape) for shape in RANGE_BATCH])):
-        hold(f"batch n{shape[0]}x{shape[2]:g}", shape, res, RANGE_TOL)
+        hold(f"batch n{shape[0]}x{shape[2]:g}", mat(*shape), res, RANGE_TOL)
+
+    # the routes on the host by design, and calc="auto" beside them
+    long_tol = LONG_TOL if tf96.LONGDOUBLE_WIDE else RANGE_TOL
+    native_available = nat.native_available
+
+    def without_native(fn):
+        nat.native_available = lambda: False
+        try:
+            return fn()
+        finally:
+            nat.native_available = native_available
+
+    host_routes = {
+        "tf96": (lambda a: spt.permanent(a, calc="tf96"), long_tol),
+        "tf96 sparse": (lambda a: spt.permanent(a, calc="tf96",
+                                                sparse=True), long_tol),
+        "auto": (lambda a: spt.permanent(a, calc="auto"), RANGE_TOL),
+        "glynn tf96": (lambda a: spt.permanent(
+            a.T.copy(), calc="tf96", perman_algo="glynn"), long_tol),
+        "quad host walk": (lambda a: without_native(
+            lambda: spt.permanent(a, calc="quad")), long_tol),
+        "glynn quad host walk": (lambda a: without_native(
+            lambda: spt.permanent(a.T.copy(), calc="quad",
+                                  perman_algo="glynn")), long_tol),
+        "quad native": (lambda a: spt.permanent(a, calc="quad", threads=8),
+                        long_tol),
+        "cpu dense": (lambda a: spt.permanent(a, cpu=True, gpu=False,
+                                              threads=8), RANGE_TOL),
+        "cpu sparse": (lambda a: spt.permanent(
+            a, cpu=True, gpu=False, sparse=True, threads=8), RANGE_TOL),
+        "cpu skipper": (lambda a: spt.permanent(
+            a, cpu=True, gpu=False, sparse=True, preprocessing=2,
+            threads=8), RANGE_TOL),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m.txt")
+
+        def from_file(a):
+            write_triplet(path, DenseMatrix(a, "double"))
+            return nat.read_calculate_return(path, 5, nt=8)
+
+        host_routes["read_calculate_return"] = (from_file, RANGE_TOL)
+        for tag, scale, signed in HOST_SCALES:
+            a = host_mat(scale, signed)
+            # Glynn's routes walk the transpose, the same permanent:
+            # Glynn scales the lines it sums across, the columns
+            for name, (call, tol) in host_routes.items():
+                hold(f"n18x{tag} {name}", a, call(a), tol)
+
+    # orders 1 and 2: the cancelling [[s, s], [s, -s]] (exact 0) and the
+    # seeded n=1, through permanent, Glynn, tf96 and permanent_batch
+    for tag, scale, _ in HOST_SCALES[:4]:
+        for a in (np.array([[1.0, 1.0], [1.0, -1.0]]) * scale,
+                  mat(1, 3, scale)):
+            for name, call in (
+                    ("ryser", lambda a: spt.permanent(a)),
+                    ("glynn", lambda a: spt.permanent(
+                        a, perman_algo="glynn")),
+                    ("tf96", lambda a: spt.permanent(a, calc="tf96")),
+                    ("permanent_batch",
+                     lambda a: spt.permanent_batch([a, a])[1])):
+                hold(f"n{a.shape[0]}x{tag} {name}", a, call(a), RANGE_TOL)
+
+    # the scaling estimator on the card, n=16 (entries past a float32's
+    # range at 1e300; rows 2^1200 apart), 10^4 trials
+    est = np.random.default_rng(16).random((16, 16))
+    for tag, a in (("1e300", est * 1e300), ("1e-300", est * 1e-300),
+                   ("rows2^+-600", np.ldexp(est, np.where(
+                       np.arange(16) % 2, -600, 600)[:, None]))):
+        for name, kw in (("sis", {}), ("smc", dict(smc=1))):
+            res = spt.permanent(a, approximation=True,
+                                perman_algo="scaling", number_of_times=10000,
+                                seed=1, **kw)
+            hold(f"n16x{tag} {name}", a, res, 0.0, res.meta["stderr"])
+
+    # the native engine's double walk on every lane-walk matrix, held
+    native = []
+    for shape in dict.fromkeys(s for _, s, _ in RANGE_CASES):
+        res = spt.permanent(mat(*shape), cpu=True, gpu=False, threads=8)
+        hold(f"native {shape}", mat(*shape), res, RANGE_TOL)
+        native.append(rows[-1])
+    launches = {"k1": dict(ryser_cuda.TIER_LAUNCHES),
+                "batch": ryser_cuda.BATCH_LAUNCHES,
+                "reduced": dict(ryser_cuda.REDUCED_LAUNCHES),
+                "amp": ryser_cuda.AMP_LAUNCHES - ryser_cuda.AMP_COND_LAUNCHES,
+                "cond": ryser_cuda.AMP_COND_LAUNCHES,
+                "modp": modp_cuda.LAUNCHES}
 
     # the lane routes through the entry points (their walls before the
-    # scales: lane_walls.py --against the tree before them)
+    # scales: lane_walls.py --against the tree before them), the host
+    # routes (lane_walls.py --host)
     walls = {name: w["this tree"] for name, w in
              lane_walls.walls({"this tree": spt}, dev, RANGE_REPS).items()}
+    host_walls = {name: w["this tree"] for name, w in lane_walls.walls(
+        {"this tree": spt}, dev, RANGE_HOST_REPS, host=True).items()}
 
     def scale_work(a):
-        """The host work that the row scales add to ryser_walk."""
+        """The host work that the row scales add to a walk."""
         s = walk_scales(a)
         np.ldexp(a, -s[:, None])
         return times_pow2(1.0, int(s.sum()))
 
     scales_ms = {}
-    for n in (12, 18):
+    for n in (12, 18, 32):
         a = mat(n, n, 1.0).astype(np.float64)
         times = []
         for _ in range(RANGE_REPS):
@@ -1382,19 +1539,15 @@ def walk_range_phase(dev, card) -> dict:
             times.append(time.perf_counter() - t)
         scales_ms[f"n={n}"] = statistics.median(times) * 1e3
 
-    native = []
-    if native_available():
-        for shape in dict.fromkeys(s for _, s, _ in RANGE_CASES):
-            res = spt.permanent(mat(*shape), cpu=True, gpu=False, threads=8)
-            native.append({"matrix": shape, "algo": res.algo_name,
-                           "value": show(res.permanent),
-                           "exact": show(exact[shape]),
-                           "ok": held(res.permanent, exact[shape],
-                                      RANGE_TOL)})
-    out = {"rows": rows, "walls": walls, "scales_ms": scales_ms,
-           "native": native,
+    out = {"rows": rows, "walls": walls, "host_walls": host_walls,
+           "scales_ms": scales_ms, "native": native, "launches": launches,
            "card": card, "phase_s": time.perf_counter() - t_phase}
     print("walk range: " + json.dumps(out))
+    on_host = sum(r["route"] == "host" for r in rows)
+    print(f"walk range: {len(rows)} rows held ({on_host} on the host by "
+          f"design); host walls (ms) "
+          f"{json.dumps({k: v['ms'] for k, v in host_walls.items()})}; "
+          f"scales alone (ms) {json.dumps(scales_ms)}; {card}")
     return out
 
 
@@ -2463,7 +2616,8 @@ def main() -> int:
     bl = bp["launches"]
 
     # ---- 9. the lane walks' range (row and column scales)
-    wr = walk_range_phase(dev, card)
+    wr = walk_range_phase(dev, card, zero_counts)
+    rl = wr["launches"]
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **more):
@@ -2492,6 +2646,7 @@ def main() -> int:
                      mesh_launches=host["mesh"][tier]["k1"],
                      tools_launches=tl["k1"][tier],
                      bench_launches=bl["k1"][tier],
+                     range_launches=rl["k1"][tier],
                      **({"mesh_glynn_launches":
                          host["mesh"]["glynn df64"]["k1"],
                          "hybrid_launches": host["hybrid"],
@@ -2504,6 +2659,7 @@ def main() -> int:
                       "superman_tpu/ops/ryser_pallas.py:685",
                       k2_launches[tier], k2[tier]["err"], *k2[tier]["n24"],
                       tier=tier, tools_launches=tl["batch"],
+                      range_launches=rl["batch"],
                       registers=regs.get(
                           f"ryser_batch_kernel<24,{TIERS.index(tier)}>"),
                       clocks_sm_mhz=k2[tier]["clock"],
@@ -2524,6 +2680,7 @@ def main() -> int:
                       *reduced[tier], tier=tier,
                       tools_launches=tl["reduced"][tier],
                       bench_launches=bl["reduced"][tier],
+                      range_launches=rl["reduced"][tier],
                       registers=sparse36[tier]["registers"],
                       clocks_sm_mhz=clocks[f"reduced_{tier}"],
                       plain_ms_chunks=sparse36[tier]["plain_chunks"],
@@ -2540,7 +2697,8 @@ def main() -> int:
                       "superman_tpu/ops/ryser_pallas.py:541",
                       amp_launches[variant], v["err"], v["ms"], v["plain_ms"],
                       v["bound"], variant=variant,
-                      tools_launches=tl[variant], registers=v["registers"],
+                      tools_launches=tl[variant], range_launches=rl[variant],
+                      registers=v["registers"],
                       clocks_sm_mhz=clocks[f"amp_{variant}"],
                       plain_ms_chunks=int(sampled_ids.numel()))
                 for variant, v in amp_sampled.items()]
@@ -2549,7 +2707,8 @@ def main() -> int:
                          mod_err, mod_ms, mod_plain_ms, mod_bound,
                          clocks_sm_mhz=clocks["modp"],
                          driver_launches=driver_launches["modp"],
-                         tools_launches=tl["modp"]))
+                         tools_launches=tl["modp"],
+                         range_launches=rl["modp"]))
     total = time.perf_counter() - t_script
     print(f"chip_smoke: {total:.1f} s from the probe to here, of it the "
           f"tools' phase {tools['walls']['phase']:.1f} s "

@@ -1,8 +1,13 @@
 // perman_cpu.cpp — native OpenMP CPU engine of superman_tpu_torch.
 //
 // A copy of superman_tpu/native/perman_cpu.cpp, the JAX package's engine,
-// which has no JAX in it.  Two lines differ from that file: this header
-// and the name that connect() prints.  The comments below are the
+// which has no JAX in it.  It differs from that file in this header, the
+// name that connect() prints, and the row scales: the exact walks
+// (dense, sparse, SkipPer) and the scaling estimator scale each row by
+// an exact power of two first and multiply the result back by 2^E
+// (scale_rows, times_pow2), where the original works on the matrix as
+// given and returns NaN where a product overflows and -0.0 where all
+// underflow.  The comments below are the
 // original's: "the TPU kernel" there is the chunk walk that this package
 // runs on the card (csrc/ryser_walk.cu), which keeps the same aligned
 // chunks and the same raw-sum convention.  superman_native.h beside it is
@@ -111,6 +116,64 @@ int pick_threads(int nt) {
   return nt;
 }
 
+// Row scales, the rule of ops/ryser_walk.walk_scales: row j of `out` is
+// row j of `a` times 2^-s_j, s_j the binary exponent (frexp) of the row's
+// largest |entry| plus that of the walk's bound on |x_j|, |b[n-1]| +
+// sum_k |b[k]| / 2 taken on the row b = a[j, :] times 2^-e_j (so no sum
+// overflows): every |x_j| stays below 1 along the Gray walk.  step > 1
+// rounds each s_j to the nearest multiple of step (floor((s + step/2) /
+// step) * step), so that rows within 2^(step/2) of 1 stay as given.
+// Returns E = sum_j s_j: the permanent of `a` is 2^E times that of `out`.
+long long scale_rows(const double* a, int n, std::vector<double>& out,
+                     int step = 1) {
+  out.resize((size_t)n * n);
+  long long E = 0;
+  for (int j = 0; j < n; j++) {
+    const double* row = a + (size_t)j * n;
+    double big = 0.0;
+    for (int k = 0; k < n; k++) big = std::max(big, std::fabs(row[k]));
+    int e, f;
+    std::frexp(big, &e);
+    double sum = 0.0;
+    for (int k = 0; k < n; k++) sum += std::ldexp(std::fabs(row[k]), -e);
+    std::frexp(std::ldexp(std::fabs(row[n - 1]), -e) + sum / 2, &f);
+    long long q = (long long)e + f + step / 2;
+    q = (q >= 0 ? q / step : -((-q + step - 1) / step)) * step;
+    for (int k = 0; k < n; k++)
+      out[(size_t)j * n + k] = std::ldexp(row[k], (int)-q);
+    E += q;
+  }
+  return E;
+}
+
+// t * 2^E rounded once to a double: +-inf beyond a double's range, +0.0
+// (never -0.0) below it or at zero.  The product is taken in t's type,
+// whose range (2^+-16384) holds every result a double can, so an E
+// clamped far beyond it changes nothing.
+double times_pow2(long double t, long long E) {
+  E = std::max(-40000LL, std::min(40000LL, E));
+  return (double)std::ldexp(t, (int)E) + 0.0;
+}
+
+double times_pow2(double t, long long E) {
+  return times_pow2((long double)t, E);
+}
+
+// 2^k for |k| <= 8192, exact, by squaring (no libquadmath)
+__float128 pow2q(int k) {
+  __float128 r = 1, b = k < 0 ? (__float128)0.5 : (__float128)2;
+  for (unsigned m = k < 0 ? -k : k; m; m >>= 1, b *= b)
+    if (m & 1u) r *= b;
+  return r;
+}
+
+double times_pow2(__float128 t, long long E) {
+  E = std::max(-40000LL, std::min(40000LL, E));
+  for (; E > 8192; E -= 8192) t *= pow2q(8192);
+  for (; E < -8192; E += 8192) t *= pow2q(-8192);
+  return (double)(t * pow2q((int)E)) + 0.0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -127,9 +190,11 @@ namespace {
 // x-vector/product type, ACC the per-thread accumulator type; the
 // (double, long double) instantiation is bit-identical to the historical
 // untemplated engine, and (__float128, __float128) is the parallel
-// quad-precision path (113-bit mantissa, beyond x87 long double).
+// quad-precision path (113-bit mantissa, beyond x87 long double).  It
+// returns the signed total in ACC; the entry points below walk the
+// row-scaled matrix and apply 2^E to it (times_pow2).
 template <class X, class ACC>
-double perman_dense_walk(const double* a, int n, int threads) {
+ACC perman_dense_walk(const double* a, int n, int threads) {
   threads = pick_threads(threads);
   const uint64_t total = 1ull << (n - 1);
   int r = n - 1;                       // chunk log2
@@ -178,7 +243,7 @@ double perman_dense_walk(const double* a, int n, int threads) {
   }
   ACC p = (ACC)0;
   for (auto v : partial) p += v;
-  return (double)((ACC)(4 * (n & 1) - 2) * p);
+  return (ACC)(4 * (n & 1) - 2) * p;
 }
 
 }  // namespace
@@ -190,10 +255,14 @@ extern "C" {
 // parity), 1 = full __float128 walk (reference -q, main.cpp:141-144).
 double sup_perman_dense(const double* a, int n, int threads, int calc_quad) {
   if (n == 0) return 1.0;
-  if (n == 1) return a[0];
+  if (n == 1) return a[0] + 0.0;
+  std::vector<double> b;
+  const long long E = scale_rows(a, n, b);
   if (calc_quad)
-    return perman_dense_walk<__float128, __float128>(a, n, threads);
-  return perman_dense_walk<double, long double>(a, n, threads);
+    return times_pow2(
+        perman_dense_walk<__float128, __float128>(b.data(), n, threads), E);
+  return times_pow2(
+      perman_dense_walk<double, long double>(b.data(), n, threads), E);
 }
 
 // Raw partial sum over an explicit list of aligned Gray chunks of size
@@ -260,7 +329,7 @@ double sup_perman_dense_chunks(const double* a, int n,
 namespace {
 
 template <class X, class ACC>
-double perman_sparse_walk(const double* a, int n, int threads) {
+ACC perman_sparse_walk(const double* a, int n, int threads) {
   threads = pick_threads(threads);
   Sparse s = to_sparse(a, n);
   const uint64_t total = 1ull << (n - 1);
@@ -314,7 +383,7 @@ double perman_sparse_walk(const double* a, int n, int threads) {
   }
   ACC p = (ACC)0;
   for (auto v : partial) p += v;
-  return (double)((ACC)(4 * (n & 1) - 2) * p);
+  return (ACC)(4 * (n & 1) - 2) * p;
 }
 
 }  // namespace
@@ -323,10 +392,14 @@ extern "C" {
 
 double sup_perman_sparse(const double* a, int n, int threads,
                          int calc_quad) {
-  if (n <= 1) return n ? a[0] : 1.0;
+  if (n <= 1) return n ? a[0] + 0.0 : 1.0;
+  std::vector<double> b;
+  const long long E = scale_rows(a, n, b);
   if (calc_quad)
-    return perman_sparse_walk<__float128, __float128>(a, n, threads);
-  return perman_sparse_walk<double, long double>(a, n, threads);
+    return times_pow2(
+        perman_sparse_walk<__float128, __float128>(b.data(), n, threads), E);
+  return times_pow2(
+      perman_sparse_walk<double, long double>(b.data(), n, threads), E);
 }
 
 // SkipPer: like sparse, but when the product is pinned at zero by a zero
@@ -337,7 +410,7 @@ double sup_perman_sparse(const double* a, int n, int threads,
 namespace {
 
 template <class X, class ACC>
-double perman_skipper_walk(const double* a, int n, int threads) {
+ACC perman_skipper_walk(const double* a, int n, int threads) {
   threads = pick_threads(threads);
   Sparse s = to_sparse(a, n);
   const uint64_t total = 1ull << (n - 1);
@@ -406,7 +479,7 @@ double perman_skipper_walk(const double* a, int n, int threads) {
   }
   ACC p = (ACC)0;
   for (auto v : partial) p += v;
-  return (double)((ACC)(4 * (n & 1) - 2) * p);
+  return (ACC)(4 * (n & 1) - 2) * p;
 }
 
 }  // namespace
@@ -415,10 +488,14 @@ extern "C" {
 
 double sup_perman_skipper(const double* a, int n, int threads,
                           int calc_quad) {
-  if (n <= 1) return n ? a[0] : 1.0;
+  if (n <= 1) return n ? a[0] + 0.0 : 1.0;
+  std::vector<double> b;
+  const long long E = scale_rows(a, n, b);
   if (calc_quad)
-    return perman_skipper_walk<__float128, __float128>(a, n, threads);
-  return perman_skipper_walk<double, long double>(a, n, threads);
+    return times_pow2(
+        perman_skipper_walk<__float128, __float128>(b.data(), n, threads), E);
+  return times_pow2(
+      perman_skipper_walk<double, long double>(b.data(), n, threads), E);
 }
 
 }  // extern "C" (Montgomery helpers below)
@@ -1186,10 +1263,15 @@ double sup_rasmussen(const double* a, int n, long long trials, int threads,
 }
 
 // Sinkhorn-scaling-guided estimator.
-double sup_approx_scaling(const double* a, int n, long long trials,
+double sup_approx_scaling(const double* a_given, int n, long long trials,
                           int scale_intervals, int scale_times, int threads,
                           unsigned long long seed, double* zeros_out) {
   threads = pick_threads(threads);
+  // rows in steps of 2^100 (ops/approx.py's ESTIMATOR_STEP): a row within
+  // 2^+-50 of 1 stays as given, so such a matrix draws what it drew
+  std::vector<double> scaled;
+  const long long E = scale_rows(a_given, n, scaled, 100);
+  const double* a = scaled.data();
   std::vector<double> partial(threads, 0.0), zeros(threads, 0.0);
 #pragma omp parallel num_threads(threads)
   {
@@ -1271,7 +1353,7 @@ double sup_approx_scaling(const double* a, int n, long long trials,
   double total = 0, z = 0;
   for (int t = 0; t < threads; t++) { total += partial[t]; z += zeros[t]; }
   if (zeros_out) *zeros_out = z;
-  return total / (double)trials;
+  return times_pow2(total / (double)trials, E);
 }
 
 // ------------------------------------------------ libConnect-style facade

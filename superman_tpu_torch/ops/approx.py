@@ -32,6 +32,12 @@ contribute 0 and are counted like the reference's "number of zeros"
 reference's GPU kernel does (gpu_approximation_dense.cu:281).  Under
 SUPERMAN_DEBUG_NANS (utils/debug.py) each trial function checks its
 float outputs for NaN on the device before it returns them.
+
+The scaling estimator first moves each row by an exact power of two in
+steps of 2^ESTIMATOR_STEP (ryser_walk.walk_scales) and multiplies the
+estimate and its stderr back by 2^E: the float32 trials cannot hold an
+entry past a float32's range, where the reference (approx.py:465-,
+634-) gives NaN.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch
 from ..core.matrix import DenseMatrix
 from ..core.result import Result
 from ..utils.debug import check_nan
+from .ryser_walk import times_pow2, walk_scales
 
 #: log2 weight of a dead particle, and the log2 mean of an epoch in which
 #: every particle died: a float32 stand-in for -inf whose sum over the
@@ -62,6 +69,26 @@ _SI_CANDIDATES = (2, 4)
 #: trials the hybrid CPU worker takes from the budget at a time (the
 #: reference's cpu_chunk)
 _CPU_CHUNK = 50000
+#: the scaling estimator's row exponents are multiples of this: a row
+#: within 2^+-50 of 1 keeps its entries, so a matrix the float32 trials
+#: hold draws the numbers it drew without scales, bit for bit (scaling
+#: every row to 1 would not: the first Sinkhorn sweep's column sums add
+#: rows of other scales, and float32 log2 rounds at its argument's
+#: magnitude); native/perman_cpu.cpp's estimator takes the same step
+ESTIMATOR_STEP = 100
+
+
+def _times_pow2_l2(f, l2: float, E: int) -> float:
+    """f(l2) * 2^E for f(l) = 2^l times a factor: f(l2) and an exact
+    ldexp where f(l2) is a normal double (so the estimate of a matrix
+    whose rows move by multiples of ESTIMATOR_STEP moves by exactly their
+    sum), else f(l2 + E), taken in log space; +0.0, never -0.0."""
+    with np.errstate(over="ignore"):
+        v = float(f(l2))
+        if E == 0 or (math.isfinite(v)
+                      and abs(v) >= np.finfo(np.float64).tiny):
+            return float(times_pow2(v, E))
+        return float(f(l2 + E)) + 0.0
 
 
 @contextlib.contextmanager
@@ -393,10 +420,13 @@ def _select_si(a: np.ndarray, flags, device: torch.device, pops: int):
     return win, logzs, dead_frac, total, meta
 
 
-def _approximate_smc(a: np.ndarray, flags, device: torch.device) -> Result:
+def _approximate_smc(a: np.ndarray, flags, device: torch.device,
+                     scale_log2: int = 0) -> Result:
     """Driver for the SMC population estimator: K independent
     populations give the estimate AND an honest stderr across
-    populations (each population's Z is itself unbiased)."""
+    populations (each population's Z is itself unbiased).  `a` is the
+    row-scaled matrix and 2^scale_log2 its scale: the estimate, its
+    stderr and the log2 values are the unscaled matrix's."""
     t0 = _time.perf_counter()
     pops = 8
     si = int(flags.scale_intervals)
@@ -417,10 +447,12 @@ def _approximate_smc(a: np.ndarray, flags, device: torch.device) -> Result:
         # relative stderr is finite even when the estimate overflows f64
         stderr_rel = float(np.std(zs, ddof=1)
                            / (np.mean(zs) * np.sqrt(pops)))
-        with np.errstate(over="ignore"):
-            est = float(np.exp2(est_l2)) + 0.0
-            stderr = float(np.exp2(mx)
-                           * np.std(zs, ddof=1) / np.sqrt(pops)) + 0.0
+        est = _times_pow2_l2(np.exp2, est_l2, scale_log2)
+        stderr = _times_pow2_l2(
+            lambda l2: np.exp2(l2) * np.std(zs, ddof=1) / np.sqrt(pops),
+            mx, scale_log2)
+    est_l2 += scale_log2
+    lz = lz + scale_log2
     return Result(est, _time.perf_counter() - t0,
                   algo_name="approx_scaling_smc",
                   zeros=int(dead_frac * total),
@@ -636,12 +668,16 @@ def approximate(dense: DenseMatrix, flags, device: torch.device,
     if algo == "rasmussen" and not np.all(np.isin(a[a != 0], [1])):
         # reference: "This algorithm only works for binary matrices"
         a = (a != 0).astype(np.float64)
+    E = 0
+    if algo == "scaling":
+        s = walk_scales(a, step=ESTIMATOR_STEP)
+        a, E = np.ldexp(a, -s[:, None]), int(s.sum())
 
     # SMC population estimator for large instances (smc: -1 engages at
     # n >= 64, where SIS attrition wastes most trials; 1 always; 0 never)
     smc_mode = int(flags.smc)
     if algo == "scaling" and (smc_mode == 1 or (smc_mode == -1 and n >= 64)):
-        return _approximate_smc(a, flags, device)
+        return _approximate_smc(a, flags, device, E)
 
     t0 = _time.perf_counter()
     trials = int(flags.number_of_times)
@@ -732,9 +768,8 @@ def approximate(dense: DenseMatrix, flags, device: torch.device,
         done += cpu_state["trials"]
         zeros += cpu_state["zeros"]
     # est = 2^total_l2 / done; beyond-f64 results become the honest inf
-    with np.errstate(over="ignore"):
-        est = float(np.exp2(total_l2 - np.log2(done))) + 0.0 \
-            if done else 0.0
+    est = _times_pow2_l2(np.exp2, total_l2 - np.log2(done), E) \
+        if done else 0.0
     # standard error of the MC mean (the reference reports only the
     # mean; X_i are iid, so stderr = sqrt(var/N)).  The CPU worker's
     # chunks report only their means, so the stderr covers the device's
@@ -745,9 +780,8 @@ def approximate(dense: DenseMatrix, flags, device: torch.device,
         # S2/mean^2 = 2^(ssq_l2 - 2 mean_l2); var = (S2 - N mean^2)/N
         ratio = float(np.exp2(min(ssq_l2 - 2.0 * mean_l2, 1024)))
         rel_var = max(ratio - n_dev, 0.0) / n_dev
-        with np.errstate(over="ignore"):
-            stderr = float(np.exp2(mean_l2)
-                           * np.sqrt(rel_var / n_dev)) + 0.0
+        stderr = _times_pow2_l2(
+            lambda l2: np.exp2(l2) * np.sqrt(rel_var / n_dev), mean_l2, E)
     name = f"approx_{algo}" + ("_hybrid" if cpu_thread is not None else "")
     return Result(est, _time.perf_counter() - t0,
                   algo_name=name, zeros=zeros,

@@ -20,9 +20,9 @@ from ..core.matrix import require_finite
 from ..core.result import Result
 from ..utils.debug import check_nan
 from . import gray
-from .oracle import gray_init_lanes, perman_brute
+from .oracle import gray_init_lanes
 from .ryser import _row_scales
-from .ryser_walk import times_pow2, walk_lanes, walk_scales
+from .ryser_walk import brute_scaled, times_pow2, walk_lanes, walk_scales
 
 #: largest order the serving batch groups
 BATCH_MAX_N = 32
@@ -50,7 +50,7 @@ def permanent_batch_same_n(mats: np.ndarray, device: torch.device,
     mats = np.asarray(mats, dtype=np.float64)
     B, n, _ = mats.shape
     if n <= 2:
-        return np.array([perman_brute(m) for m in mats])
+        return np.array([brute_scaled(m) for m in mats])
     s = walk_scales(mats)                                 # (B, n)
     mats = np.ldexp(mats, -s[:, :, None])
     total = 1 << (n - 1)

@@ -26,6 +26,7 @@ host code: that is its value.
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -60,14 +61,18 @@ def _pack_glynn(a_s: np.ndarray, n_pad: int):
 
 
 def glynn_scaled(a: np.ndarray, walk) -> float:
-    """Glynn's float64 route: walk(a') is the permanent of a', the matrix
-    with column j scaled by 2^-s_j (ryser_walk.walk_scales over columns),
-    times 2^E, E the sum of the s_j.  The reference walks the matrix as
-    given (glynn.py:73-78), and returns NaN where a product overflows;
-    here a permanent that a double holds comes back finite, one beyond
-    its range as +-inf, one below it as +0.0."""
+    """Glynn's host and lane routes: walk(a') is the permanent of a', the
+    matrix with column j scaled by 2^-s_j (ryser_walk.walk_scales over
+    columns), times 2^E, E the sum of the s_j, applied in the type walk
+    returns (a long-double walk's total is rounded to a double once).  A
+    long-double matrix is scaled in long double.  The reference walks the
+    matrix as given (glynn.py:73-80), and returns NaN where a product
+    overflows; here a permanent that a double holds comes back finite, one
+    beyond its range as +-inf, one below it as +0.0."""
     from .ryser_walk import times_pow2, walk_scales
-    a = np.asarray(a, dtype=np.float64)
+    a = np.asarray(a)
+    if a.dtype != np.longdouble:
+        a = a.astype(np.float64)
     s = walk_scales(a, axis=-2)
     return float(times_pow2(walk(np.ldexp(a, -s[None, :])), int(s.sum())))
 
@@ -108,21 +113,22 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
     t0 = time.perf_counter()
     if n <= 2 or calc in ("quad", "f64") or n < 19:
         from .oracle import perman_glynn
-        iters = 1 << max(n - 1, 0)
+        meta = {"calc": calc}
         if calc in ("quad", "tf96"):
             # quad (and small-n tf96) keep long-double precision on the
             # host walk, the same contract as ryser_exact's host route
-            p = perman_glynn(a, dtype=np.longdouble)
+            name = "glynn_host"
+            walk = functools.partial(perman_glynn, dtype=np.longdouble)
         elif device.type == "cpu":
-            p = glynn_scaled(a, perman_glynn)
+            name, walk = "glynn_host", perman_glynn
         else:
             # the float64 lane walk on the card, as ryser_walk walks Ryser
-            p = glynn_scaled(a, lambda m: glynn_lanes(m, device))
-            return Result(p, time.perf_counter() - t0,
-                          algo_name=f"glynn_walk_{calc}", iterations=iters,
-                          meta={"calc": calc, "device": str(device)})
-        return Result(float(p), time.perf_counter() - t0,
-                      algo_name="glynn_host", iterations=iters)
+            name = f"glynn_walk_{calc}"
+            walk = functools.partial(glynn_lanes, device=device)
+            meta["device"] = str(device)
+        return Result(glynn_scaled(a, walk), time.perf_counter() - t0,
+                      algo_name=name, iterations=1 << max(n - 1, 0),
+                      meta=meta)
 
     where = "cuda" if device.type == "cuda" else "plain"
     # trivial zero: an empty row or column zeroes every Glynn term, and

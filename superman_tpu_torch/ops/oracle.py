@@ -61,11 +61,13 @@ def gray_init_lanes(a: np.ndarray, bases_l: np.ndarray, r: int,
     return X, sign_mid
 
 
-def perman64(a: np.ndarray, dtype=np.float64, max_lanes: int = 1 << 16) -> float:
+def perman64(a: np.ndarray, dtype=np.float64, max_lanes: int = 1 << 16):
     """Exact permanent, lane-vectorized Nijenhuis–Wilf Ryser walk.
 
     Oracle parity: reference perman64 (algo.h:1031) — same formula, same
     iteration space, evaluated in float64 (or longdouble for quad parity).
+    From n=2 the value is a scalar of `dtype` (np.float64 is a float), so
+    a long-double walk's result is rounded only where its caller rounds it.
     """
     a = np.asarray(a)
     n = a.shape[0]
@@ -90,7 +92,7 @@ def perman64(a: np.ndarray, dtype=np.float64, max_lanes: int = 1 << 16) -> float
             s = 1.0 - 2.0 * ((m >> (k + 1)) & 1)
         X += s * cols[None, :, k]
         acc += (1.0 - 2.0 * (m & 1)) * X.prod(axis=1).sum(dtype=dtype)
-    return float((4 * (n & 1) - 2) * acc)
+    return (4 * (n & 1) - 2) * acc
 
 
 def perman_brute(a: np.ndarray):
@@ -139,7 +141,7 @@ def glynn_init_lanes(a: np.ndarray, bases_l: np.ndarray, r: int,
 
 
 def perman_glynn(a: np.ndarray, dtype=np.float64,
-                 max_lanes: int = 1 << 14) -> float:
+                 max_lanes: int = 1 << 14):
     """Exact permanent via the Glynn formula (host, lane-vectorized):
 
         per(A) = 2^(1-n) sum_{delta, delta_n=+1} (prod delta_i)
@@ -149,7 +151,8 @@ def perman_glynn(a: np.ndarray, dtype=np.float64,
     x_j = sum_i delta_i a_ij starts at the column sums and flipping
     delta_k adds -2 a[k, :]; the term sign (prod delta) telescopes to
     (-1)^m.  Independent of perman64 in formula and coefficients — used
-    for cross-algorithm agreement."""
+    for cross-algorithm agreement.  From n=2 the value is a scalar of
+    `dtype`, as perman64's."""
     a = np.asarray(a, dtype=dtype)
     n = a.shape[0]
     if n == 0:
@@ -171,6 +174,6 @@ def perman_glynn(a: np.ndarray, dtype=np.float64,
             s = 1.0 - 2.0 * ((m >> (k + 1)) & 1)
         X += s * flips[None, k, :]
         acc += (1.0 - 2.0 * (m & 1)) * X.prod(axis=1).sum(dtype=dtype)
-    return float(acc * 2.0 ** (1 - n))
+    return acc * 2.0 ** (1 - n)
 
 

@@ -267,9 +267,8 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
     t0 = time.perf_counter()
 
     if n <= 2:
-        from .oracle import perman_brute
-        p = perman_brute(a)
-        return Result(float(p), time.perf_counter() - t0,
+        from .ryser_walk import brute_scaled
+        return Result(brute_scaled(a), time.perf_counter() - t0,
                       algo_name="ryser_exact", iterations=1)
 
     if calc == "quad" or (calc == "tf96" and n < 19):
@@ -277,10 +276,16 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
         # without its native library (single-threaded host work,
         # practical up to n ~ 24).  Small-n tf96 lands here too: the walk
         # meets the tier's contract, the float64 walk below would quietly
-        # degrade it
+        # degrade it.  The rows are scaled as the lane walks scale them
+        # (the reference walks them as given, ryser.py:257-266: NaN where
+        # a product overflows, -0.0 where all underflow), and 2^E is
+        # applied to the long-double total before it is rounded
         from .oracle import perman64
-        p = perman64(a, dtype=np.longdouble)
-        return Result(float(p), time.perf_counter() - t0,
+        from .ryser_walk import times_pow2, walk_scales
+        s = walk_scales(a)
+        total = perman64(np.ldexp(a, -s[:, None]), dtype=np.longdouble)
+        return Result(float(times_pow2(total, int(s.sum()))),
+                      time.perf_counter() - t0,
                       algo_name=f"ryser_{calc}_host",
                       iterations=1 << (n - 1), meta={"calc": calc})
 

@@ -49,7 +49,7 @@ def walk_lanes(X: torch.Tensor, sign_mid: torch.Tensor, cols: torch.Tensor,
     return acc
 
 
-def walk_scales(a: np.ndarray, axis: int = -1) -> np.ndarray:
+def walk_scales(a: np.ndarray, axis: int = -1, step: int = 1) -> np.ndarray:
     """Exponents s for the lane walks: 2^-s_j scales row j (Glynn, axis=-2:
     column j) of an (n, n) matrix, or of each matrix of a (B, n, n) stack,
     so that every |x_j| stays below 1 along the walk.  The bound of |x_j|
@@ -57,24 +57,52 @@ def walk_scales(a: np.ndarray, axis: int = -1) -> np.ndarray:
     columns glynn._col_scales' (abs column sum), but taken on the line
     times 2^-e_j, e_j the exponent of its largest |entry| (np.frexp), so
     that no sum overflows, and not clipped: ldexp takes any exponent.  A
-    non-finite entry leaves its line's exponent finite (frexp gives 0),
-    so its NaN reaches the walk's sum, where SUPERMAN_DEBUG_NANS names the
-    walk."""
-    ab = np.abs(np.asarray(a, dtype=np.float64))
+    long-double matrix (the -v storage) is bounded in long double, any
+    other in float64.  A non-finite entry leaves its line's exponent
+    finite (frexp gives 0), so its NaN reaches the walk's sum, where
+    SUPERMAN_DEBUG_NANS names the walk.
+
+    step > 1 rounds each exponent to the nearest multiple of step (the
+    estimators' 100: a line whose bound lies within 2^+-50 of 1 keeps its
+    entries as given)."""
+    a = np.asarray(a)
+    ab = np.abs(a if a.dtype == np.longdouble
+                else a.astype(np.float64, copy=False))
     e = np.frexp(ab.max(axis=axis, keepdims=True))[1]
     b = np.ldexp(ab, -e)
     xmax = b.sum(axis=axis)
     if axis == -1:
         xmax = b[..., -1] + xmax / 2
-    return (np.squeeze(e, axis) + np.frexp(xmax)[1]).astype(np.int64)
+    s = (np.squeeze(e, axis) + np.frexp(xmax)[1]).astype(np.int64)
+    return (s + step // 2) // step * step
 
 
 def times_pow2(total, E):
-    """total * 2^E in float64 (elementwise on arrays), exact where the
-    result is a normal double: +-inf beyond a double's range, +0.0 (never
-    -0.0) where it underflows or is zero."""
-    with np.errstate(over="ignore"):
-        return np.ldexp(np.asarray(total, dtype=np.float64), E) + 0.0
+    """total * 2^E (elementwise on arrays) as float64, the product taken in
+    total's own type: a long double (a host walk's accumulator) is
+    multiplied in long double and rounded to a double once, anything else
+    in float64.  Exact where the result is a normal double: +-inf beyond a
+    double's range, +0.0 (never -0.0) where it underflows or is zero."""
+    t = np.asarray(total)
+    if t.dtype != np.longdouble:
+        t = t.astype(np.float64)
+    with np.errstate(over="ignore", under="ignore"):
+        return np.ldexp(t, E).astype(np.float64) + 0.0
+
+
+def brute_scaled(a: np.ndarray) -> float:
+    """The permanent of an order-1 or order-2 matrix by oracle.perman_brute,
+    as the reference multiplies them out (ryser.py:251-253,
+    ryser_xla.py:56-57, batch.py:37-38): an integer matrix as given
+    (Python ints, exact), any other with its rows scaled by walk_scales
+    and the product multiplied back by 2^E, so that [[1e200, 1e200],
+    [1e200, -1e200]] gives +0.0 and not inf - inf."""
+    a = np.asarray(a)
+    if a.dtype.kind in "biu" or a.size == 0:
+        return float(perman_brute(a))
+    s = walk_scales(a)
+    return float(times_pow2(perman_brute(np.ldexp(a, -s[:, None])),
+                            int(s.sum())))
 
 
 def ryser_walk(a: np.ndarray, device: torch.device,
@@ -86,7 +114,7 @@ def ryser_walk(a: np.ndarray, device: torch.device,
     a = np.asarray(a, dtype=np.float64)
     n = a.shape[0]
     if n <= 2:
-        return float(perman_brute(a))
+        return brute_scaled(a)
     s = walk_scales(a)
     a = np.ldexp(a, -s[:, None])
     total = 1 << (n - 1)

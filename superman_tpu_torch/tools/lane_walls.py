@@ -3,14 +3,20 @@ routes that permanent() and permanent_batch() take below the kernels'
 orders, on one CUDA card.
 
     python -m superman_tpu_torch.tools.lane_walls [--against DIR] [--reps 21]
+    python -m superman_tpu_torch.tools.lane_walls --host [--against DIR]
 
 The routes: permanent(a) (the float64 lane walk; the card's default tier,
 df64, takes it below n=19) and permanent(a, calc="f32") (the float32
 walk) at n=12 and n=18, permanent(a, perman_algo="glynn") (Glynn's
 float64 route) at n=12 and n=18, and permanent_batch of 64 matrices of
 n=12 (the small-order batch walk); each matrix
-np.random.default_rng(seed).integers(1, 5, (n, n)).  Every route is
-called once to warm up, then --reps times; the median host wall in ms.
+np.random.default_rng(seed).integers(1, 5, (n, n)).  With --host the
+host routes instead: permanent(a, calc="tf96") at n=18 (the long-double
+host walk) and permanent(a, cpu=True, gpu=False, threads=8) on
+chip_smoke.py's n=32 matrix (random_int_matrix(default_rng(32), 32,
+0.5); the native engine's double walk, seconds a call, so --reps
+defaults to 3 there).  Every route is called once to warm up, then
+--reps times; the median host wall in ms.
 
 --against DIR loads the superman_tpu_torch of another checkout (say an
 unpacked `git archive` of an earlier commit) beside this one, under
@@ -36,15 +42,28 @@ import numpy as np
 
 #: the small-order batch: matrices of order BATCH_N, seeds 0..BATCH_B-1
 BATCH_B, BATCH_N = 64, 12
+#: the native engine's threads on the host routes (the card's host has 8
+#: cores)
+NATIVE_THREADS = 8
 
 
 def mat(n: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(1, 5, (n, n)) * 1.0
 
 
-def routes(spt, device) -> dict:
+def routes(spt, device, host: bool = False) -> dict:
     """name -> a call of the route through the package `spt` on
-    `device`, returning its Result (the batch: its first Result)."""
+    `device`, returning its Result (the batch: its first Result); with
+    `host`, the host routes."""
+    if host:
+        from .kernel_time import random_int_matrix
+        a18 = mat(18, 18)
+        a32 = random_int_matrix(np.random.default_rng(32), 32, 0.5)
+        return {"tf96 host walk n=18": lambda: spt.permanent(
+                    a18, device=device, calc="tf96"),
+                "native double walk n=32": lambda: spt.permanent(
+                    a32, device=device, cpu=True, gpu=False,
+                    threads=NATIVE_THREADS)}
     out = {}
     for n in (12, 18):
         a = mat(n, n)
@@ -73,12 +92,13 @@ def load_tree(root: str, name: str = "superman_tpu_torch_against"):
     return mod
 
 
-def walls(pkgs: dict, device, reps: int) -> dict:
+def walls(pkgs: dict, device, reps: int, host: bool = False) -> dict:
     """route -> {label: {"algo", "ms"}} for each package of `pkgs`
     ({label: superman_tpu_torch module}): one warm-up call each, then
     `reps` turns in which every package is called once, the order turned
-    round every other turn; "ms" the median wall."""
-    calls = {label: routes(spt, device) for label, spt in pkgs.items()}
+    round every other turn; "ms" the median wall.  `host`: the host
+    routes (routes())."""
+    calls = {label: routes(spt, device, host) for label, spt in pkgs.items()}
     out = {}
     for name in calls[next(iter(pkgs))]:
         turn = [(label, calls[label][name]) for label in pkgs]
@@ -100,8 +120,14 @@ def main(argv=None) -> int:
     ap.add_argument("--against", default=None,
                     help="another checkout whose superman_tpu_torch is "
                          "timed in turns with this one")
-    ap.add_argument("--reps", type=int, default=21)
+    ap.add_argument("--reps", type=int, default=None,
+                    help="timed calls a route (default 21, --host 3)")
+    ap.add_argument("--host", action="store_true",
+                    help="time the host routes (the n=18 tf96 host walk, "
+                         "the native n=32 double walk)")
     args = ap.parse_args(argv)
+    if args.reps is None:
+        args.reps = 3 if args.host else 21
     import torch
     import superman_tpu_torch as spt
     if not torch.cuda.is_available():
@@ -116,7 +142,7 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({"card": card, "reps": args.reps,
                       "walls": walls(pkgs, torch.device("cuda"),
-                                     args.reps)}))
+                                     args.reps, args.host)}))
     return 0
 
 
