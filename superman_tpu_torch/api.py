@@ -167,18 +167,18 @@ def permanent(matrix: Union[np.ndarray, DenseMatrix, str, None] = None,
     compression=True, scaling_threshold=1.0, dm_prune=True,
     rectangular=True, approximation=True.
     """
-    flag_fields = {f.name for f in dataclasses.fields(Flags)}
-    unknown = set(overrides) - flag_fields
-    if unknown:
-        raise TypeError(f"unknown flags: {sorted(unknown)}")
-    flags = Flags(**overrides)
-    dev = resolve_device(device, flags)
-    dm, rect = _as_dense(matrix, flags)
-    with trace.profile("superman_tpu_torch.permanent"):
+    with trace.entry("superman_tpu_torch.permanent") as spans:
+        with trace.timer("api_prepare"):
+            flag_fields = {f.name for f in dataclasses.fields(Flags)}
+            unknown = set(overrides) - flag_fields
+            if unknown:
+                raise TypeError(f"unknown flags: {sorted(unknown)}")
+            flags = Flags(**overrides)
+            dev = resolve_device(device, flags)
+            dm, rect = _as_dense(matrix, flags)
         with trace.timer(f"permanent[{flags.algo_name or flags.perman_algo}]",
                          level=2):
             res = run(dm, flags, dev)
-    spans = trace.drain_spans()
     if spans:
         res.meta.setdefault("spans", spans)
     if rect is not None:

@@ -18,6 +18,7 @@ import torch
 
 from ..core.matrix import require_finite
 from ..core.result import Result
+from ..utils import trace
 from ..utils.debug import check_nan
 from . import gray
 from .oracle import gray_init_lanes
@@ -126,49 +127,50 @@ def permanent_batch_kernel(mats: np.ndarray, calc: str = "df64", device=None,
     """
     from ..api import permanent, resolve_device
     from ..core.flags import Flags
-    from ..utils import trace
     from .ryser import _sm_count
     from .tf96 import sum_words
 
-    device = resolve_device(device, Flags())
-    mats = np.asarray(mats, dtype=np.float64)
-    B, n, _ = mats.shape
-    if calc not in BATCHED_CALCS:
-        raise ValueError(f"permanent_batch_kernel: unsupported calc "
-                         f"{calc!r} (one of {BATCHED_CALCS})")
-    if not KERNEL_MIN_N <= n <= BATCH_MAX_N:
-        raise ValueError(f"permanent_batch_kernel takes orders "
-                         f"{KERNEL_MIN_N}..{BATCH_MAX_N}, got {n}")
-    # whether the whole stack is exact, as the reference reports it; the
-    # df64 and f32 tiers walk the same way either way
-    exact_storage = bool(exact_storage_mask(mats).all())
-    if calc == "tf96" and not exact_storage:
-        raise ValueError(
-            "permanent_batch_kernel: calc='tf96' needs exact-f32 storage "
-            "(integer values, row abs-sums below 2^22) in every matrix; "
-            "walk the others as calc='df64'")
+    with trace.timer("batch_group"):
+        device = resolve_device(device, Flags())
+        mats = np.asarray(mats, dtype=np.float64)
+        B, n, _ = mats.shape
+        if calc not in BATCHED_CALCS:
+            raise ValueError(f"permanent_batch_kernel: unsupported calc "
+                             f"{calc!r} (one of {BATCHED_CALCS})")
+        if not KERNEL_MIN_N <= n <= BATCH_MAX_N:
+            raise ValueError(f"permanent_batch_kernel takes orders "
+                             f"{KERNEL_MIN_N}..{BATCH_MAX_N}, got {n}")
+        # whether the whole stack is exact, as the reference reports it;
+        # the df64 and f32 tiers walk the same way either way
+        exact_storage = bool(exact_storage_mask(mats).all())
+        if calc == "tf96" and not exact_storage:
+            raise ValueError(
+                "permanent_batch_kernel: calc='tf96' needs exact-f32 "
+                "storage (integer values, row abs-sums below 2^22) in "
+                "every matrix; walk the others as calc='df64'")
 
     with trace.timer("batch_pack"):
         x0p, colsT, s, zero = pack_stack(mats)
     r = gray.batch_plan(n, B, chunk_log2, sms=_sm_count(device))
     with trace.timer("batch_walk"):
         o = walk_stack(x0p, colsT, n=n, r=r, calc=calc, device=device)
-    # a matrix's few blocks are summed as the single-matrix path sums its
-    # chunks: hi + lo, then float64 (tf96: all the words as double-doubles,
-    # tf96.sum_words)
-    if calc == "tf96":
-        tot = sum_words(o)
-    else:
-        tot = (o[:, :, 0] + o[:, :, 1]).sum(axis=1)
-    sign = 4 * (n & 1) - 2
-    E = s.sum(axis=1)
-    with np.errstate(over="ignore"):
-        per = np.array([float(sign * np.ldexp(t, int(e)))
-                        for t, e in zip(tot, E)])
-    per[zero] = 0.0
-    # underflowed totals: the single-matrix engine's retry loop recovers
-    # the lost terms
-    redo = np.nonzero(~zero & (np.abs(tot) < 2.0 ** -40))[0]
+    with trace.timer("batch_finish"):
+        # a matrix's few blocks are summed as the single-matrix path sums
+        # its chunks: hi + lo, then float64 (tf96: all the words as
+        # double-doubles, tf96.sum_words)
+        if calc == "tf96":
+            tot = sum_words(o)
+        else:
+            tot = (o[:, :, 0] + o[:, :, 1]).sum(axis=1)
+        sign = 4 * (n & 1) - 2
+        E = s.sum(axis=1)
+        with np.errstate(over="ignore"):
+            per = np.array([float(sign * np.ldexp(t, int(e)))
+                            for t, e in zip(tot, E)])
+        per[zero] = 0.0
+        # underflowed totals: the single-matrix engine's retry loop
+        # recovers the lost terms
+        redo = np.nonzero(~zero & (np.abs(tot) < 2.0 ** -40))[0]
     for i in redo:
         per[i] = permanent(mats[i], calc=calc, device=device).permanent
     meta = {"calc": calc, "batch": B, "r": r,
@@ -199,9 +201,18 @@ def permanent_batch(mats: Sequence[np.ndarray], device=None,
     that holds a NaN or infinite entry, fails the whole call with a
     ValueError naming its index (and the entry), and no result is
     computed."""
+    with trace.entry("superman_tpu_torch.permanent_batch") as spans:
+        results = _permanent_batch(mats, device, overrides)
+    if spans:
+        for res in results:
+            res.meta.setdefault("spans", spans)
+    return results
+
+
+def _permanent_batch(mats, device, overrides: dict) -> List[Result]:
+    """permanent_batch inside its trace.entry."""
     from ..api import permanent, resolve_device
     from ..core.flags import Flags
-    from ..utils import trace
 
     calc = overrides.get("calc", "df64")
     batchable_calc = calc in BATCHED_CALCS
@@ -214,27 +225,32 @@ def permanent_batch(mats: Sequence[np.ndarray], device=None,
                   f"({why}); the serving-batch speedup does not apply",
                   level=0)
 
-    mats = [np.asarray(m) for m in mats]
-    for i, m in enumerate(mats):
-        if m.ndim != 2 or m.shape[0] != m.shape[1]:
-            raise ValueError(f"matrix {i} is not square")
-        require_finite(m, f"matrix {i}")
+    with trace.timer("batch_check"):
+        mats = [np.asarray(m) for m in mats]
+        for i, m in enumerate(mats):
+            if m.ndim != 2 or m.shape[0] != m.shape[1]:
+                raise ValueError(f"matrix {i} is not square")
+            require_finite(m, f"matrix {i}")
     t0 = time.perf_counter()
     results: List[Result] = [None] * len(mats)
-    groups: dict = {}
-    for i, m in enumerate(mats):
-        n = m.shape[0]
-        if 2 < n <= BATCH_MAX_N and batchable and (n >= KERNEL_MIN_N
-                                                   or calc != "tf96"):
-            tier = calc
-            if calc == "tf96" and not exact_storage_mask(
-                    m.astype(np.float64)[None])[0]:
-                tier = "df64"
-            groups.setdefault((n, tier), []).append(i)
-        else:
-            # tf96 below 13 too: the small-order batch walk is plain
-            # float64 and would quietly downgrade the tier
-            results[i] = permanent(m, device=device, **overrides)
+    with trace.timer("batch_group"):
+        groups: dict = {}
+        singles = []
+        for i, m in enumerate(mats):
+            n = m.shape[0]
+            if 2 < n <= BATCH_MAX_N and batchable and (n >= KERNEL_MIN_N
+                                                       or calc != "tf96"):
+                tier = calc
+                if calc == "tf96" and not exact_storage_mask(
+                        m.astype(np.float64)[None])[0]:
+                    tier = "df64"
+                groups.setdefault((n, tier), []).append(i)
+            else:
+                # tf96 below 13 too: the small-order batch walk is plain
+                # float64 and would quietly downgrade the tier
+                singles.append(i)
+    for i in singles:
+        results[i] = permanent(mats[i], device=device, **overrides)
     if groups:
         dev = resolve_device(device, Flags())
     if any(tier != calc for _, tier in groups):
@@ -242,7 +258,8 @@ def permanent_batch(mats: Sequence[np.ndarray], device=None,
         warnings.warn("tf96 requires exact-f32 storage; falling back to "
                       "df64 for the matrices without it")
     for (n, tier), idxs in groups.items():
-        stack = np.stack([mats[i].astype(np.float64) for i in idxs])
+        with trace.timer("batch_group"):
+            stack = np.stack([mats[i].astype(np.float64) for i in idxs])
         if n >= KERNEL_MIN_N:
             vals, meta = permanent_batch_kernel(stack, tier, dev)
             where = "cuda" if dev.type == "cuda" else "plain"
@@ -253,12 +270,10 @@ def permanent_batch(mats: Sequence[np.ndarray], device=None,
             vals = permanent_batch_same_n(stack, dev)
             meta = {"calc": calc, "batch": len(idxs), "device": str(dev)}
             name = "ryser_walk_batch"
-        dt = time.perf_counter() - t0
-        for i, v in zip(idxs, vals):
-            results[i] = Result(float(v), dt, algo_name=name,
-                                iterations=1 << (n - 1), meta=dict(meta))
-    spans = trace.drain_spans()
-    if spans:
-        for res in results:
-            res.meta.setdefault("spans", spans)
+        with trace.timer("batch_finish"):
+            dt = time.perf_counter() - t0
+            for i, v in zip(idxs, vals):
+                results[i] = Result(float(v), dt, algo_name=name,
+                                    iterations=1 << (n - 1),
+                                    meta=dict(meta))
     return results

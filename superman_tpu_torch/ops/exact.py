@@ -30,6 +30,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
+
 #: the host walk's primes live just under 2^61: sums x + c < 2^62 stay
 #: clear of u64, and ~61 bits/prime keeps the CRT prime count minimal
 _PRIME_CEIL = (1 << 61) - 1
@@ -338,12 +340,13 @@ def perman_exact_fraction(a: np.ndarray, device: torch.device,
     meta["engine"] says which ran.
     """
     t0 = time.perf_counter()
-    a = np.asarray(a, dtype=np.float64)
-    n0 = a.shape[0]
-    m, k = dyadic_int_matrix(a)
-    core, mult = _fold_lines(m)
-    den = 1 << (k * n0)
-    meta = {"k": k, "core_n": len(core), "n": n0}
+    with trace.timer("exact_lift"):
+        a = np.asarray(a, dtype=np.float64)
+        n0 = a.shape[0]
+        m, k = dyadic_int_matrix(a)
+        core, mult = _fold_lines(m)
+        den = 1 << (k * n0)
+        meta = {"k": k, "core_n": len(core), "n": n0}
     if mult == 0:
         meta["wall_s"] = time.perf_counter() - t0
         return Fraction(0), meta
@@ -403,12 +406,13 @@ def perman_exact_fraction(a: np.ndarray, device: torch.device,
                 meta.update(nprimes=need, bound_bits=round(bits, 1))
         else:
             raise ValueError(f"unknown exact engine {engine!r}")
-    per_int = mult * per_core
-    frac = Fraction(per_int, den)
-    meta["wall_s"] = time.perf_counter() - t0
-    if per_int:
-        meta["log2"] = (1.0 if per_int > 0 else -1.0,
-                        log2_abs_fraction(frac))
+    with trace.timer("exact_crt"):
+        per_int = mult * per_core
+        frac = Fraction(per_int, den)
+        meta["wall_s"] = time.perf_counter() - t0
+        if per_int:
+            meta["log2"] = (1.0 if per_int > 0 else -1.0,
+                            log2_abs_fraction(frac))
     if log:
         log(f"exact CRT: core n={meta['core_n']} "
             f"primes={meta.get('nprimes')} wall={meta['wall_s']:.1f}s")
@@ -440,12 +444,13 @@ def perman_exact(dense, flags, device: torch.device):
     engine = "native" if (flags.cpu and not flags.gpu) else None
     frac, meta = perman_exact_fraction(a, device, threads=flags.threads,
                                        engine=engine)
-    val = _float_of_fraction(frac)
-    res = Result(val, meta["wall_s"], algo_name="exact_crt")
-    res.meta["exact"] = {
-        "log2": (log2_abs_fraction(frac) if frac else -math.inf),
-        "core_n": meta["core_n"], "nprimes": meta.get("nprimes"),
-        "engine": meta.get("engine"), "k": meta["k"],
-    }
-    res.meta["exact_fraction"] = frac
+    with trace.timer("exact_crt"):
+        val = _float_of_fraction(frac)
+        res = Result(val, meta["wall_s"], algo_name="exact_crt")
+        res.meta["exact"] = {
+            "log2": (log2_abs_fraction(frac) if frac else -math.inf),
+            "core_n": meta["core_n"], "nprimes": meta.get("nprimes"),
+            "engine": meta.get("engine"), "k": meta["k"],
+        }
+        res.meta["exact_fraction"] = frac
     return res

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import gray, modp_cuda
 
 #: the CRT prime pool descends from here (the kernel takes odd p < 2^31)
@@ -92,27 +93,29 @@ def pack_glynn_mod(am: np.ndarray, p: int, n_pad: int):
 def _walk_sum(x0, cols, p: int, device: torch.device, n: int, ids=None,
               r=None) -> int:
     """Sum over the walked chunks of the kernel's residues, mod p.  The
-    host sums in int64, exact because chunks * p < 2^63."""
+    host sums in int64, exact because chunks * p < 2^63; span
+    `exact_walk`."""
     from .ryser import _sm_count
-    sms = _sm_count(device)
-    if r is None:
-        r = gray.make_plan(n, sms=sms).r
-    if ids is None:
-        ids_t = torch.arange(1 << max(0, n - 1 - r), dtype=torch.int64,
-                             device=device)
-    else:
-        ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int64),
-                                device=device)
-        # a pruned plan may leave fewer chunks than the card has thread
-        # slots: split them into aligned sub-chunks
-        ids_t, r = gray.split_chunks(ids_t, r,
-                                     sms * gray.RESIDENT_CHUNKS_PER_SM)
-    if ids_t.numel() >= 1 << 32:
-        raise ValueError(f"{ids_t.numel()} chunks: the int64 residue sum "
-                         f"needs fewer than 2^32")
-    res = modp_cuda.mod_partials(ids_t, x0.to(device), cols.to(device), p,
-                                 n=n, r=int(r))
-    return int(res.sum()) % p
+    with trace.timer("exact_walk"):
+        sms = _sm_count(device)
+        if r is None:
+            r = gray.make_plan(n, sms=sms).r
+        if ids is None:
+            ids_t = torch.arange(1 << max(0, n - 1 - r), dtype=torch.int64,
+                                 device=device)
+        else:
+            ids_t = torch.as_tensor(np.asarray(ids, dtype=np.int64),
+                                    device=device)
+            # a pruned plan may leave fewer chunks than the card has
+            # thread slots: split them into aligned sub-chunks
+            ids_t, r = gray.split_chunks(ids_t, r,
+                                         sms * gray.RESIDENT_CHUNKS_PER_SM)
+        if ids_t.numel() >= 1 << 32:
+            raise ValueError(f"{ids_t.numel()} chunks: the int64 residue "
+                             f"sum needs fewer than 2^32")
+        res = modp_cuda.mod_partials(ids_t, x0.to(device), cols.to(device),
+                                     p, n=n, r=int(r))
+        return int(res.sum()) % p
 
 
 def perman_core_mod(core, p: int, device: torch.device, ids=None,
@@ -131,8 +134,9 @@ def perman_core_mod(core, p: int, device: torch.device, ids=None,
         return int(core[0][0]) % p
     if ids is not None and len(ids) == 0:
         return 0          # every chunk carries a zero row: per == 0
-    am = reduce_core_mod(core, p)
-    x0, cols = pack_mod(am, p, gray.pad_n(n))
+    with trace.timer("exact_pack"):
+        am = reduce_core_mod(core, p)
+        x0, cols = pack_mod(am, p, gray.pad_n(n))
     acc = _walk_sum(x0, cols, p, device, n, ids, r)
     acc = (2 * acc) % p
     if not (n & 1):
@@ -153,8 +157,9 @@ def perman_core_glynn_mod(core, p: int, device: torch.device) -> int:
         return 1 % p
     if n == 1:
         return int(core[0][0]) % p
-    am = reduce_core_mod(core, p)
-    y0, cols = pack_glynn_mod(am, p, gray.pad_n(n))
+    with trace.timer("exact_pack"):
+        am = reduce_core_mod(core, p)
+        y0, cols = pack_glynn_mod(am, p, gray.pad_n(n))
     acc = _walk_sum(y0, cols, p, device, n)
     return acc * pow((p + 1) // 2, n - 1, p) % p
 
@@ -329,47 +334,48 @@ def crt_perman_core(core, device: torch.device, *, log=None,
     """
     from .exact import _PRIME_CEIL, _is_prime_u64, _log2_bound
     t0 = time.perf_counter()
-    n = len(core)
-    fp = core_fingerprint(core)
-    bits = _log2_bound(core) + 3
-    if backend == "native":
-        from ..bindings.native import cpu_ifma
-        engine = "native_mod_crt"
-        ceil_p = ((1 << 50) - 1) if cpu_ifma() else _PRIME_CEIL
-    elif backend == "device":
-        engine = "cuda_mod" if device.type == "cuda" else "plain_mod"
-        ceil_p = PRIME_CEIL
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
-    need_primes, cov, c = [], 0.0, ceil_p
-    while cov < bits or not need_primes:
+    with trace.timer("exact_plan"):
+        n = len(core)
+        fp = core_fingerprint(core)
+        bits = _log2_bound(core) + 3
+        if backend == "native":
+            from ..bindings.native import cpu_ifma
+            engine = "native_mod_crt"
+            ceil_p = ((1 << 50) - 1) if cpu_ifma() else _PRIME_CEIL
+        elif backend == "device":
+            engine = "cuda_mod" if device.type == "cuda" else "plain_mod"
+            ceil_p = PRIME_CEIL
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
+        need_primes, cov, c = [], 0.0, ceil_p
+        while cov < bits or not need_primes:
+            while not _is_prime_u64(c):
+                c -= 2
+            need_primes.append(c)
+            cov += math.log2(c)
+            c -= 2
         while not _is_prime_u64(c):
             c -= 2
-        need_primes.append(c)
-        cov += math.log2(c)
-        c -= 2
-    while not _is_prime_u64(c):
-        c -= 2
-    verifier = c
-    known = {}
-    if checkpoint_path and os.path.exists(checkpoint_path):
-        stale = 0
-        with open(checkpoint_path) as f:
-            for line in f:
-                row = json.loads(line)
-                if row.get("fp") == fp:
-                    known[int(row["p"])] = int(row["res"])
-                else:
-                    stale += 1
-        if stale and log:
-            log(f"{engine}: ignoring {stale} checkpoint rows from a "
-                f"different core (fingerprint mismatch)")
-    plan = core_plan(core)
-    if plan is not None:
-        col_perm, ids, r, live_frac = plan
-        work = [[core[i][j] for j in col_perm] for i in range(n)]
-    else:
-        work, ids, r, live_frac = core, None, None, 1.0
+        verifier = c
+        known = {}
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            stale = 0
+            with open(checkpoint_path) as f:
+                for line in f:
+                    row = json.loads(line)
+                    if row.get("fp") == fp:
+                        known[int(row["p"])] = int(row["res"])
+                    else:
+                        stale += 1
+            if stale and log:
+                log(f"{engine}: ignoring {stale} checkpoint rows from a "
+                    f"different core (fingerprint mismatch)")
+        plan = core_plan(core)
+        if plan is not None:
+            col_perm, ids, r, live_frac = plan
+            work = [[core[i][j] for j in col_perm] for i in range(n)]
+        else:
+            work, ids, r, live_frac = core, None, None, 1.0
     if backend == "native":
         from ..bindings.native import perman_mod_batch, perman_mod_pruned
 
@@ -402,18 +408,19 @@ def crt_perman_core(core, device: torch.device, *, log=None,
         if log:
             log(f"{engine}: prime {i + 1}/{len(need_primes) + 1} "
                 f"(p={p}) done at {time.perf_counter() - t0:.1f}s")
-    X, P = 0, 1
-    for rr, p in zip(residues[:-1], need_primes):
-        t = (rr - X) * pow(P, -1, p) % p
-        X += P * t
-        P *= p
-    if X > P // 2:
-        X -= P
-    if X % verifier != residues[-1]:
-        raise AssertionError(
-            f"{engine} CRT verification prime mismatch -- modular walk "
-            f"or reconstruction is broken")
-    meta = {"engine": engine, "nprimes": len(need_primes),
-            "bound_bits": round(bits, 1), "live_frac": live_frac,
-            "r": r, "wall_s": time.perf_counter() - t0}
+    with trace.timer("exact_crt"):
+        X, P = 0, 1
+        for rr, p in zip(residues[:-1], need_primes):
+            t = (rr - X) * pow(P, -1, p) % p
+            X += P * t
+            P *= p
+        if X > P // 2:
+            X -= P
+        if X % verifier != residues[-1]:
+            raise AssertionError(
+                f"{engine} CRT verification prime mismatch -- modular walk "
+                f"or reconstruction is broken")
+        meta = {"engine": engine, "nprimes": len(need_primes),
+                "bound_bits": round(bits, 1), "live_frac": live_frac,
+                "r": r, "wall_s": time.perf_counter() - t0}
     return X, meta

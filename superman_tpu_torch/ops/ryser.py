@@ -299,48 +299,53 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                       iterations=1 << (n - 1),
                       meta={"calc": calc, "device": str(device)})
 
-    exact_storage = _exact_storage(dense)
-    # the hybrid scheduler (and a checkpoint journal, which routes through
-    # it even without the CPU worker) journals float64 unit sums of the
-    # unweighted walk: no tf96, no factored rows
-    scheduler = bool(flags.hybrid or flags.checkpoint_path)
-    if calc == "tf96" and (not exact_storage or scheduler):
-        # tf96 needs x updates that are exact in f32 (the int suites) and
-        # the long-double reduction
-        import warnings
-        warnings.warn("tf96 requires exact-f32 storage and the non-hybrid "
-                      "path; falling back to df64")
-        calc = "df64"
-    tf = calc == "tf96"
+    # the kernel path's checks and plan, up to the row scales: two
+    # spans on either side of the sparse planner's
+    with trace.timer("engine_plan"):
+        exact_storage = _exact_storage(dense)
+        # the hybrid scheduler (and a checkpoint journal, which routes
+        # through it even without the CPU worker) journals float64 unit
+        # sums of the unweighted walk: no tf96, no factored rows
+        scheduler = bool(flags.hybrid or flags.checkpoint_path)
+        if calc == "tf96" and (not exact_storage or scheduler):
+            # tf96 needs x updates that are exact in f32 (the int suites)
+            # and the long-double reduction
+            import warnings
+            warnings.warn("tf96 requires exact-f32 storage and the "
+                          "non-hybrid path; falling back to df64")
+            calc = "df64"
+        tf = calc == "tf96"
 
-    # the kernel on a card, its plain version on the CPU
-    name = f"ryser_{'cuda' if device.type == 'cuda' else 'plain'}_{calc}"
-    # trivial zero: an empty row or column makes the permanent 0 and also
-    # breaks the row-scaling heuristic, so dispose of it here
-    if (np.count_nonzero(a, axis=1) == 0).any() or \
-       (np.count_nonzero(a, axis=0) == 0).any():
-        return Result(0.0, time.perf_counter() - t0, algo_name=name,
-                      iterations=0, meta={"reason": "empty row/col"})
+        # the kernel on a card, its plain version on the CPU
+        name = (f"ryser_{'cuda' if device.type == 'cuda' else 'plain'}"
+                f"_{calc}")
+        # trivial zero: an empty row or column makes the permanent 0 and
+        # also breaks the row-scaling heuristic, so dispose of it here
+        if (np.count_nonzero(a, axis=1) == 0).any() or \
+           (np.count_nonzero(a, axis=0) == 0).any():
+            return Result(0.0, time.perf_counter() - t0, algo_name=name,
+                          iterations=0, meta={"reason": "empty row/col"})
 
-    from ..parallel.mesh import process_info
-    from ..parallel.multihost import combine_host_totals, host_slice
-    from ..parallel.sharding import compute_total, pad_ids
-    sms = _sm_count(device)
-    num_shards = 1 if mesh is None else len(mesh)
-    # several processes: each walks its interleaved share of the blocks
-    # and the totals are combined (parallel/multihost.py)
-    proc_index, nprocs = process_info()
-    plan = None
-    factor_rows = None
-    alive_rows = None
-    sparse_meta = None
-    # auto-sparse: on clearly sparse inputs the pruned engine engages
-    # even without flags.sparse (the planner declines when unprofitable,
-    # and its candidate evaluation costs tens of milliseconds of host
-    # time, only worth it from n = 28).  skip_pruning=False forces the
-    # pure dense walk.
-    density = np.count_nonzero(a) / max(1, a.size)
-    auto_sparse = n >= 28 and density < 0.30
+        from ..parallel.mesh import process_info
+        from ..parallel.multihost import combine_host_totals, host_slice
+        from ..parallel.sharding import compute_total, pad_ids
+        sms = _sm_count(device)
+        num_shards = 1 if mesh is None else len(mesh)
+        # several processes: each walks its interleaved share of the
+        # blocks and the totals are combined (parallel/multihost.py)
+        proc_index, nprocs = process_info()
+        plan = None
+        factor_rows = None
+        alive_rows = None
+        sparse_meta = None
+        # auto-sparse: on clearly sparse inputs the pruned engine engages
+        # even without flags.sparse (the planner declines when
+        # unprofitable, and its candidate evaluation costs tens of
+        # milliseconds of host time, only worth it from n = 28).
+        # skip_pruning=False forces the pure dense walk.
+        density = np.count_nonzero(a) / max(1, a.size)
+        auto_sparse = n >= 28 and density < 0.30
+    sp = None
     if chunk_ids is None and (flags.sparse or auto_sparse) \
             and flags.skip_pruning:
         from .pruning import plan_sparse
@@ -348,6 +353,7 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
             sp = plan_sparse(a, chunk_log2=flags.chunk_log2,
                              giters=K1_GITERS[calc],
                              allow_factor=not scheduler)
+    with trace.timer("engine_plan"):
         if sp is not None:
             a = np.ascontiguousarray(a[:, sp.col_perm])
             chunk_ids = sp.ids
@@ -364,31 +370,35 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
             sparse_meta = {"dead_frac": round(sp.dead_frac, 4),
                            "factored_rows": len(sp.factor_rows),
                            "r": sp.r}
-    if plan is None:
-        plan = gray.make_plan(n, flags.lanes, flags.chunk_log2, sms=sms,
-                              grid_multip=int(flags.grid_multip),
-                              min_blocks=32 if scheduler else 1)
-    # a pruned list goes through the weighted, block-reduced walk, which
-    # masks its own sentinels; the dense walk keeps per-chunk partials,
-    # and so does the scheduler, on the pruned list too
-    pruned = chunk_ids is not None
-    if pruned:
-        chunk_ids = np.asarray(chunk_ids, dtype=np.int64)
-        live = len(chunk_ids)
-        if live == 0:
-            return Result(0.0, time.perf_counter() - t0, algo_name=name,
-                          iterations=0, meta={"reason": "all chunks pruned"})
-    else:
-        live = plan.num_chunks
-        chunk_ids = np.arange(live, dtype=np.int64)
-    reduced = pruned and not scheduler
-    ids_blocks = chunk_ids if reduced else pad_ids(chunk_ids, plan.lanes)
-    trace.log(f"plan: n={n} n_pad={plan.n_pad} r={plan.r} "
-              f"lanes={plan.lanes} chunks={live}/{plan.num_chunks} "
-              f"calc={calc} device={device} shards={num_shards} "
-              f"processes={nprocs}", level=2)
+        if plan is None:
+            plan = gray.make_plan(n, flags.lanes, flags.chunk_log2,
+                                  sms=sms,
+                                  grid_multip=int(flags.grid_multip),
+                                  min_blocks=32 if scheduler else 1)
+        # a pruned list goes through the weighted, block-reduced walk,
+        # which masks its own sentinels; the dense walk keeps per-chunk
+        # partials, and so does the scheduler, on the pruned list too
+        pruned = chunk_ids is not None
+        if pruned:
+            chunk_ids = np.asarray(chunk_ids, dtype=np.int64)
+            live = len(chunk_ids)
+            if live == 0:
+                return Result(0.0, time.perf_counter() - t0,
+                              algo_name=name, iterations=0,
+                              meta={"reason": "all chunks pruned"})
+        else:
+            live = plan.num_chunks
+            chunk_ids = np.arange(live, dtype=np.int64)
+        reduced = pruned and not scheduler
+        ids_blocks = (chunk_ids if reduced
+                      else pad_ids(chunk_ids, plan.lanes))
+        trace.log(f"plan: n={n} n_pad={plan.n_pad} r={plan.r} "
+                  f"lanes={plan.lanes} chunks={live}/{plan.num_chunks} "
+                  f"calc={calc} device={device} shards={num_shards} "
+                  f"processes={nprocs}", level=2)
 
-    scales = _center_scales(a, _row_scales(a))
+    with trace.timer("scales"):
+        scales = _center_scales(a, _row_scales(a))
     hybrid_stats = None
     best = None                 # (total, E) of the last FINITE attempt
     shifted = 0                 # cumulative per-row downshift (log2)
@@ -396,7 +406,8 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
     for attempt in range(3):
         # ldexp applies the per-row exponent exactly even when 2**-s
         # alone would overflow double (rows at 2^-500 scale fine)
-        a_s = np.ldexp(a.astype(np.float64), -scales[:, None])
+        with trace.timer("scales"):
+            a_s = np.ldexp(a.astype(np.float64), -scales[:, None])
         factors = None
         with trace.timer("pack"):
             if factor_rows is not None:
