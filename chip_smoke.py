@@ -6,8 +6,9 @@ Builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version on the card at its path's shapes, and drives
 the paths through the package's entry points: superman_tpu_torch.permanent
 at n=32 with calc="df64", "f32", "f32k" and "tf96" (the Ryser walk,
-csrc/ryser_walk.cu), with perman_algo="glynn" (the same kernel under the
-Glynn packing) and with calc="exact" (the Z_p walk, csrc/modp_walk.cu,
+csrc/ryser_walk.cu; the df64, f32 and f32k totals through its
+block-reduced entry ryser_walk_blocks), with perman_algo="glynn" (the
+same kernel under the Glynn packing) and with calc="exact" (the Z_p walk, csrc/modp_walk.cu,
 under the modular CRT engine), and superman_tpu_torch.permanent_batch
 (the serving batch, csrc/ryser_batch.cu) on 256 matrices of n=24, 16 of
 n=32 and a mixed list; the sparse engine (the pruned, factored walk,
@@ -68,7 +69,8 @@ prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
-    path (the counts are set to 0 before every path and read after it;
+    path (ryser_walk_<tier> counts K1's per-chunk launches and
+    ryser_walk_blocks its block-reduced ones; the counts are set to 0 before every path and read after it;
     `driver_launches` holds them on the driver paths, `mesh_launches`,
     `mesh_glynn_launches`, `hybrid_launches` and `multihost_launches`
     on the host layer's, `tools_launches` over the tools' phase,
@@ -132,6 +134,8 @@ TF96_TOL = 1e-15
 #: magnitudes, which stand ~5e3 (n=24) and ~1e5 (n=32) above n!
 ONES_TOL = {24: 1e-13, 32: 1e-14}
 TIERS = ("df64", "f32", "f32k", "tf96")
+#: the tiers of K1's block-reduced entry (ryser_cuda.ryser_blocks)
+BLOCK_TIERS = ("df64", "f32", "f32k")
 #: the sparse engine against exact integers: df64's accumulation over the
 #: live steps, and tf96's last rounding with some room (its weights are
 #: double-doubles, so nothing is lost before the final double)
@@ -573,10 +577,11 @@ from superman_tpu_torch.ops import ryser_cuda
 from superman_tpu_torch.tools.kernel_time import random_int_matrix
 a = random_int_matrix(np.random.default_rng({seed}), {n}, 0.5)
 spt.permanent(a, device={device!r})                # warm-up
-ryser_cuda.LAUNCHES = 0
+ryser_cuda.LAUNCHES = ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"] = 0
 res = spt.permanent(a, device={device!r})
 print("RESULT", json.dumps({{"value": res.permanent.hex(),
                             "launches": ryser_cuda.LAUNCHES,
+                            "blocks": ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"],
                             "processes": process_info()[1],
                             "wall_s": res.time}}))
 """
@@ -683,6 +688,7 @@ def host_layer_phases(dev, a32, a36, bin32, zero_counts,
         zero_counts()
         many, many_wall = timed(lambda: fn(dm, flags, dev, mesh=mesh))
         launches = {"k1": ryser_cuda.LAUNCHES,
+                    "blocks": sum(ryser_cuda.DENSE_BLOCK_LAUNCHES.values()),
                     "reduced": sum(ryser_cuda.REDUCED_LAUNCHES.values())}
         many_wall = min(many_wall, min(timed(lambda: fn(
             dm, flags, dev, mesh=mesh))[1] for _ in range(2)))
@@ -804,6 +810,7 @@ def host_layer_phases(dev, a32, a36, bin32, zero_counts,
           f"K1 launches, walls {[round(r['wall_s'], 4) for r in results]} s; "
           f"one process {one!r}")
     out["multihost"] = [r["launches"] for r in results]
+    out["multihost_blocks"] = [r["blocks"] for r in results]
     walls["multihost_s"] = [r["wall_s"] for r in results]
     if values[0] != values[1] or any(r["processes"] != 2 for r in results) \
             or not rel_err(values[0], one) <= MULTIHOST_TOL \
@@ -1001,6 +1008,7 @@ def tools_phase(dev, zero_counts) -> dict:
     walls["phase"] = time.perf_counter() - t_phase
     out["launches"] = {
         "k1": dict(ryser_cuda.TIER_LAUNCHES),
+        "blocks": dict(ryser_cuda.DENSE_BLOCK_LAUNCHES),
         "batch": ryser_cuda.BATCH_LAUNCHES,
         "reduced": dict(ryser_cuda.REDUCED_LAUNCHES),
         "amp": ryser_cuda.AMP_LAUNCHES - ryser_cuda.AMP_COND_LAUNCHES,
@@ -1178,8 +1186,9 @@ def nan_switch_phase(dev, a32, a36, stack_a, card) -> dict:
             checked.append(raises(
                 f"ryser_walk_reduced ({tier})",
                 lambda: sharding.compute_total(
-                    sp36.ids, rx0, rcols, rplan, dev, tier, factors=factors,
-                    sms=sms), f"reduced {tier}"))
+                    rx0, rcols, rplan, dev, tier,
+                    sparse=(sp36.ids, *factors), sms=sms),
+                f"reduced {tier}"))
         x0p, colsT, _, _ = batch.pack_stack(np.asarray(stack_a, np.float64))
         x0p[len(x0p) // 2, 0] = np.nan
         for tier in TIERS:
@@ -1274,6 +1283,7 @@ def bench_phase(dev, zero_counts) -> dict:
                                                   flush=True))
     wall = time.perf_counter() - t
     launches = {"k1": dict(ryser_cuda.TIER_LAUNCHES),
+                "blocks": dict(ryser_cuda.DENSE_BLOCK_LAUNCHES),
                 "reduced": dict(ryser_cuda.REDUCED_LAUNCHES)}
     print("bench: " + json.dumps(line))
     bad = bench.failures(line)
@@ -1509,6 +1519,7 @@ def walk_range_phase(dev, card, zero_counts) -> dict:
         hold(f"native {shape}", mat(*shape), res, RANGE_TOL)
         native.append(rows[-1])
     launches = {"k1": dict(ryser_cuda.TIER_LAUNCHES),
+                "blocks": dict(ryser_cuda.DENSE_BLOCK_LAUNCHES),
                 "batch": ryser_cuda.BATCH_LAUNCHES,
                 "reduced": dict(ryser_cuda.REDUCED_LAUNCHES),
                 "amp": ryser_cuda.AMP_LAUNCHES - ryser_cuda.AMP_COND_LAUNCHES,
@@ -1571,6 +1582,8 @@ def main() -> int:
         for tier in TIERS:
             ryser_cuda.REDUCED_LAUNCHES[tier] = 0
             ryser_cuda.TIER_LAUNCHES[tier] = 0
+        for tier in BLOCK_TIERS:
+            ryser_cuda.DENSE_BLOCK_LAUNCHES[tier] = 0
         modp_cuda.LAUNCHES = 0
 
     # ---- 1. probe and build
@@ -1777,6 +1790,7 @@ def main() -> int:
     if best.algo_name != "ryser_cuda_df64" or not rel <= MAIN_TOL:
         raise AssertionError(f"n=32: {best.algo_name} rel {rel:.3e}")
     k1_launches = {"df64": ryser_cuda.LAUNCHES}
+    k1_blocks = {"df64": ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"]}
     zero_counts()
     for n, a, want in small:
         res = spt.permanent(a, calc="df64")
@@ -1798,6 +1812,7 @@ def main() -> int:
         res = min((spt.permanent(a32, calc=tier) for _ in range(3)),
                   key=lambda res: res.time)
         k1_launches[tier] = ryser_cuda.LAUNCHES
+        k1_blocks[tier] = ryser_cuda.DENSE_BLOCK_LAUNCHES.get(tier, 0)
         rel_t = rel_err(res.permanent, EXACT_N32)
         print(f"main path n=32 {tier}: {res.permanent!r} in {res.time:.4f} s "
               f"(best of 3), rel err {rel_t:.3e} vs the exact integer "
@@ -1810,6 +1825,14 @@ def main() -> int:
         tier_vals[tier] = res.permanent
     if min(k1_launches.values()) <= 0:
         raise AssertionError(f"a tier's path did not launch K1: {k1_launches}")
+    # the totals go through the block-reduced entry alone; tf96 keeps its
+    # per-chunk words
+    print(f"n=32 path, K1 launches of the block-reduced entry (4 calls a "
+          f"tier): {k1_blocks}")
+    if k1_blocks != {t: k1_launches[t] if t in BLOCK_TIERS else 0
+                     for t in TIERS}:
+        raise AssertionError(f"n=32 path: block-reduced launches "
+                             f"{k1_blocks} of the K1 launches {k1_launches}")
 
     # ---- 3a. the high-precision tier where df64 is weakest, and Glynn
     # per(J_n) = n!: all-ones matrices cancel hardest
@@ -1828,11 +1851,13 @@ def main() -> int:
     # the second formula through the same kernel: its own packing, scales
     # and host code
     glynn_launches = {}
+    glynn_blocks = {}
     for tier, tol in (("df64", MAIN_TOL), ("tf96", TF96_TOL)):
         zero_counts()
         res = min((spt.permanent(a32, perman_algo="glynn", calc=tier)
                    for _ in range(2)), key=lambda res: res.time)
         glynn_launches[tier] = ryser_cuda.LAUNCHES
+        glynn_blocks[tier] = ryser_cuda.DENSE_BLOCK_LAUNCHES.get(tier, 0)
         rel_g = rel_err(res.permanent, EXACT_N32)
         vs_ryser = rel_err(res.permanent, tier_vals[tier])
         print(f"Glynn n=32 {tier}: {res.permanent!r} in {res.time:.4f} s "
@@ -2204,7 +2229,7 @@ def main() -> int:
     # engine's price on the card fits runner.CERT_BUDGET_S
     from superman_tpu_torch.drivers import runner
     from superman_tpu_torch.prep.dulmage_mendelsohn import dm_prune
-    driver_launches = {"k1": {}, "reduced": {}, "modp": {}}
+    driver_launches = {"k1": {}, "blocks": {}, "reduced": {}, "modp": {}}
     walls = {}
 
     def driver_path(tag, fn):
@@ -2231,6 +2256,7 @@ def main() -> int:
                                  f"matrix; the drivers no longer reach it "
                                  f"through the module attribute")
         got = {"k1": ryser_cuda.LAUNCHES,
+               "blocks": ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"],
                "reduced": ryser_cuda.REDUCED_LAUNCHES["df64"],
                "modp": modp_cuda.LAUNCHES}
         for k, v in got.items():
@@ -2502,7 +2528,7 @@ def main() -> int:
                 f"2^{plan.r}): kernel {kernel_ms:.3f} ms "
                 f"({(1 << 31) / kernel_ms / 1e6:.1f} G steps/s), "
                 f"SM clock {clocks[f'k1_{tier}']} MHz, "
-                f"{regs.get(f'ryser_walk_kernel<{plan.n_pad},{TIERS.index(tier)}>')}"
+                f"{regs.get(f'ryser_walk_kernel<{plan.n_pad},{TIERS.index(tier)},0>')}"
                 f" registers")
         if tier == "tf96":
             # its plain version takes ~130 launches a step: it ran once, on
@@ -2523,6 +2549,39 @@ def main() -> int:
             k1_err[tier] = max(k1_err[tier], compare(kern, plain, ids))
         k1[tier] = (kernel_ms, plain_ms, walk_bound(
             1 << 31, 32, tier, nbytes_of(ids, x0, cols, kern)))
+
+    # K1's block-reduced entry at the same plan, as the dense totals
+    # launch it: every block row, the ids made on the card, each block of
+    # 128 chunks summed there; against its plain version on every row, bit
+    # for bit
+    rows = torch.arange(-(-plan.num_chunks // plan.lanes), device=dev)
+    block_walk = {}
+    for tier in BLOCK_TIERS:
+        def run_blocks():
+            return ryser_cuda.ryser_blocks(
+                rows, x0, cols, n=32, r=plan.r, lanes=plan.lanes,
+                num_chunks=plan.num_chunks, tier=tier)
+        run_blocks()                                      # warm-up
+        blocks_ms, kern = cuda_ms(run_blocks, 5)
+        clocks[f"blocks_{tier}"] = sm_clock(run_blocks)
+        plain_ms, plain = cuda_ms(lambda: ryser_cuda.ryser_blocks_ref(
+            rows, x0, cols, n=32, r=plan.r, lanes=plan.lanes,
+            num_chunks=plan.num_chunks, tier=tier), 1)
+        reg = regs.get(f"ryser_walk_kernel<{plan.n_pad},"
+                       f"{TIERS.index(tier)},1>")
+        print(f"ryser_walk_blocks {tier}, full plan ({rows.numel()} block "
+              f"rows of {plan.lanes} chunks of 2^{plan.r}, {kern.shape[0]} "
+              f"block pairs): kernel {blocks_ms:.3f} ms "
+              f"({(1 << 31) / blocks_ms / 1e6:.1f} G steps/s), SM clock "
+              f"{clocks[f'blocks_{tier}']} MHz, {reg} registers; plain "
+              f"{plain_ms:.1f} ms:")
+        err = compare(kern, plain, None)
+        if not torch.equal(kern, plain):
+            raise AssertionError(f"ryser_walk_blocks {tier}: kernel and "
+                                 f"plain version differ")
+        block_walk[tier] = {"err": err, "registers": reg, "times": (
+            blocks_ms, plain_ms, walk_bound(
+                1 << 31, 32, tier, nbytes_of(rows, x0, cols, kern)))}
 
     # the amp tier's variants at the same plan; their plain versions ran
     # on the sampled ids of phase 2e, whose sums the full plan must repeat
@@ -2628,31 +2687,66 @@ def main() -> int:
                 **({"issue_bound_ms": bnd[2]} if len(bnd) > 2 else {}),
                 **more}
 
+    def chunks_only(k1, k1b):
+        """K1's per-chunk launches: all of them less the block-reduced."""
+        if isinstance(k1, dict):
+            return {k: v - k1b.get(k, 0) for k, v in k1.items()}
+        return k1 - k1b
+
     # every walk entry carries its instantiation's registers at the path's
-    # N_PAD and the SM clock sampled beside its timing
+    # N_PAD and the SM clock sampled beside its timing; ryser_walk_<tier>
+    # is the per-chunk instantiation <N_PAD, TIER, 0> and its launches,
+    # ryser_walk_blocks the block-reduced <N_PAD, TIER, 1> and its
     kernels = [entry(f"ryser_walk_{tier}",
                      "superman_tpu_torch/csrc/ryser_walk.cu",
                      "superman_tpu/ops/ryser_pallas.py:541",
-                     k1_launches[tier], k1_err[tier], *k1[tier],
+                     chunks_only(k1_launches[tier], k1_blocks[tier]),
+                     k1_err[tier], *k1[tier],
                      registers=regs.get(f"ryser_walk_kernel<{plan.n_pad},"
-                                        f"{TIERS.index(tier)}>"),
+                                        f"{TIERS.index(tier)},0>"),
                      clocks_sm_mhz=clocks[f"k1_{tier}"],
                      **({"plain_ms_chunks": int(sampled_ids.numel())}
                         if tier == "tf96" else {}),
-                     **({"glynn_launches": glynn_launches[tier]}
+                     **({"glynn_launches": chunks_only(
+                         glynn_launches[tier], glynn_blocks[tier])}
                         if tier in glynn_launches else {}),
-                     **({"driver_launches": driver_launches["k1"]}
+                     **({"driver_launches": chunks_only(
+                         driver_launches["k1"], driver_launches["blocks"])}
                         if tier == "df64" else {}),
-                     mesh_launches=host["mesh"][tier]["k1"],
-                     tools_launches=tl["k1"][tier],
-                     bench_launches=bl["k1"][tier],
-                     range_launches=rl["k1"][tier],
-                     **({"mesh_glynn_launches":
-                         host["mesh"]["glynn df64"]["k1"],
-                         "hybrid_launches": host["hybrid"],
-                         "multihost_launches": host["multihost"]}
+                     mesh_launches=chunks_only(host["mesh"][tier]["k1"],
+                                               host["mesh"][tier]["blocks"]),
+                     tools_launches=chunks_only(
+                         tl["k1"][tier], tl["blocks"].get(tier, 0)),
+                     bench_launches=chunks_only(
+                         bl["k1"][tier], bl["blocks"].get(tier, 0)),
+                     range_launches=chunks_only(
+                         rl["k1"][tier], rl["blocks"].get(tier, 0)),
+                     **({"hybrid_launches": host["hybrid"]}
                         if tier == "df64" else {}))
                for tier in TIERS]
+    # the block-reduced entry at the n=32 full plan (launches: 4 calls of
+    # permanent a tier); the widening and the block sum are a few hundred
+    # operations a chunk and are left out of the bound
+    kernels += [entry("ryser_walk_blocks",
+                      "superman_tpu_torch/csrc/ryser_walk.cu",
+                      "superman_tpu/ops/ryser_pallas.py:541",
+                      k1_blocks[tier], block_walk[tier]["err"],
+                      *block_walk[tier]["times"], tier=tier,
+                      registers=block_walk[tier]["registers"],
+                      clocks_sm_mhz=clocks[f"blocks_{tier}"],
+                      **({"glynn_launches": glynn_blocks[tier]}
+                         if tier in glynn_blocks else {}),
+                      **({"driver_launches": driver_launches["blocks"]}
+                         if tier == "df64" else {}),
+                      mesh_launches=host["mesh"][tier]["blocks"],
+                      tools_launches=tl["blocks"][tier],
+                      bench_launches=bl["blocks"][tier],
+                      range_launches=rl["blocks"][tier],
+                      **({"mesh_glynn_launches":
+                          host["mesh"]["glynn df64"]["blocks"],
+                          "multihost_launches": host["multihost_blocks"]}
+                         if tier == "df64" else {}))
+                for tier in BLOCK_TIERS]
     # ms, plain_ms and bound_ms at 256 x n=24; beside them the kernel at
     # 16 x n=32 and kernel and plain version at the first 2 of those
     kernels += [entry("ryser_batch", "superman_tpu_torch/csrc/ryser_batch.cu",

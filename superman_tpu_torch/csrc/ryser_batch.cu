@@ -57,19 +57,8 @@ ryser_batch_kernel(const typename walk::Real<TIER>::type* __restrict__ x0s,
   walk::walk_chunk<N_PAD, TIER>(c, x0s + (size_t)b * N_PAD, col_s, n, r, hi,
                                 lo);
 
-  const int t = threadIdx.x;
-  red_hi[t] = hi;
-  red_lo[t] = lo;
-  __syncthreads();
-  for (int s = kThreads / 2; s >= 1; s >>= 1) {
-    if (t < s) {
-      walk::acc_merge<TIER, T>(hi, lo, red_hi[t + s], red_lo[t + s]);
-      red_hi[t] = hi;
-      red_lo[t] = lo;
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
+  walk::block_sum<TIER, T>(hi, lo, red_hi, red_lo);
+  if (threadIdx.x == 0) {
     T* o = out + 2 * ((size_t)b * gridDim.x + blockIdx.x);
     o[0] = hi;
     o[1] = lo;

@@ -10,10 +10,18 @@
 //
 // What it computes: one thread walks one aligned chunk of 2^r Gray steps
 // (walk.cuh, which also says what bounds the walk on this card and what
-// the design does about it) and writes that chunk's partial sum as a
-// (hi, lo) pair of the tier's type; the host adds hi + lo per chunk and
-// sums the chunks in float64 (tf96: all words in long double).  Chunk ids
-// < 0 are sentinels and write 0.  The TPU's f32-pair and f32-triple
+// the design does about it).  ryser_walk_kernel has two outputs.  Per
+// chunk (ryser_walk_<tier>: the per-chunk partials, the tf96 tier, the
+// hybrid scheduler's units), each thread writes its chunk's partial sum as
+// a (hi, lo) pair of the tier's type, and chunk ids < 0 are sentinels that
+// write 0.  Block-reduced (ryser_walk_blocks: the dense walk's total in
+// df64, f32 and f32k), the host hands in only the block rows it walks: each
+// thread derives its chunk id from its row and lane, widens its pair to a
+// double-double, and the block of 128 adds its pairs in a fixed halving
+// order (walk.cuh block_sum), so one double (hi, lo) pair a block comes
+// back; threads past the plan's chunks enter the sum as exact zeros.  The
+// host then adds hi + lo per block and sums the blocks in float64 (tf96:
+// all chunk words in long double).  The TPU's f32-pair and f32-triple
 // emulation, 16-step unroll, lane vectorisation and multi-block programs
 // have no counterpart here.
 //
@@ -24,13 +32,13 @@
 // count rounded up to 8, so a step multiplies fewer rows than the matrix
 // has), each thread multiplies its chunk's partial by the chunk's weight,
 // the product of the factored rows, which it computes from its id, and the
-// block of 128 adds its pairs in the batch kernel's fixed halving order:
-// no floating-point atomics, one (hi, lo) pair a block.  Sentinel threads
-// do not walk and enter the reduction as exact zeros.  After the walk every
-// tier is a double-double: the f32 tiers widen their partial to double
-// before the weight, and the block sum is the double-double acc_merge.
-// What bounds both is the walk (walk.cuh says how, tier by tier); weight
-// and reduction are a few hundred operations a chunk.
+// block of 128 adds its pairs as ryser_walk_blocks does: no floating-point
+// atomics, one (hi, lo) pair a block.  Sentinel threads do not walk and
+// enter the reduction as exact zeros.  After the walk every tier is a
+// double-double: the f32 tiers widen their partial to double before the
+// weight, and the block sum is the double-double acc_merge.  What bounds
+// all three is the walk (walk.cuh says how, tier by tier); weight and
+// reduction are a few hundred operations a chunk.
 
 #include "walk.cuh"
 
@@ -38,32 +46,71 @@ namespace {
 
 using walk::kThreads;
 
-template <int N_PAD, int TIER>
+// What ryser_walk_kernel writes: the tier's (hi, lo) a chunk, or with
+// REDUCE one double (hi, lo) a block.
+template <int TIER, bool REDUCE>
+struct WalkOut {
+  using type = typename walk::Real<TIER>::type;
+};
+template <int TIER>
+struct WalkOut<TIER, true> {
+  using type = double;
+};
+
+// Without REDUCE, ids holds num_chunks chunk ids and out gets one pair a
+// chunk.  With REDUCE, ids holds block rows of `lanes` chunk ids each,
+// chunk id row * lanes + lane: block b walks lanes (b % bpr) * kThreads +
+// t, bpr = ceil(lanes / kThreads), of row ids[b / bpr], a lane past
+// `lanes` or an id outside [0, num_chunks) a sentinel, and out gets the
+// block's double-double sum.
+template <int N_PAD, int TIER, bool REDUCE>
 __global__ void __launch_bounds__(kThreads)
 ryser_walk_kernel(const long long* __restrict__ ids, long long num_chunks,
                   const typename walk::Real<TIER>::type* __restrict__ x0,
                   const typename walk::Real<TIER>::type* __restrict__ cols,
-                  int n, int r,
-                  typename walk::Real<TIER>::type* __restrict__ out) {
+                  int n, int r, int lanes,
+                  typename WalkOut<TIER, REDUCE>::type* __restrict__ out) {
   using T = typename walk::Real<TIER>::type;
-  T* col_s = walk::shared_as<T>();  // [(n-1) * N_PAD], column k at k*N_PAD
+  // [(n-1) * N_PAD] column table, column k at k*N_PAD; with REDUCE then
+  // kThreads hi words and kThreads lo words of double
+  T* col_s = walk::shared_as<T>();
   for (int i = threadIdx.x; i < (n - 1) * N_PAD; i += blockDim.x)
     col_s[i] = cols[i];
   __syncthreads();
 
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= num_chunks) return;
-  const long long l = ids[c];
-  if (l < 0) {
-    out[2 * c] = T(0);
-    out[2 * c + 1] = T(0);
-    return;
+  if constexpr (REDUCE) {
+    double* red_hi = reinterpret_cast<double*>(col_s + (n - 1) * N_PAD);
+    double* red_lo = red_hi + kThreads;
+    const unsigned bpr = (lanes + kThreads - 1) / kThreads;
+    const int lane = (int)(blockIdx.x % bpr) * kThreads + threadIdx.x;
+    const long long l = ids[blockIdx.x / bpr] * lanes + lane;
+    walk::dd p = {0.0, 0.0};
+    if (lane < lanes && l >= 0 && l < num_chunks) {
+      T hi, lo;
+      walk::walk_chunk<N_PAD, TIER>((unsigned long long)l, x0, col_s, n, r,
+                                    hi, lo);
+      p = walk::widen<TIER>(hi, lo);
+    }
+    walk::block_sum<walk::kDf64, double>(p.hi, p.lo, red_hi, red_lo);
+    if (threadIdx.x == 0) {
+      out[2 * (size_t)blockIdx.x] = p.hi;
+      out[2 * (size_t)blockIdx.x + 1] = p.lo;
+    }
+  } else {
+    const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= num_chunks) return;
+    const long long l = ids[c];
+    if (l < 0) {
+      out[2 * c] = T(0);
+      out[2 * c + 1] = T(0);
+      return;
+    }
+    T hi, lo;
+    walk::walk_chunk<N_PAD, TIER>((unsigned long long)l, x0, col_s, n, r, hi,
+                                  lo);
+    out[2 * c] = hi;
+    out[2 * c + 1] = lo;
   }
-  T hi, lo;
-  walk::walk_chunk<N_PAD, TIER>((unsigned long long)l, x0, col_s, n, r, hi,
-                                lo);
-  out[2 * c] = hi;
-  out[2 * c + 1] = lo;
 }
 
 // TIER is kAmp (2 words a chunk: amp hi, lo) or kAmpCond (4: amp hi, lo,
@@ -118,41 +165,20 @@ ryser_reduced_kernel(const long long* __restrict__ ids,
   __syncthreads();
 
   const long long l = ids[(long long)blockIdx.x * blockDim.x + t];
-  double hi = 0.0, lo = 0.0;
+  walk::dd p = {0.0, 0.0};
   if (l >= 0) {
     const unsigned long long ul = (unsigned long long)l;
-    T phi, plo;
-    walk::walk_chunk<N_PAD, TIER>(ul, x0, col_s, n, r, phi, plo);
-    if constexpr (TIER == walk::kF32 || TIER == walk::kF32k) {
-      hi = __dadd_rn((double)phi, (double)plo);
-    } else {
-      hi = phi;
-      lo = plo;
-    }
-    if (nf > 0) {
-      const walk::dd p = walk::dd_mul(
-          walk::dd{hi, lo},
-          walk::chunk_weight(ul, fx0_s, fcol_s, nf, n - 1, r));
-      hi = p.hi;
-      lo = p.lo;
-    }
+    T hi, lo;
+    walk::walk_chunk<N_PAD, TIER>(ul, x0, col_s, n, r, hi, lo);
+    p = walk::widen<TIER>(hi, lo);
+    if (nf > 0)
+      p = walk::dd_mul(p, walk::chunk_weight(ul, fx0_s, fcol_s, nf, n - 1,
+                                             r));
   }
-
-  red_hi[t] = hi;
-  red_lo[t] = lo;
-  __syncthreads();
-  for (int s = kThreads / 2; s >= 1; s >>= 1) {
-    if (t < s) {
-      walk::acc_merge<walk::kDf64, double>(hi, lo, red_hi[t + s],
-                                           red_lo[t + s]);
-      red_hi[t] = hi;
-      red_lo[t] = lo;
-    }
-    __syncthreads();
-  }
+  walk::block_sum<walk::kDf64, double>(p.hi, p.lo, red_hi, red_lo);
   if (t == 0) {
-    out[2 * (size_t)blockIdx.x] = hi;
-    out[2 * (size_t)blockIdx.x + 1] = lo;
+    out[2 * (size_t)blockIdx.x] = p.hi;
+    out[2 * (size_t)blockIdx.x + 1] = p.lo;
   }
 }
 
@@ -167,9 +193,24 @@ cudaError_t launch(const long long* ids, long long num_chunks, const void* x0,
     ryser_amp_kernel<N_PAD, TIER><<<(unsigned)blocks, kThreads, smem, stream>>>(
         ids, num_chunks, (const T*)x0, (const T*)cols, n, r, (T*)out);
   else
-    ryser_walk_kernel<N_PAD, TIER><<<(unsigned)blocks, kThreads, smem,
-                                     stream>>>(
-        ids, num_chunks, (const T*)x0, (const T*)cols, n, r, (T*)out);
+    ryser_walk_kernel<N_PAD, TIER, false><<<(unsigned)blocks, kThreads, smem,
+                                            stream>>>(
+        ids, num_chunks, (const T*)x0, (const T*)cols, n, r, 0, (T*)out);
+  return cudaGetLastError();
+}
+
+template <int N_PAD, int TIER>
+cudaError_t launch_blocks(const long long* rows, long long num_rows,
+                          long long num_chunks, int lanes, const void* x0,
+                          const void* cols, int n, int r, double* out,
+                          cudaStream_t stream) {
+  using T = typename walk::Real<TIER>::type;
+  const long long blocks = num_rows * ((lanes + kThreads - 1) / kThreads);
+  const size_t smem =
+      (size_t)(n - 1) * N_PAD * sizeof(T) + 2 * kThreads * sizeof(double);
+  ryser_walk_kernel<N_PAD, TIER, true><<<(unsigned)blocks, kThreads, smem,
+                                         stream>>>(
+      rows, num_chunks, (const T*)x0, (const T*)cols, n, r, lanes, out);
   return cudaGetLastError();
 }
 
@@ -277,6 +318,49 @@ extern "C" int ryser_walk_amp_cond(const long long* ids, long long num_chunks,
                                    int device, void* stream) {
   return run<walk::kAmpCond>(ids, num_chunks, x0, cols, n, n_pad, r, out,
                              device, stream);
+}
+
+// The dense walk's total, block by block.  tier is 0 (df64), 1 (f32) or 2
+// (f32k); x0 (n_pad,) and cols (n-1, n_pad) as for ryser_walk_<tier>,
+// double for tier 0 and float for 1 and 2; rows (num_rows,) the block rows
+// walked, row q holding chunk ids q * lanes .. q * lanes + lanes - 1, ids
+// outside [0, num_chunks) sentinels; out (num_rows * ceil(lanes / 128), 2)
+// double, row by row: each block of 128 lanes' double-double sum.  Launch
+// rules as above.
+extern "C" int ryser_walk_blocks(const long long* rows, long long num_rows,
+                                 long long num_chunks, int lanes,
+                                 const void* x0, const void* cols, int n,
+                                 int n_pad, int r, int tier, double* out,
+                                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n < 3 || n > n_pad || r < 1 || r > n - 2 || tier < 0 || tier > 2 ||
+      num_rows < 0 || num_chunks < 0 || lanes < 1 ||
+      num_rows * ((lanes + kThreads - 1) / kThreads) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (num_rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define BLOCKS_CASE(NP, TIER)                                                 \
+  case NP * 4 + TIER:                                                         \
+    return (int)launch_blocks<NP, TIER>(rows, num_rows, num_chunks, lanes,    \
+                                        x0, cols, n, r, out, s);
+#define BLOCKS_TIERS(NP)        \
+  BLOCKS_CASE(NP, walk::kDf64)  \
+  BLOCKS_CASE(NP, walk::kF32)   \
+  BLOCKS_CASE(NP, walk::kF32k)
+  switch (n_pad * 4 + tier) {
+    BLOCKS_TIERS(8)
+    BLOCKS_TIERS(16)
+    BLOCKS_TIERS(24)
+    BLOCKS_TIERS(32)
+    BLOCKS_TIERS(40)
+    BLOCKS_TIERS(48)
+    BLOCKS_TIERS(56)
+    BLOCKS_TIERS(64)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BLOCKS_TIERS
+#undef BLOCKS_CASE
 }
 
 // The weighted, block-reduced walk.  tier is 0 (df64), 1 (f32), 2 (f32k) or

@@ -6,8 +6,9 @@
 // (_walk_scalar / _walk_u16) for the tiers df64, f32, f32k, tf96 (the
 // arithmetic of superman_tpu/ops/tf96.py with them) and amp (_amp_terms),
 // folds in their XLA prologue (superman_tpu/ops/gray.py chunk_init), and
-// carries the sparse walk's epilogue: the per-chunk weight
-// (gray.py factor_weights, ryser_pallas.py _weight_out8).
+// carries the epilogues: the sparse walk's per-chunk weight (gray.py
+// factor_weights, ryser_pallas.py _weight_out8) and the block sum of the
+// block-reduced walks (_merge_out8).
 //
 // What it computes: the Nijenhuis-Wilf Gray-code Ryser sum is cut into
 // aligned chunks of 2^r steps.  A thread walks chunk l: it builds x from
@@ -582,6 +583,43 @@ __device__ __forceinline__ dd chunk_weight(unsigned long long ul,
     w = z == 0 ? dd{xz, 0.0} : dd_mul(w, dd{xz, 0.0});
   }
   return w;
+}
+
+// ---- the block-reduced walks' epilogue
+
+// A chunk's partial (hi, lo) in the tier's type as one double-double: the
+// f32 tiers' pair widened to one double (hi + lo, lo 0), the double tiers'
+// pair as it is.  The reduced walks sum their blocks in double-double
+// whatever the tier.
+template <int TIER, typename T>
+__device__ __forceinline__ dd widen(T hi, T lo) {
+  if constexpr (TIER == kF32 || TIER == kF32k)
+    return {__dadd_rn((double)hi, (double)lo), 0.0};
+  else
+    return {hi, lo};
+}
+
+// The block's threads' (hi, lo) added with acc_merge<TIER> in a fixed
+// halving order: thread t takes thread t + 64, then t + 32, ...; thread 0
+// holds the block's sum on return.  red_hi and red_lo are kThreads words
+// of shared memory each.  Every thread of the block must call it.  No
+// floating-point atomics, so the sum does not depend on how the grid was
+// scheduled; ops/ryser_cuda.py block_reduce_ref repeats the order.
+template <int TIER, typename T>
+__device__ __forceinline__ void block_sum(T& hi, T& lo, T* red_hi,
+                                          T* red_lo) {
+  const int t = threadIdx.x;
+  red_hi[t] = hi;
+  red_lo[t] = lo;
+  __syncthreads();
+  for (int s = kThreads / 2; s >= 1; s >>= 1) {
+    if (t < s) {
+      acc_merge<TIER, T>(hi, lo, red_hi[t + s], red_lo[t + s]);
+      red_hi[t] = hi;
+      red_lo[t] = lo;
+    }
+    __syncthreads();
+  }
 }
 
 // The block's dynamic shared memory as an array of T.

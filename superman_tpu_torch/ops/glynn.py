@@ -154,13 +154,11 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
         calc = "df64"
     tf = calc == "tf96"
 
-    from ..parallel.sharding import compute_total, pad_ids
+    from ..parallel.sharding import compute_total, total_words
     from .ryser import _sm_count
     plan = gray.make_plan(n, flags.lanes, flags.chunk_log2,
                           sms=_sm_count(device),
                           grid_multip=int(flags.grid_multip))
-    ids_blocks = pad_ids(np.arange(plan.num_chunks, dtype=np.int64),
-                         plan.lanes)
 
     scales = _col_scales(a)
     best = None
@@ -171,8 +169,8 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
         with trace.timer("pack"):
             x0, cols = _pack_glynn(a_s, plan.n_pad)
         with trace.timer("walk"):
-            total = compute_total(ids_blocks, x0, cols, plan, device,
-                                  tier=calc, mesh=mesh)
+            total = compute_total(x0, cols, plan, device, tier=calc,
+                                  mesh=mesh)
         # bounded cumulative shifts and a finite fallback (see ops/ryser.py)
         if not np.isfinite(total):
             break
@@ -198,4 +196,5 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
                         "lanes": plan.lanes, "scale_log2": E,
                         "iters_per_sec": iters / dt, "device": str(device),
                         "exact_storage": exact_storage,
-                        "mesh": None if mesh is None else len(mesh)})
+                        "mesh": None if mesh is None else len(mesh),
+                        "walk_words": total_words(plan, calc)})

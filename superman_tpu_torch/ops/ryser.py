@@ -328,7 +328,7 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
 
         from ..parallel.mesh import process_info
         from ..parallel.multihost import combine_host_totals, host_slice
-        from ..parallel.sharding import compute_total, pad_ids
+        from ..parallel.sharding import compute_total, pad_ids, total_words
         sms = _sm_count(device)
         num_shards = 1 if mesh is None else len(mesh)
         # several processes: each walks its interleaved share of the
@@ -376,8 +376,9 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                                   grid_multip=int(flags.grid_multip),
                                   min_blocks=32 if scheduler else 1)
         # a pruned list goes through the weighted, block-reduced walk,
-        # which masks its own sentinels; the dense walk keeps per-chunk
-        # partials, and so does the scheduler, on the pruned list too
+        # which masks its own sentinels; the dense walk makes its ids on
+        # the card; the scheduler keeps per-chunk partials of real ids,
+        # on the pruned list too
         pruned = chunk_ids is not None
         if pruned:
             chunk_ids = np.asarray(chunk_ids, dtype=np.int64)
@@ -388,10 +389,11 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                               meta={"reason": "all chunks pruned"})
         else:
             live = plan.num_chunks
-            chunk_ids = np.arange(live, dtype=np.int64)
         reduced = pruned and not scheduler
-        ids_blocks = (chunk_ids if reduced
-                      else pad_ids(chunk_ids, plan.lanes))
+        if scheduler:
+            ids_blocks = pad_ids(chunk_ids if pruned
+                                 else np.arange(live, dtype=np.int64),
+                                 plan.lanes)
         trace.log(f"plan: n={n} n_pad={plan.n_pad} r={plan.r} "
                   f"lanes={plan.lanes} chunks={live}/{plan.num_chunks} "
                   f"calc={calc} device={device} shards={num_shards} "
@@ -434,9 +436,11 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
             else:
                 # a float; np.longdouble for tf96, kept until the last
                 # rounding
-                total = compute_total(ids_blocks, x0, cols, plan, device,
-                                      tier=calc, factors=factors, sms=sms,
-                                      mesh=mesh, host=(proc_index, nprocs))
+                total = compute_total(
+                    x0, cols, plan, device, tier=calc,
+                    sparse=None if factors is None else (chunk_ids,
+                                                         *factors),
+                    sms=sms, mesh=mesh, host=(proc_index, nprocs))
             if nprocs > 1:
                 # one (hi, lo) pair a process; also keeps the underflow
                 # retry's decision below the same in every process
@@ -473,6 +477,11 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
             "mesh": None if mesh is None else num_shards}
     if nprocs > 1:
         meta["processes"] = nprocs
+    if not scheduler:
+        # the (hi, lo) pairs the host summed an attempt
+        meta["walk_words"] = total_words(plan, calc, live if reduced
+                                         else None, sms,
+                                         (proc_index, nprocs))
     if reduced:
         # the walked list: each live chunk cut into 2^split_log2 pieces
         meta["split_log2"] = gray.split_shift(

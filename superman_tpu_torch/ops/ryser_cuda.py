@@ -7,8 +7,11 @@ The counterpart of ``superman_tpu/ops/ryser_pallas.py``, whose two
 * ``ryser_partials`` (``_partials_jit``, bodies ``_walk_scalar`` and
   ``_walk_u16``) is ``csrc/ryser_walk.cu``: one thread walks one aligned
   chunk of 2^r Gray steps of ONE matrix and writes that chunk's signed
-  partial sum as a (hi, lo) pair.  Two more entry points of that source
-  complete the site: ``ryser_reduced`` (``_partials_jit`` with
+  partial sum as a (hi, lo) pair.  ``ryser_blocks`` is the same kernel
+  summing its blocks of 128 chunks on the card (``_merge_out8``), for the
+  dense walk's total, with the chunk ids made on the card from block
+  rows.  Two more entry points of that source complete the site:
+  ``ryser_reduced`` (``_partials_jit`` with
   ``weighted``/``reduce``: ``_weight_out8``, ``_merge_out8``), the sparse
   engine's walk of the alive rows over a pruned id list, each chunk
   weighted by its factored rows and each block of 128 chunks reduced to
@@ -35,7 +38,7 @@ does not fuse).
 
 The wrappers return the outputs unchecked.  Under SUPERMAN_DEBUG_NANS
 (utils/debug.py) they are checked for NaN where they reach the host:
-K1's words, the reduced entry's and the amp walk's in
+K1's words, the block and reduced entries' and the amp walk's in
 parallel/sharding.py, K2's in ops/batch.py ``walk_stack``.
 """
 
@@ -47,8 +50,9 @@ from . import gray
 from .df64 import df_add_f64, quick_two_sum, two_sum
 from .tf96 import dd_mul, tree_prod_dd
 
-#: kernel launches made by ryser_partials; a run reads it to show that the
-#: main path went through the kernel
+#: launches of K1 (ryser_walk_kernel) made by ryser_partials and
+#: ryser_blocks; a run reads it to show that the main path went through
+#: the kernel
 LAUNCHES = 0
 #: the same launches, per tier
 TIER_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0, "tf96": 0}
@@ -56,6 +60,9 @@ TIER_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0, "tf96": 0}
 BATCH_LAUNCHES = 0
 #: kernel launches made by ryser_reduced, per tier
 REDUCED_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0, "tf96": 0}
+#: of the K1 launches (LAUNCHES), the block-reduced ones (ryser_blocks),
+#: per tier
+DENSE_BLOCK_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0}
 #: kernel launches made by ryser_amp, both variants; AMP_COND_LAUNCHES
 #: counts those with the conditioned term
 AMP_LAUNCHES = 0
@@ -366,6 +373,85 @@ def ryser_reduced(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
                            f"CUDA error {rc}")
     REDUCED_LAUNCHES[tier] += 1
     return out
+
+
+def block_ids(rows: torch.Tensor, lanes: int, num_chunks: int
+              ) -> torch.Tensor:
+    """The chunk ids ryser_blocks walks for block rows `rows`: row q holds
+    ids q * lanes .. q * lanes + lanes - 1, padded with -1 to whole blocks
+    of BLOCK lanes, and an id outside [0, num_chunks) is -1 too.  rows:
+    1-D int64.  Returns (len(rows) * ceil(lanes / BLOCK) * BLOCK,) int64 on
+    the device of rows, row by row."""
+    lane = torch.arange(-(-lanes // BLOCK) * BLOCK, device=rows.device)
+    ids = rows[:, None] * lanes + lane
+    live = (lane < lanes) & (ids >= 0) & (ids < num_chunks)
+    return torch.where(live, ids, -1).reshape(-1)
+
+
+def ryser_blocks(rows: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
+                 *, n: int, r: int, lanes: int, num_chunks: int,
+                 tier: str = "df64") -> torch.Tensor:
+    """Block-reduced partial sums of the dense Gray walk: the dense
+    engine's total, with neither the chunk ids nor the per-chunk partials
+    crossing between host and card.
+
+    rows:  (R,) int64 block rows of the plan's (B, lanes) layout
+           (sharding.pad_ids of every chunk id); the kernel derives each
+           chunk id from its row and lane (block_ids).
+    x0, cols: as in ryser_partials.
+    tier:  "df64", "f32" or "f32k" (tf96 keeps its per-chunk words).
+    Each chunk's partial, walked as ryser_partials walks it, is widened to
+    a double-double and each block of 128 lanes is added up in the batch
+    kernel's halving order with the double-double sum: ryser_reduced,
+    unweighted, on the ids of block_ids.
+    Returns (R * ceil(lanes / 128), 2) float64, row by row: the blocks'
+    (hi, lo) pairs; the walk's total is the float64 sum of hi + lo.
+
+    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
+    tensor runs the plain version.
+    """
+    global LAUNCHES
+    _check(rows, x0, cols, n, r)
+    if tier not in DENSE_BLOCK_LAUNCHES:
+        raise ValueError(f"ryser_blocks has no tier {tier!r} (one of "
+                         f"{sorted(DENSE_BLOCK_LAUNCHES)})")
+    if lanes < 1:
+        raise ValueError(f"lanes={lanes} must be at least 1")
+    if rows.device.type == "cpu":
+        return ryser_blocks_ref(rows, x0, cols, n=n, r=r, lanes=lanes,
+                                num_chunks=num_chunks, tier=tier)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    from ..csrc.build import load
+    lib = load()
+    dtype, tier_no = TIERS[tier]
+    out = torch.empty((rows.shape[0] * -(-lanes // BLOCK), 2),
+                      dtype=torch.float64, device=rows.device)
+    if rows.shape[0] == 0:
+        return out
+    x0, cols = x0.to(dtype), cols.to(dtype)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    rc = lib.ryser_walk_blocks(
+        rows.data_ptr(), rows.shape[0], num_chunks, lanes, x0.data_ptr(),
+        cols.data_ptr(), n, x0.shape[0], r, tier_no, out.data_ptr(),
+        rows.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"ryser_walk_blocks ({tier}) launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES += 1
+    TIER_LAUNCHES[tier] += 1
+    DENSE_BLOCK_LAUNCHES[tier] += 1
+    return out
+
+
+def ryser_blocks_ref(rows: torch.Tensor, x0: torch.Tensor,
+                     cols: torch.Tensor, *, n: int, r: int, lanes: int,
+                     num_chunks: int, tier: str = "df64") -> torch.Tensor:
+    """Plain PyTorch version of ryser_blocks: ryser_reduced_ref with no
+    factored row on the ids the kernel derives."""
+    return ryser_reduced_ref(block_ids(rows, lanes, num_chunks), x0, cols,
+                             x0.new_empty(0), x0.new_empty((n - 1, 0)),
+                             n=n, r=r, tier=tier)
 
 
 def ryser_weighted_ref(ids: torch.Tensor, x0: torch.Tensor,

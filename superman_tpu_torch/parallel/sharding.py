@@ -1,21 +1,27 @@
-"""Chunk-id layout and the partial-sum launch, on one device or a mesh.
+"""Chunk-id layout and the walks' launches, on one device or a mesh.
 
 Port of ``superman_tpu/parallel/sharding.py``.  Every chunk costs exactly
-2^r Gray steps, so an equal split is balanced by construction; the final,
-exactness-critical reduction happens on the host in float64, and for the
-tf96 tier as a double-double (tf96.sum_words).  The sparse engine's
-pruned plan goes through the weighted, block-reduced walk (compute_total
-with factors).
+2^r Gray steps, so an equal split is balanced by construction.  A total
+(compute_total) is summed on the card block by block and the blocks on
+the host: the dense walk in df64, f32 and f32k goes through the
+block-reduced entry (ryser_blocks), which makes its chunk ids on the card
+from the block rows it is handed and returns one double-double (hi, lo)
+pair a block of 128 chunks; the sparse engine's pruned plan goes through
+the weighted, block-reduced walk (factors).  The host adds hi + lo per
+block and sums the blocks in float64.  The tf96 tier keeps one pair a
+chunk, all of whose words the host sums as double-doubles
+(tf96.sum_words), and so do compute_partials and the hybrid scheduler,
+whose callers need each chunk's value.
 
 Over a mesh (parallel/mesh.py) the blocks are dealt round-robin: entry e
 of k walks block rows e, e+k, e+2k, ... (the dense walk's (B, L) rows, or
 the reduced walk's blocks of 128 chunks), on its own device and stream.
 Every decision that shapes a block (the lane count, the split of a short
 pruned list into sub-chunks, the padding to whole blocks) is made once,
-before the blocks are dealt, and the per-chunk partials, the reduced
-blocks' pairs or the tf96 words come back into the single-device order
-before the host sums them.  The result over any mesh is therefore BITWISE
-equal to the single-device result, in every tier, dense and sparse.
+before the blocks are dealt, and the per-chunk partials, the blocks'
+pairs or the tf96 words come back into the single-device order before the
+host sums them.  The result over any mesh is therefore BITWISE equal to
+the single-device result, in every tier, dense and sparse.
 
 Under SUPERMAN_DEBUG_NANS (utils/debug.py) the host array of every
 walk's words is checked for NaN once they are all back, naming the
@@ -31,7 +37,8 @@ import numpy as np
 import torch
 
 from ..ops import gray
-from ..ops.ryser_cuda import BLOCK, ryser_amp, ryser_partials, ryser_reduced
+from ..ops.ryser_cuda import (BLOCK, ryser_amp, ryser_blocks,
+                              ryser_partials, ryser_reduced)
 from ..ops.tf96 import sum_words
 from ..utils.debug import check_nan
 from .mesh import Mesh
@@ -47,13 +54,13 @@ def pad_ids(ids: np.ndarray, lanes: int) -> np.ndarray:
     return padded.reshape(blocks, lanes)
 
 
-def _deal(blocks: np.ndarray, mesh: Optional[Mesh], device: torch.device,
+def _deal(blocks, mesh: Optional[Mesh], device: torch.device,
           launch) -> np.ndarray:
     """Run launch(device, rows) -> (len(rows), ...) device tensor over the
-    rows of `blocks` (block rows of ids, or the indices of block rows): on
-    `device` alone, or dealt round-robin over the mesh's entries, each on
-    its own stream.  Returns the host array of the results in the rows'
-    order."""
+    rows of `blocks` (an array of block rows of ids or of the indices of
+    block rows, or a range of such indices): on `device` alone, or dealt
+    round-robin over the mesh's entries, each on its own stream.  Returns
+    the host array of the results in the rows' order."""
     if mesh is None or len(mesh) == 1:
         dev = device if mesh is None else mesh[0]
         return launch(dev, blocks).cpu().numpy()
@@ -125,6 +132,66 @@ def split_rows(live: torch.Tensor, shift: int, rows: torch.Tensor
     return torch.where(valid, ids, -1).reshape(-1)
 
 
+def _dense_rows(plan: gray.RyserPlan, host: tuple) -> range:
+    """This process's share of the dense walk's block rows: the rows of
+    pad_ids(every chunk id, plan.lanes), dealt by multihost.host_slice.  A
+    range, as is every share _deal makes of it, so a device makes its
+    rows itself."""
+    return host_slice(range(-(-plan.num_chunks // plan.lanes)), *host)
+
+
+def _reduced_rows(live: int, r: int, want: int, host: tuple):
+    """(shift, rows): the split of a pruned list of `live` chunks of 2^r
+    steps into at least `want` chunks (gray.split_shift), and this
+    process's share of its blocks of BLOCK."""
+    shift = gray.split_shift(live, r, want)
+    nblocks = -(-(live << shift) // BLOCK)
+    return shift, host_slice(np.arange(nblocks, dtype=np.int64), *host)
+
+
+def total_words(plan: gray.RyserPlan, tier: str = "df64",
+                live: Optional[int] = None, sms: int = gray.DEFAULT_SMS,
+                host: tuple = (0, 1)) -> int:
+    """The (hi, lo) pairs that compute_total brings back to this process
+    and sums: one a block of 128 chunks of the dense walk or, with `live`,
+    of the split pruned list of that many chunks; one a chunk slot of the
+    dense walk in tf96."""
+    if live is not None:
+        want = sms * gray.SPLIT_CHUNKS_PER_SM
+        return len(_reduced_rows(live, plan.r, want, host)[1])
+    per_row = plan.lanes if tier == "tf96" else -(-plan.lanes // BLOCK)
+    return len(_dense_rows(plan, host)) * per_row
+
+
+def _block_words(x0: np.ndarray, cols: np.ndarray, plan: gray.RyserPlan,
+                 device: torch.device, tier: str,
+                 mesh: Optional[Mesh] = None,
+                 host: tuple = (0, 1)) -> np.ndarray:
+    """The (blocks, 2) float64 host array of the dense walk's block pairs
+    (ryser_blocks): this process's share of the block rows, in their
+    order, ceil(lanes / 128) blocks a row."""
+    rows = _dense_rows(plan, host)
+    per_row = -(-plan.lanes // BLOCK)
+    if not len(rows):
+        return np.zeros((0, 2))
+
+    # x0 and the columns go up in one copy
+    pack = np.concatenate([x0[None], cols])
+
+    def launch(dev, rows_e):
+        packed = torch.as_tensor(pack).to(dev)
+        rows_t = torch.arange(rows_e.start, rows_e.stop, rows_e.step,
+                              dtype=torch.int64, device=dev)
+        out = ryser_blocks(rows_t, packed[0], packed[1:], n=plan.n, r=plan.r,
+                           lanes=plan.lanes, num_chunks=plan.num_chunks,
+                           tier=tier)
+        return out.reshape(len(rows_e), per_row, 2)
+
+    words = _deal(rows, mesh, device, launch).reshape(-1, 2)
+    check_nan(f"ryser_walk_blocks ({tier})", words)
+    return words
+
+
 def _reduced_words(ids: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                    factors, plan: gray.RyserPlan, device: torch.device,
                    tier: str, want: int, mesh: Optional[Mesh] = None,
@@ -133,9 +200,7 @@ def _reduced_words(ids: np.ndarray, x0: np.ndarray, cols: np.ndarray,
     factored walk of the live ids, split to at least `want` chunks
     (gray.split_shift): this process's share of the blocks
     (multihost.host_slice), in their order."""
-    shift = gray.split_shift(len(ids), plan.r, want)
-    nblocks = -(-(len(ids) << shift) // BLOCK)
-    rows = host_slice(np.arange(nblocks, dtype=np.int64), *host)
+    shift, rows = _reduced_rows(len(ids), plan.r, want, host)
     if not len(rows):
         return np.zeros((0, 2))
     fx0, fcols = factors
@@ -154,42 +219,47 @@ def _reduced_words(ids: np.ndarray, x0: np.ndarray, cols: np.ndarray,
     return words
 
 
-def compute_total(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
-                  plan: gray.RyserPlan, device: torch.device,
-                  tier: str = "df64", factors=None,
+def compute_total(x0: np.ndarray, cols: np.ndarray, plan: gray.RyserPlan,
+                  device: torch.device, tier: str = "df64", *,
+                  sparse: Optional[tuple] = None,
                   sms: int = gray.DEFAULT_SMS, mesh: Optional[Mesh] = None,
                   host: tuple = (0, 1)):
-    """The scaled total of the walk: the sum of compute_partials over all
-    chunks, a float, or for tf96 an np.longdouble summed from the words
-    (tf96.sum_words: pairwise as double-doubles).
+    """The scaled total of the walk: the sum over all chunks of what
+    compute_partials gives each, a float, or for tf96 an np.longdouble
+    summed from the words (tf96.sum_words: pairwise as double-doubles).
 
-    factors: None for the dense walk.  For the sparse engine's pruned
-    plan, the (fx0, fcols) pack of the factored rows ((0,) and (n-1, 0)
-    when no row is factored): ids_blocks is then the 1-D list of live
-    chunk ids, x0 and cols are the alive rows' pack, and the walk goes
-    through ryser_reduced, the list split to fill `sms` SMs.
+    sparse: None for the dense walk of the whole plan: the chunk ids are
+    made on the card from the block rows of pad_ids(every chunk id,
+    plan.lanes), and in df64, f32 and f32k each block of 128 chunks comes
+    back as one pair (ryser_blocks), summed on the host in float64 in the
+    rows' order.  For the sparse engine's pruned plan, (ids, fx0, fcols):
+    the 1-D list of live chunk ids and the pack of the factored rows ((0,)
+    and (n-1, 0) when no row is factored); x0 and cols are then the alive
+    rows' pack, and the walk goes through ryser_reduced, the list split to
+    fill `sms` SMs.
     mesh: deal the blocks over these entries (bitwise the same total).
     host: (index, count) of this process; it walks its interleaved share
     of the blocks (multihost.host_slice) and returns its part of the
-    total."""
+    total.  total_words says how many pairs the host sums."""
     zero = np.longdouble(0.0) if tier == "tf96" else 0.0
-    if factors is not None:
-        words = _reduced_words(np.asarray(ids_blocks, dtype=np.int64), x0,
-                               cols, factors, plan, device, tier,
+    if sparse is not None:
+        ids, *factors = sparse
+        words = _reduced_words(np.asarray(ids, dtype=np.int64), x0, cols,
+                               factors, plan, device, tier,
                                sms * gray.SPLIT_CHUNKS_PER_SM, mesh, host)
-        if not len(words):
-            return zero
-        if tier == "tf96":
-            return sum_words(words)
-        return float(words.sum(axis=1).sum(dtype=np.float64))
-    ids_blocks = host_slice(ids_blocks, *host)
-    if not len(ids_blocks):
+    elif tier == "tf96":
+        ids_blocks = host_slice(
+            pad_ids(np.arange(plan.num_chunks, dtype=np.int64), plan.lanes),
+            *host)
+        words = (_walk_words(ids_blocks, x0, cols, plan, device, tier, mesh)
+                 if len(ids_blocks) else np.zeros((0, 2)))
+    else:
+        words = _block_words(x0, cols, plan, device, tier, mesh, host)
+    if not len(words):
         return zero
     if tier == "tf96":
-        return sum_words(_walk_words(ids_blocks, x0, cols, plan, device,
-                                     tier, mesh))
-    return float(compute_partials(ids_blocks, x0, cols, plan, device, tier,
-                                  mesh).sum(dtype=np.float64))
+        return sum_words(words)
+    return float(words.sum(axis=1).sum(dtype=np.float64))
 
 
 def compute_amp(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,

@@ -6,7 +6,7 @@
 
 Builds the library as csrc/build.py does (or takes --lib) and
 disassembles it with cuobjdump (CUDA toolkit; no card is needed).  For
-each instantiation kernel<N_PAD, TIER> it finds the step loop: of the
+each instantiation kernel<N_PAD, TIER, ...> it finds the step loop: of the
 loops (a backward branch and the code from its target to it), the one
 with the most multiplies of the tier's type, the innermost of equals.  It
 counts that loop's instructions by class and divides by the steps one
@@ -46,15 +46,18 @@ _FUNC = re.compile(r"Function : (\S+)")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b")
-_NAME = re.compile(r"\d+([a-z_]+_kernel)I((?:Li\d+E)+)")
+_NAME = re.compile(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)")
 
 
 def demangle(mangled: str) -> str:
-    """kernel<template arguments> of a mangled kernel name, or the name."""
+    """kernel<template arguments> of a mangled kernel name, or the name;
+    an int or bool argument is written as its number (ryser_walk_kernel's
+    REDUCE: 0 per chunk, 1 block-reduced)."""
     m = _NAME.search(mangled)
     if not m:
         return mangled
-    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def functions(sass: str) -> dict:
@@ -189,30 +192,42 @@ def main(argv=None) -> int:
     rc = 0
     for kernel in args.kernels.split(","):
         for tier in (int(t) for t in args.tiers.split(",")):
-            name = f"{kernel}<{args.n_pad},{tier}>"
-            if name not in funcs:
-                print(f"sass_count: {name} is not in {lib}", file=sys.stderr)
+            # every instantiation at this N_PAD and tier (ryser_walk_kernel
+            # has two, per chunk and block-reduced)
+            head = f"{kernel}<{args.n_pad},{tier}"
+            names = [f for f in funcs
+                     if f == head + ">" or f.startswith(head + ",")]
+            if not names:
+                print(f"sass_count: {head}> is not in {lib}",
+                      file=sys.stderr)
                 rc = 1
-                continue
-            found = step_loop(*funcs[name], args.n_pad, tier)
-            if found is None:
-                print(f"sass_count: no step loop in {name}", file=sys.stderr)
-                rc = 1
-                continue
-            per_step, steps, opcodes, loop = found
-            print(json.dumps({
-                "kernel": name, "registers": regs.get(name),
-                "trip_steps": steps,
-                "trip_instructions": round(per_step["total"] * steps),
-                "per_step": {k: round(v, 3) for k, v in per_step.items()},
-                "opcodes_per_trip": opcodes}), flush=True)
-            dump.append(f"==== {name}: {len(loop)} instructions, "
-                        f"{steps} steps a trip\n" + "\n".join(
-                            f"/*{a:04x}*/ {t}" for a, _, t in loop))
+            for name in names:
+                rc |= _report(name, funcs[name], regs, args.n_pad, tier,
+                              dump)
     if args.dump:
         with open(args.dump, "w") as f:
             f.write("\n\n".join(dump) + "\n")
     return rc
+
+
+def _report(name, func, regs, n_pad, tier, dump) -> int:
+    """Print the JSON line of one instantiation and add its loop to dump;
+    returns 1 where it has no step loop."""
+    found = step_loop(*func, n_pad, tier)
+    if found is None:
+        print(f"sass_count: no step loop in {name}", file=sys.stderr)
+        return 1
+    per_step, steps, opcodes, loop = found
+    print(json.dumps({
+        "kernel": name, "registers": regs.get(name),
+        "trip_steps": steps,
+        "trip_instructions": round(per_step["total"] * steps),
+        "per_step": {k: round(v, 3) for k, v in per_step.items()},
+        "opcodes_per_trip": opcodes}), flush=True)
+    dump.append(f"==== {name}: {len(loop)} instructions, "
+                f"{steps} steps a trip\n" + "\n".join(
+                    f"/*{a:04x}*/ {t}" for a, _, t in loop))
+    return 0
 
 
 if __name__ == "__main__":

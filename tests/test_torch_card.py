@@ -510,3 +510,94 @@ def test_batch_loop_edges_match_plain_on_card(n, r, tier):
     assert ryser_cuda.BATCH_LAUNCHES == before + 1
     want = ryser_cuda.batch_partials_ref(x0s, colss, n=n, r=r, tier=tier)
     assert torch.equal(got, want)
+
+
+def _suite_matrix(n, density, seed):
+    """An integer matrix as the int/ suite draws it: entries 1-4 at the
+    density, a full diagonal of 1-4."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < density) * rng.integers(1, 5, (n, n))
+    np.fill_diagonal(a, rng.integers(1, 5, n))
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["df64", "f32", "f32k"])
+@pytest.mark.parametrize("lanes", [1024, 1000])
+def test_dense_block_kernel_matches_plain_on_card(lanes, tier):
+    """The block-reduced dense entry at n=32 (chunks of 2^8 steps, so the
+    plain version is quick) on the first, second, a middle and the last
+    block rows (with 1000 lanes the last row runs past the plan's chunks
+    and every row ends in a part block), and a row -1 whose ids are all
+    sentinels: the kernel derives the ids the
+    plain version is given, walks, widens and sums each block in one
+    order, so the pairs agree bitwise; one launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, r = 32, 8
+    nchunks = 1 << (n - 1 - r)
+    last = -(-nchunks // lanes) - 1
+    a = _suite_matrix(n, 0.5, 32)
+    a_s = np.ldexp(a.astype(np.float64), -ryser._row_scales(a)[:, None])
+    dev = torch.device("cuda", 0)
+    x0, cols = (torch.as_tensor(v, device=dev)
+                for v in gray.pack_matrix(a_s, n))
+    rows = torch.tensor([0, 1, last // 2, last, -1], device=dev)
+    before = ryser_cuda.DENSE_BLOCK_LAUNCHES[tier]
+    got = ryser_cuda.ryser_blocks(rows, x0, cols, n=n, r=r, lanes=lanes,
+                                  num_chunks=nchunks, tier=tier)
+    torch.cuda.synchronize()
+    assert ryser_cuda.DENSE_BLOCK_LAUNCHES[tier] == before + 1
+    want = ryser_cuda.ryser_blocks_ref(rows, x0, cols, n=n, r=r, lanes=lanes,
+                                       num_chunks=nchunks, tier=tier)
+    per_row = -(-lanes // 128)
+    assert tuple(got.shape) == (5 * per_row, 2)
+    assert got.dtype == want.dtype == torch.float64
+    assert torch.equal(got, want)
+    assert not got[-per_row:].any()
+
+
+@pytest.mark.cuda
+def test_dense_block_route_engages_on_dense_totals_only():
+    """permanent() at n=32 d=0.50 launches the block-reduced entry once a
+    call and sums num_chunks / 128 = 1024 pairs; an n=36 d=0.15 call (the
+    sparse engine), a permanent_batch call and a calc="exact" call launch
+    it never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import superman_tpu_torch as spt
+    a32 = _suite_matrix(32, 0.5, 1)
+    spt.permanent(a32)                                   # warm-up
+    for _ in range(2):
+        before = ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"]
+        res = spt.permanent(a32)
+        assert ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"] == before + 1
+        assert res.meta["walk_words"] == 1024 and "sparse" not in res.meta
+    before = dict(ryser_cuda.DENSE_BLOCK_LAUNCHES)
+    reduced = ryser_cuda.REDUCED_LAUNCHES["df64"]
+    res = spt.permanent(_suite_matrix(36, 0.15, 36))
+    assert "sparse" in res.meta
+    assert ryser_cuda.REDUCED_LAUNCHES["df64"] > reduced
+    spt.permanent_batch([_suite_matrix(24, 0.5, s) for s in range(8)])
+    spt.permanent(_suite_matrix(24, 0.5, 24), calc="exact")
+    assert ryser_cuda.DENSE_BLOCK_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_profiler_names_the_dense_block_kernel():
+    """A torch.profiler trace of an n=32 permanent() names its kernel
+    ryser_walk_kernel, as the benchmark's K1 roofline reads it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import superman_tpu_torch as spt
+    from torch.profiler import ProfilerActivity, profile
+    a32 = _suite_matrix(32, 0.5, 2)
+    spt.permanent(a32)                                   # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        spt.permanent(a32)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    walks = [k for k in names if "ryser_walk_kernel<" in k]
+    assert walks, names
+    assert not any("ryser_reduced_kernel" in k for k in names)

@@ -145,6 +145,12 @@ def _k1(tier):
     return lambda: sharding.compute_partials(ids, x0, cols, plan, CPU, tier)
 
 
+def _blocks(tier):
+    plan = gray.make_plan(14, 256, 5)
+    x0, cols = _pack(14)
+    return lambda: sharding.compute_total(x0, cols, plan, CPU, tier)
+
+
 def _reduced(tier):
     # 12 alive rows and 2 factored ones of an order-14 walk
     n, nf = 14, 2
@@ -156,8 +162,8 @@ def _reduced(tier):
     plan = gray.RyserPlan(n=n, n_pad=len(x0), r=5, lanes=256,
                           num_chunks=1 << (n - 1 - 5))
     ids = np.arange(0, plan.num_chunks, 3, dtype=np.int64)
-    return lambda: sharding.compute_total(ids, x0, cols, plan, CPU, tier,
-                                          factors=(fx0, fcols), sms=2)
+    return lambda: sharding.compute_total(x0, cols, plan, CPU, tier,
+                                          sparse=(ids, fx0, fcols), sms=2)
 
 
 def _amp(cond):
@@ -230,6 +236,8 @@ def _smc():
 # (what the message names, the call, the outputs it hands back)
 INJECTED = {
     **{f"k1_{t}": (f"ryser_walk_{t}", lambda t=t: _k1(t)) for t in TIERS},
+    **{f"blocks_{t}": (f"ryser_walk_blocks ({t})", lambda t=t: _blocks(t))
+       for t in TIERS if t != "tf96"},
     **{f"reduced_{t}": (f"ryser_walk_reduced ({t})",
                         lambda t=t: _reduced(t)) for t in TIERS},
     "amp": ("ryser_walk_amp", lambda: _amp(False)),

@@ -157,9 +157,9 @@ def test_auto_sparse_gate_engages(monkeypatch):
     from superman_tpu_torch.parallel import sharding
     seen = []
 
-    def half(ids_blocks, x0, cols, plan, device, tier="df64", factors=None,
-             sms=0, mesh=None, host=(0, 1)):
-        seen.append((ids_blocks, x0, factors, plan))
+    def half(x0, cols, plan, device, tier="df64", *, sparse=None, sms=0,
+             mesh=None, host=(0, 1)):
+        seen.append((sparse, x0, plan))
         return 0.5
 
     monkeypatch.setattr(sharding, "compute_total", half)
@@ -176,15 +176,15 @@ def test_auto_sparse_gate_engages(monkeypatch):
         "factored_rows": len(sp_plan.factor_rows), "r": sp_plan.r}
     assert res.algo_name == "ryser_plain_df64"
     assert "sparse_pending" not in res.meta
-    ids, x0, factors, plan = seen[-1]
+    (ids, fx0, fcols), x0, plan = seen[-1]
     assert np.array_equal(ids, sp_plan.ids)
     assert x0.shape == (plan.n_pad,) and plan.n_pad == 24
-    assert factors[0].shape == (len(sp_plan.factor_rows),)
-    assert factors[1].shape == (n - 1, len(sp_plan.factor_rows))
+    assert fx0.shape == (len(sp_plan.factor_rows),)
+    assert fcols.shape == (n - 1, len(sp_plan.factor_rows))
     assert res.iterations == len(sp_plan.ids) << sp_plan.r
     for a, kw in ((dense, {}), (sparse, {"skip_pruning": False})):
         res = spt.permanent(a, device="cpu", **kw)
-        assert "sparse" not in res.meta and seen[-1][2] is None
+        assert "sparse" not in res.meta and seen[-1][0] is None
         assert res.iterations == 1 << (n - 1)
 
 

@@ -16,7 +16,10 @@ from superman_tpu.ops import gray as jgray
 from superman_tpu.ops import ryser as jryser
 from superman_tpu.ops.oracle import perman_brute
 from superman_tpu.ops.ryser_pallas import ryser_partials as jax_partials
+import superman_tpu_torch as spt
 from superman_tpu_torch.ops import gray, ryser, ryser_cuda
+from superman_tpu_torch.parallel import mesh as pmesh
+from superman_tpu_torch.parallel import sharding
 from tests.conftest import random_float_matrix, random_int_matrix
 
 
@@ -360,3 +363,143 @@ def test_host_helpers_match_jax(kind):
         assert np.allclose(cols, jcols, rtol=2.0 ** -46, atol=0)
     else:
         assert np.array_equal(x0, jx0) and np.array_equal(cols, jcols)
+
+
+# ---- the dense walk's total, summed block by block (ryser_blocks)
+
+#: (n, chunk_log2): the card's plan at n=19 (2^17 chunks of 2 steps) and
+#: n=24 (2^17 of 2^6), and 64 chunks of 2^12 steps: fewer than a block
+DENSE_CASES = [(19, None), (24, None), (19, 12)]
+BLOCK_TIERS = ["df64", "f32", "f32k"]
+CPU = torch.device("cpu")
+
+
+def _dense_walk(n, chunk_log2=None, lanes=1024):
+    """(plan, x0, cols) of a seeded integer matrix, row-scaled as the
+    engine scales it, on the plan the engine makes on the CPU."""
+    a = random_int_matrix(np.random.default_rng(n), n, 0.5)
+    a_s = np.ldexp(a.astype(np.float64), -ryser._row_scales(a)[:, None])
+    plan = gray.make_plan(n, lanes, chunk_log2)
+    return (plan,) + gray.pack_matrix(a_s, plan.n_pad)
+
+
+def _every_row(plan):
+    return torch.arange(-(-plan.num_chunks // plan.lanes))
+
+
+@pytest.mark.parametrize("tier", BLOCK_TIERS)
+@pytest.mark.parametrize("n,chunk_log2", DENSE_CASES)
+def test_dense_blocks_are_the_chunk_walk_summed_by_block(n, chunk_log2,
+                                                         tier):
+    """ryser_blocks over every block row is ryser_reduced_ref with no
+    factored row on the ids the kernel derives, bit for bit.  Those ids
+    are the dense layout (pad_ids of every chunk id), each row padded to
+    whole blocks of 128; and each block is the per-chunk walk
+    (ryser_partials), widened to a double-double, summed in the kernel's
+    halving order."""
+    plan, x0, cols = _dense_walk(n, chunk_log2)
+    rows = _every_row(plan)
+    x0_t, cols_t = torch.as_tensor(x0), torch.as_tensor(cols)
+    got = ryser_cuda.ryser_blocks(rows, x0_t, cols_t, n=n, r=plan.r,
+                                  lanes=plan.lanes,
+                                  num_chunks=plan.num_chunks, tier=tier)
+    ids = ryser_cuda.block_ids(rows, plan.lanes, plan.num_chunks)
+    want = ryser_cuda.ryser_reduced_ref(ids, x0_t, cols_t, x0_t.new_empty(0),
+                                        x0_t.new_empty((n - 1, 0)), n=n,
+                                        r=plan.r, tier=tier)
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    per_row = -(-plan.lanes // 128)
+    assert got.shape == (len(rows) * per_row, 2)
+    layout = np.full((len(rows), per_row * 128), -1, dtype=np.int64)
+    layout[:, :plan.lanes] = sharding.pad_ids(np.arange(plan.num_chunks),
+                                              plan.lanes)
+    assert np.array_equal(ids.numpy(), layout.reshape(-1))
+    part = ryser_cuda.ryser_partials(ids, x0_t, cols_t, n=n, r=plan.r,
+                                     tier=tier)
+    hi, lo = part[:, 0].double(), part[:, 1].double()
+    if tier != "df64":
+        hi, lo = hi + lo, torch.zeros_like(hi)
+    assert torch.equal(got, ryser_cuda.block_reduce_ref(hi[None], lo[None],
+                                                        "df64")[0])
+
+
+@pytest.mark.parametrize("tier", BLOCK_TIERS)
+@pytest.mark.parametrize("n,chunk_log2", DENSE_CASES)
+def test_dense_total_is_the_sum_of_the_chunks(n, chunk_log2, tier):
+    """compute_total's dense route (the blocks summed on the card, their
+    pairs on the host) against the float64 sum of compute_partials: within
+    1e-13 in every tier, which add the same float64 chunk values in
+    another order."""
+    plan, x0, cols = _dense_walk(n, chunk_log2)
+    total = sharding.compute_total(x0, cols, plan, CPU, tier)
+    ids = sharding.pad_ids(np.arange(plan.num_chunks), plan.lanes)
+    want = sharding.compute_partials(ids, x0, cols, plan, CPU, tier).sum()
+    assert isinstance(total, float)
+    assert abs(total - want) <= 1e-13 * abs(want)
+
+
+@pytest.mark.parametrize("tier", BLOCK_TIERS)
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_dense_blocks_are_bitwise_over_a_mesh_and_processes(k, tier):
+    """The block pairs over a mesh of k CPU entries, and the k processes'
+    shares (host_slice) put back in row order, are the single device's
+    bit for bit; so is the mesh's total.  200 lanes: two blocks a row, the
+    second part sentinel, and a last row past the plan's chunks."""
+    plan, x0, cols = _dense_walk(19, 6, lanes=200)
+    one = sharding._block_words(x0, cols, plan, CPU, tier)
+    mesh = pmesh.make_mesh(devices=["cpu"] * k)
+    assert np.array_equal(sharding._block_words(x0, cols, plan, CPU, tier,
+                                                mesh), one)
+    rows = one.reshape(-1, 2, 2)
+    dealt = np.empty_like(rows)
+    for p in range(k):
+        share = sharding._block_words(x0, cols, plan, CPU, tier,
+                                      host=(p, k))
+        assert len(share) == sharding.total_words(plan, tier, host=(p, k))
+        dealt[p::k] = share.reshape(-1, 2, 2)
+    assert np.array_equal(dealt, rows)
+    assert sharding.compute_total(x0, cols, plan, CPU, tier,
+                                  mesh=mesh) == \
+        sharding.compute_total(x0, cols, plan, CPU, tier)
+
+
+@pytest.mark.parametrize("n,chunk_log2,tier", [
+    (19, None, "df64"), (24, None, "f32"), (19, 12, "f32k"),
+    (19, None, "tf96")])
+def test_walk_words_counts_the_pairs_the_host_sums(n, chunk_log2, tier):
+    """permanent()'s meta["walk_words"]: one pair a block of 128 chunks
+    (num_chunks / 128; one block below 128 chunks), and in tf96, which
+    keeps its per-chunk words, one a chunk slot."""
+    a = random_int_matrix(np.random.default_rng(n), n, 0.5)
+    res = spt.permanent(a, device="cpu", calc=tier, chunk_log2=chunk_log2)
+    plan = gray.make_plan(n, 1024, chunk_log2)
+    assert res.meta["chunks"] == plan.num_chunks
+    want = (-(-plan.num_chunks // 1024) * plan.lanes if tier == "tf96"
+            else -(-plan.num_chunks // 128))
+    assert res.meta["walk_words"] == want
+    if chunk_log2 is None and tier != "tf96":
+        assert want == plan.num_chunks // 128 == 1024
+
+
+def test_dense_total_makes_its_own_ids():
+    """The dense route takes no id list (the ids are made on the card); a
+    block row list that is not int64, and tf96, are refused; a row outside
+    the plan gives sentinels only, so its blocks are zero."""
+    plan, x0, cols = _dense_walk(19, 6)
+    outside = ryser_cuda.ryser_blocks(
+        torch.tensor([-1, 4]), torch.as_tensor(x0), torch.as_tensor(cols),
+        n=19, r=6, lanes=plan.lanes, num_chunks=plan.num_chunks)
+    assert outside.shape == (16, 2) and not outside.any()
+    ids = sharding.pad_ids(np.arange(plan.num_chunks), plan.lanes)
+    with pytest.raises(TypeError, match="ids"):
+        sharding.compute_total(x0, cols, plan, CPU, ids=ids)
+    with pytest.raises(TypeError, match="int64"):
+        ryser_cuda.ryser_blocks(torch.arange(2, dtype=torch.int32),
+                                torch.as_tensor(x0), torch.as_tensor(cols),
+                                n=19, r=6, lanes=plan.lanes,
+                                num_chunks=plan.num_chunks)
+    with pytest.raises(ValueError, match="tier"):
+        ryser_cuda.ryser_blocks(_every_row(plan), torch.as_tensor(x0),
+                                torch.as_tensor(cols), n=19, r=6,
+                                lanes=plan.lanes,
+                                num_chunks=plan.num_chunks, tier="tf96")

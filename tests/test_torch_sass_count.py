@@ -44,6 +44,20 @@ def test_step_loop_of_a_listing():
     assert len(loop) == 21
 
 
+def test_demangle_writes_every_template_argument():
+    """An int or bool template argument is written as its number, so
+    ryser_walk_kernel's per-chunk and block-reduced instantiations have
+    names of their own."""
+    head = "_ZN12_GLOBAL__N_117ryser_walk_kernelILi32ELi0EL"
+    assert sass_count.demangle(head + "b0EEEvPKxxPKdS4_iiiPd") \
+        == "ryser_walk_kernel<32,0,0>"
+    assert sass_count.demangle(head + "b1EEEvPKxxPKdS4_iiiPd") \
+        == "ryser_walk_kernel<32,0,1>"
+    assert sass_count.demangle("_ZN12_GLOBAL__N_117ryser_batch_kernel"
+                               "ILi24ELi3EEEvPKdS2_iiPd") \
+        == "ryser_batch_kernel<24,3>"
+
+
 def test_tree_multiplies_by_tier():
     assert sass_count.tree_muls(32, 0) == sass_count.tree_muls(32, 1) == 31
     assert sass_count.tree_muls(32, 3) == 16 + 3 * 15

@@ -464,8 +464,8 @@ def test_compute_total_with_factors_splits_to_fill_the_card():
         tier=tier).numpy())
     for sms in (1, 16):
         total = sharding.compute_total(
-            ctx["plan"].ids, *ctx["pack"], plan, torch.device("cpu"),
-            tier=tier, factors=ctx["fpack"], sms=sms)
+            *ctx["pack"], plan, torch.device("cpu"), tier=tier,
+            sparse=(ctx["plan"].ids, *ctx["fpack"]), sms=sms)
         assert isinstance(total, np.longdouble)
         assert abs(total - whole) <= 1e-17 * abs(whole)
 

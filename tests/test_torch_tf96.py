@@ -364,12 +364,12 @@ def test_compute_partials_tf96_is_long_double():
     x0, cols = gray.pack_matrix(a, plan.n_pad)
     cpu = torch.device("cpu")
     part = sharding.compute_partials(ids, x0, cols, plan, cpu, tier="tf96")
-    total = sharding.compute_total(ids, x0, cols, plan, cpu, tier="tf96")
+    total = sharding.compute_total(x0, cols, plan, cpu, tier="tf96")
     assert part.dtype == np.longdouble and part.shape == ids.shape
     assert isinstance(total, np.longdouble)
     assert (4 * (n & 1) - 2) * total == perman_brute(a)
     assert part.sum() == total
-    assert isinstance(sharding.compute_total(ids, x0, cols, plan, cpu), float)
+    assert isinstance(sharding.compute_total(x0, cols, plan, cpu), float)
 
 
 def _exact_int(m) -> int:
