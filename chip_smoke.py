@@ -1,6 +1,7 @@
 """Smoke test of superman_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --mesh     # the build and the mesh phase alone
 
 Builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version on the card at its path's shapes, and drives
@@ -64,8 +65,14 @@ SkipPer, read_calculate_return), orders 1 and 2, the scaling estimator
 on the card and the native double walk on every lane-walk matrix, each
 held to calc="exact" (no NaN, no -0.0), with the walls of the lane and
 host routes (tools/lane_walls.py) and the host time of the row scales
-alone.  It checks their values, times kernels and plain versions, and
-prints:
+alone.  Last SUPerman's multi-GPU deployment (mesh_cards_phase): its
+walk's instantiation <40, 0, 1> bitwise its plain version and timed on
+one card's share, then an n=38 df64 permanent through
+permanent(perman_algo="multi") over every visible card, or over 4
+streams of the one card, bitwise against one device, with each entry's
+block rows and walk ms, their spread, the deal's spans and block
+launches, the caller's current device unchanged.  It checks their values,
+times kernels and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
@@ -1562,7 +1569,144 @@ def walk_range_phase(dev, card, zero_counts) -> dict:
     return out
 
 
-def main() -> int:
+def mesh_cards_phase(dev, regs: dict) -> dict:
+    """SUPerman's multi-GPU deployment (the benchmark's cell
+    erdos_int_dense_mesh4.n38_mesh4): an n=38 d=0.50 df64 permanent dealt
+    over the visible cards through permanent(perman_algo="multi",
+    gpu_num=cards), or on one card ryser_exact over MESH_ENTRIES streams of
+    it, bitwise against one device.  Prints each entry's block rows and
+    walk ms (Result.meta["mesh_cards"]), the spread of the walk ms, the
+    deal's three spans, both walls and the dealt call's block launches;
+    the caller's current device must be unchanged.  First the walk's
+    instantiation ryser_walk_kernel<40, 0, 1> (regs: registers by
+    instantiation): on the card bit for bit against ryser_blocks_ref on
+    a few block rows of the plan cut to chunks of 2^6 steps (the plain
+    version pays per step), then timed on one card's share of the
+    one-card plan (every MESH_ENTRIES-th block row, as the deal gives
+    it), beside its bound.  Raises on failure; returns what it printed
+    and the kernel's entry ("blocks")."""
+    import torch
+    import superman_tpu_torch as spt
+    from superman_tpu_torch.core.flags import Flags
+    from superman_tpu_torch.core.matrix import DenseMatrix
+    from superman_tpu_torch.ops import gray, ryser_cuda
+    from superman_tpu_torch.ops.ryser import (_center_scales, _row_scales,
+                                              ryser_exact)
+    from superman_tpu_torch.parallel.mesh import make_mesh
+    from superman_tpu_torch.utils import trace
+
+    a38 = random_int_matrix(np.random.default_rng(38), 38, 0.5)
+    np.fill_diagonal(a38, np.random.default_rng(380).integers(1, 5, 38))
+
+    # K1's <40, 0, 1> against its plain version (the row past the last
+    # all sentinels), then one card's share
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = gray.make_plan(38, sms=sms)
+    a_s = np.ldexp(a38.astype(np.float64),
+                   -_center_scales(a38, _row_scales(a38))[:, None])
+    x0, cols = (torch.as_tensor(v, device=dev)
+                for v in gray.pack_matrix(a_s, plan.n_pad))
+    short = gray.make_plan(38, chunk_log2=6)
+    last = -(-short.num_chunks // short.lanes) - 1
+    rows = torch.tensor([0, 1, last // 2, last, last + 1], device=dev)
+    kern = ryser_cuda.ryser_blocks(
+        rows, x0, cols, n=38, r=short.r, lanes=short.lanes,
+        num_chunks=short.num_chunks, tier="df64")
+    plain_ms, plain = cuda_ms(lambda: ryser_cuda.ryser_blocks_ref(
+        rows, x0, cols, n=38, r=short.r, lanes=short.lanes,
+        num_chunks=short.num_chunks, tier="df64"), 1)
+    err = compare(kern, plain, None)
+    if not torch.equal(kern, plain):
+        raise AssertionError("ryser_walk_blocks df64 at n=38: kernel and "
+                             "plain version differ")
+    entries_k = MESH_ENTRIES if torch.cuda.device_count() < 2 \
+        else torch.cuda.device_count()
+    share = torch.arange(0, -(-plan.num_chunks // plan.lanes), entries_k,
+                         device=dev)
+
+    def run_share():
+        return ryser_cuda.ryser_blocks(
+            share, x0, cols, n=38, r=plan.r, lanes=plan.lanes,
+            num_chunks=plan.num_chunks, tier="df64")
+
+    run_share()                                           # warm-up
+    share_ms, share_out = cuda_ms(run_share, 3)
+    steps = share.numel() * plan.lanes << plan.r
+    reg = regs.get(f"ryser_walk_kernel<{plan.n_pad},0,1>")
+    blocks = {"ms": share_ms, "plain_ms": plain_ms, "err": err,
+              "registers": reg,
+              "bound": walk_bound(steps, 38, "df64",
+                                  nbytes_of(share, x0, cols, share_out)),
+              "plain_rows": rows.numel(), "plain_r": short.r,
+              "share_rows": share.numel(), "r": plan.r,
+              "lanes": plan.lanes}
+    print(f"ryser_walk_blocks df64 n=38 (<{plan.n_pad},0,1>, {reg} "
+          f"registers): bitwise its plain version on {rows.numel()} block "
+          f"rows of 2^{short.r}-step chunks ({plain_ms:.1f} ms); one card's "
+          f"share, {share.numel()} block rows of {plan.lanes} chunks of "
+          f"2^{plan.r}: {share_ms:.3f} ms, bound {blocks['bound'][0]:.3f} ms")
+
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        entries, where = cards, f"{cards} cards"
+
+        def dealt():
+            return spt.permanent(a38, perman_algo="multi", gpu_num=cards)
+    else:
+        mesh = make_mesh(devices=[dev] * MESH_ENTRIES)
+        entries, where = MESH_ENTRIES, f"{MESH_ENTRIES} streams of one card"
+
+        def dealt():
+            with trace.entry("mesh_phase") as spans:
+                res = ryser_exact(DenseMatrix(a38, "int"),
+                                  Flags(calc="df64"), dev, mesh=mesh)
+            res.meta["spans"] = spans
+            return res
+
+    spt.permanent(a38, device=dev)                      # warm-up
+    t = time.perf_counter()
+    one = spt.permanent(a38, device=dev)
+    one_s = time.perf_counter() - t
+    dealt()                       # every card's context and library
+    current = torch.cuda.current_device()
+    ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"] = 0
+    t = time.perf_counter()
+    many = dealt()
+    many_s = time.perf_counter() - t
+    blocks["launches"] = ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"]
+    cards_meta = many.meta["mesh_cards"]
+    rows_dealt = [c["rows"] for c in cards_meta]
+    ms = [c["walk_ms"] for c in cards_meta]
+    spans = {}
+    for name, dt in many.meta["spans"]:
+        spans[name] = spans.get(name, 0.0) + dt * 1e3
+    spread = (max(ms) - min(ms)) / float(np.median(ms))
+    out = {"where": where, "value": many.permanent, "one_device_s": one_s,
+           "mesh_s": many_s, "rows": rows_dealt, "walk_ms": ms,
+           "walk_ms_spread": spread, "block_launches": blocks["launches"],
+           "spans_ms": {k: v for k, v in spans.items()
+                        if k.startswith("mesh_")}}
+    print(f"mesh phase, n=38 df64 over {where}: {json.dumps(out)}")
+    plan_rows = -(-many.meta["chunks"] // many.meta["lanes"])
+    if many.permanent != one.permanent or many.meta["mesh"] != entries \
+            or len(cards_meta) != entries or sum(rows_dealt) != plan_rows \
+            or blocks["launches"] != entries \
+            or "walk" in spans or set(out["spans_ms"]) != {
+                "mesh_launch", "mesh_wait", "mesh_gather"} \
+            or torch.cuda.current_device() != current:
+        raise AssertionError(f"mesh phase: {many.permanent!r} vs one device "
+                             f"{one.permanent!r}, {out}, current device "
+                             f"{torch.cuda.current_device()} (was "
+                             f"{current})")
+    out["blocks"] = blocks
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--mesh"]):
+        print("usage: python3 chip_smoke.py [--mesh]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1599,10 +1743,17 @@ def main() -> int:
     build.load()
     print(f"build: {time.perf_counter() - t:.1f} s -> {path}")
     print(register_report(report))
+    dev = torch.device("cuda", 0)
     # registers of every instantiation, from the library itself (cuobjdump
     # -res-usage), so a cached build, whose ptxas report is empty, has them
     regs = sass_count.registers(path)
-    dev = torch.device("cuda", 0)
+    if argv == ["--mesh"]:
+        mesh_cards_phase(dev, regs)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # ---- 2. K1 vs its plain version on the card, main-path shapes
@@ -2678,6 +2829,9 @@ def main() -> int:
     wr = walk_range_phase(dev, card, zero_counts)
     rl = wr["launches"]
 
+    # ---- 10. SUPerman's multi-GPU deployment: n=38 over the cards
+    mc = mesh_cards_phase(dev, regs)["blocks"]
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               **more):
         return {"name": name, "route": "cuda", "source": source,
@@ -2747,6 +2901,18 @@ def main() -> int:
                           "multihost_launches": host["multihost_blocks"]}
                          if tier == "df64" else {}))
                 for tier in BLOCK_TIERS]
+    # the block-reduced entry at n=38 (<40, 0, 1>), the walk of the mesh
+    # phase: launches of its dealt call (one an entry), ms and bound_ms on
+    # one card's share of the one-card plan, plain_ms on plain_rows block
+    # rows of 2^plain_r-step chunks
+    kernels.append(entry("ryser_walk_blocks",
+                         "superman_tpu_torch/csrc/ryser_walk.cu",
+                         "superman_tpu/ops/ryser_pallas.py:541",
+                         mc["launches"], mc["err"], mc["ms"],
+                         mc["plain_ms"], mc["bound"], tier="df64", n=38,
+                         registers=mc["registers"],
+                         **{k: mc[k] for k in ("share_rows", "r", "lanes",
+                                               "plain_rows", "plain_r")}))
     # ms, plain_ms and bound_ms at 256 x n=24; beside them the kernel at
     # 16 x n=32 and kernel and plain version at the first 2 of those
     kernels += [entry("ryser_batch", "superman_tpu_torch/csrc/ryser_batch.cu",

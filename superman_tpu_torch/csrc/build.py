@@ -26,7 +26,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 SOURCES = (HERE / "ryser_walk.cu", HERE / "ryser_batch.cu",
            HERE / "modp_walk.cu")
-HEADERS = (HERE / "walk.cuh",)
+HEADERS = (HERE / "walk.cuh", HERE / "device_guard.cuh")
 BUILD_ROOT = HERE.parents[1] / "build" / "superman_tpu_torch"
 LIB_NAME = "libsuperman_tpu_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -150,15 +152,16 @@ cudaError_t launch(const long long* ids, long long num_chunks,
 }  // namespace
 
 // C entry point, bound with ctypes (ops/modp_cuda.py).  Launches on
-// `stream` of `device`, allocates nothing, does not synchronise, and
-// returns cudaGetLastError() of the launch (0 on success).
+// `stream` of `device`, allocates nothing, does not synchronise, leaves
+// the caller's current device as it was (device_guard.cuh), and returns
+// cudaGetLastError() of the launch (0 on success).
 extern "C" int modp_walk(const long long* ids, long long num_chunks,
                          const long long* x0, const long long* cols, int n,
                          int n_pad, int r, unsigned p, unsigned pinv,
                          unsigned r2, long long* out, int device,
                          void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (n < 2 || n > n_pad || r < 1 || r > n - 1 || num_chunks < 0 ||
       (num_chunks + kThreads - 1) / kThreads > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;

@@ -28,6 +28,7 @@
 // 16 matrices per program, its lanes and its transposed column tables
 // have no counterpart here.
 
+#include "device_guard.cuh"
 #include "walk.cuh"
 
 namespace {
@@ -83,13 +84,14 @@ cudaError_t launch(const void* x0s, const void* colss, int batch, int n, int r,
 // (batch, n_pad), colss (batch, n-1, n_pad), out
 // (batch, 2^(n-1-r) / 128, 2): double for tiers 0 (df64) and 3 (tf96),
 // float for tiers 1 (f32) and 2 (f32k).  Launches on `stream` of `device`,
-// allocates nothing, does not synchronise, and returns cudaGetLastError()
-// of the launch (0 on success).
+// allocates nothing, does not synchronise, leaves the caller's current
+// device as it was (device_guard.cuh), and returns cudaGetLastError() of
+// the launch (0 on success).
 extern "C" int ryser_batch(const void* x0s, const void* colss, int batch,
                            int n, int n_pad, int r, int tier, void* out,
                            int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   // a matrix needs at least one full block of chunks: r <= n - 8
   if (n < 9 || n > n_pad || r < 1 || r > n - 8 || batch < 0 ||
       batch > 65535 || (1ull << (n - 1 - r)) / kThreads > 0x7fffffffull)

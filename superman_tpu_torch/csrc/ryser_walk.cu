@@ -40,6 +40,7 @@
 // all three is the walk (walk.cuh says how, tier by tier); weight and
 // reduction are a few hundred operations a chunk.
 
+#include "device_guard.cuh"
 #include "walk.cuh"
 
 namespace {
@@ -236,13 +237,15 @@ cudaError_t launch_reduced(const long long* ids, long long num_chunks,
 }
 
 // Launches on `stream` of `device`, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() of the launch (0 on success).
+// synchronise, leaves the caller's current device as it was
+// (device_guard.cuh), and returns cudaGetLastError() of the launch (0 on
+// success).
 template <int TIER>
 int run(const long long* ids, long long num_chunks, const void* x0,
         const void* cols, int n, int n_pad, int r, void* out, int device,
         void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (n < 3 || n > n_pad || r < 1 || r > n - 2 || num_chunks < 0 ||
       (num_chunks + kThreads - 1) / kThreads > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -332,8 +335,8 @@ extern "C" int ryser_walk_blocks(const long long* rows, long long num_rows,
                                  const void* x0, const void* cols, int n,
                                  int n_pad, int r, int tier, double* out,
                                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (n < 3 || n > n_pad || r < 1 || r > n - 2 || tier < 0 || tier > 2 ||
       num_rows < 0 || num_chunks < 0 || lanes < 1 ||
       num_rows * ((lanes + kThreads - 1) / kThreads) > 0x7fffffffLL)
@@ -374,8 +377,8 @@ extern "C" int ryser_walk_reduced(const long long* ids, long long num_chunks,
                                   const double* fx0, const double* fcols,
                                   int nf, int n, int n_pad, int r, int tier,
                                   double* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (n < 3 || n > 64 || nf < 0 || nf >= n || r < 1 || r > n - 2 ||
       tier < 0 || tier > 3 || num_chunks < 0 || num_chunks % kThreads ||
       num_chunks / kThreads > 0x7fffffffLL ||

@@ -154,13 +154,15 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
         calc = "df64"
     tf = calc == "tf96"
 
-    from ..parallel.sharding import compute_total, total_words
+    from ..parallel.sharding import (compute_total, mesh_cards,
+                                     total_words, walk_span)
     from .ryser import _sm_count
     plan = gray.make_plan(n, flags.lanes, flags.chunk_log2,
                           sms=_sm_count(device),
                           grid_multip=int(flags.grid_multip))
 
     scales = _col_scales(a)
+    cards = mesh_cards(mesh)
     best = None
     shifted = 0
     shift_cap = max(1, 100 // n)
@@ -168,9 +170,9 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
         a_s = np.ldexp(a64, -scales[None, :])
         with trace.timer("pack"):
             x0, cols = _pack_glynn(a_s, plan.n_pad)
-        with trace.timer("walk"):
+        with walk_span(cards):
             total = compute_total(x0, cols, plan, device, tier=calc,
-                                  mesh=mesh)
+                                  mesh=mesh, cards=cards)
         # bounded cumulative shifts and a finite fallback (see ops/ryser.py)
         if not np.isfinite(total):
             break
@@ -190,11 +192,13 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
         p = float(np.ldexp(acc, E + 1 - n)) + 0.0
     dt = time.perf_counter() - t0
     iters = plan.num_chunks << plan.r
+    meta = {"calc": calc, "chunks": plan.num_chunks, "r": plan.r,
+            "lanes": plan.lanes, "scale_log2": E,
+            "iters_per_sec": iters / dt, "device": str(device),
+            "exact_storage": exact_storage,
+            "mesh": None if mesh is None else len(mesh),
+            "walk_words": total_words(plan, calc)}
+    if cards is not None:
+        meta["mesh_cards"] = cards
     return Result(p, dt, algo_name=f"glynn_{where}_{calc}",
-                  iterations=iters,
-                  meta={"calc": calc, "chunks": plan.num_chunks, "r": plan.r,
-                        "lanes": plan.lanes, "scale_log2": E,
-                        "iters_per_sec": iters / dt, "device": str(device),
-                        "exact_storage": exact_storage,
-                        "mesh": None if mesh is None else len(mesh),
-                        "walk_words": total_words(plan, calc)})
+                  iterations=iters, meta=meta)

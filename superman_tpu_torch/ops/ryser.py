@@ -254,7 +254,9 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
     flags.skip_pruning is False.
 
     mesh: a parallel.mesh.Mesh to deal the walk's blocks over (the result
-    is bitwise the single-device one), or None.  flags.hybrid or
+    is bitwise the single-device one; meta["mesh_cards"] gives each
+    entry's block rows and walk ms, and the deal's spans stand in for
+    `walk`: parallel/sharding.py), or None.  flags.hybrid or
     flags.checkpoint_path route the walk through the hybrid scheduler
     (the CPU worker joins under flags.cpu); the tf96 tier and factored
     rows fall back there, as in the reference.
@@ -328,7 +330,8 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
 
         from ..parallel.mesh import process_info
         from ..parallel.multihost import combine_host_totals, host_slice
-        from ..parallel.sharding import compute_total, pad_ids, total_words
+        from ..parallel.sharding import (compute_total, mesh_cards, pad_ids,
+                                         total_words, walk_span)
         sms = _sm_count(device)
         num_shards = 1 if mesh is None else len(mesh)
         # several processes: each walks its interleaved share of the
@@ -402,6 +405,10 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
     with trace.timer("scales"):
         scales = _center_scales(a, _row_scales(a))
     hybrid_stats = None
+    # the deal's spans and per-entry counters stand in for `walk` where one
+    # process deals the walk itself; the scheduler's device worker and
+    # several processes keep `walk`
+    cards = mesh_cards(mesh) if not scheduler and nprocs == 1 else None
     best = None                 # (total, E) of the last FINITE attempt
     shifted = 0                 # cumulative per-row downshift (log2)
     shift_cap = max(1, 100 // n)   # total growth <= 2^100 across attempts
@@ -425,7 +432,7 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                     factors = (np.empty(0), np.empty((n - 1, 0)))
                 a_pack = a_s
             x0, cols = gray.pack_matrix(a_pack, plan.n_pad)
-        with trace.timer("walk"):
+        with walk_span(cards):
             if scheduler:
                 from ..parallel.scheduler import compute_partials_hybrid
                 total, hybrid_stats = compute_partials_hybrid(
@@ -440,7 +447,8 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                     x0, cols, plan, device, tier=calc,
                     sparse=None if factors is None else (chunk_ids,
                                                          *factors),
-                    sms=sms, mesh=mesh, host=(proc_index, nprocs))
+                    sms=sms, mesh=mesh, host=(proc_index, nprocs),
+                    cards=cards)
             if nprocs > 1:
                 # one (hi, lo) pair a process; also keeps the underflow
                 # retry's decision below the same in every process
@@ -475,6 +483,9 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
             "iters_per_sec": iters / dt, "device": str(device),
             "exact_storage": exact_storage,
             "mesh": None if mesh is None else num_shards}
+    if cards is not None:
+        # each entry's block rows and walk ms over the attempts
+        meta["mesh_cards"] = cards
     if nprocs > 1:
         meta["processes"] = nprocs
     if not scheduler:

@@ -23,6 +23,16 @@ pairs or the tf96 words come back into the single-device order before the
 host sums them.  The result over any mesh is therefore BITWISE equal to
 the single-device result, in every tier, dense and sparse.
 
+Where its caller hands compute_total a `cards` list (mesh_cards), a
+walk dealt over more than one entry has three spans (utils/trace.py) in
+place of the caller's `walk` (walk_span): `mesh_launch`, every entry's
+uploads, ids and launch queued on its stream; `mesh_wait`, the host
+blocked until every entry's stream is done; `mesh_gather`, each entry's
+words back and their interleave into the rows' order.  `cards` then
+holds each entry's block rows and walk ms.  Without it (the hybrid
+scheduler's device worker, several processes) the deal is unspanned,
+inside the caller's `walk`.
+
 Under SUPERMAN_DEBUG_NANS (utils/debug.py) the host array of every
 walk's words is checked for NaN once they are all back, naming the
 kernel and its tier: the host copy is made anyway, so the switch adds no
@@ -31,6 +41,7 @@ device work, and one check covers every mesh entry.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -40,6 +51,7 @@ from ..ops import gray
 from ..ops.ryser_cuda import (BLOCK, ryser_amp, ryser_blocks,
                               ryser_partials, ryser_reduced)
 from ..ops.tf96 import sum_words
+from ..utils import trace
 from ..utils.debug import check_nan
 from .mesh import Mesh
 from .multihost import host_slice
@@ -54,37 +66,85 @@ def pad_ids(ids: np.ndarray, lanes: int) -> np.ndarray:
     return padded.reshape(blocks, lanes)
 
 
+def dealt(mesh: Optional[Mesh]) -> bool:
+    """True where a walk over `mesh` is dealt over more than one entry."""
+    return mesh is not None and len(mesh) > 1
+
+
+def mesh_cards(mesh: Optional[Mesh]) -> Optional[list]:
+    """The `cards` list a caller hands compute_total for a walk over
+    `mesh`: empty where the walk is dealt, None on one device."""
+    return [] if dealt(mesh) else None
+
+
+def walk_span(cards: Optional[list]):
+    """The span a caller opens around a walk: `walk`, or none where it
+    hands the walk a `cards` list, whose deal opens its own (spans are
+    leaves)."""
+    return (contextlib.nullcontext() if cards is not None
+            else trace.timer("walk"))
+
+
+def _mark(stream):
+    """A timing event recorded now on `stream`; None on the CPU."""
+    if stream is None:
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
 def _deal(blocks, mesh: Optional[Mesh], device: torch.device,
-          launch) -> np.ndarray:
+          launch, cards: Optional[list] = None) -> np.ndarray:
     """Run launch(device, rows) -> (len(rows), ...) device tensor over the
     rows of `blocks` (an array of block rows of ids or of the indices of
     block rows, or a range of such indices): on `device` alone, or dealt
     round-robin over the mesh's entries, each on its own stream.  Returns
-    the host array of the results in the rows' order."""
-    if mesh is None or len(mesh) == 1:
+    the host array of the results in the rows' order.  A dealt walk
+    handed `cards` runs under the mesh spans and adds each entry's rows
+    and walk ms to cards[e] (made on the call's first deal)."""
+    if not dealt(mesh):
         dev = device if mesh is None else mesh[0]
         return launch(dev, blocks).cpu().numpy()
     k = len(mesh)
-    outs = []
-    for e in range(k):
-        with mesh.on(e):
-            outs.append(launch(mesh[e], blocks[e::k]))
+    timed = cards is not None
+    span = trace.timer if timed else lambda name: contextlib.nullcontext()
+    mark = _mark if timed else lambda stream: None
+    shares = [blocks[e::k] for e in range(k)]
+    outs, marks = [], []
+    with span("mesh_launch"):
+        for e, share in enumerate(shares):
+            with mesh.on(e):
+                start = mark(mesh.streams[e])
+                outs.append(launch(mesh[e], share))
+                marks.append((start, mark(mesh.streams[e])))
     # the copies back run once every entry's walk is queued, so the
-    # entries' walks overlap on a card
-    mesh.synchronize()
-    parts = []
-    for e in range(k):
-        with mesh.on(e):
-            parts.append(outs[e].cpu().numpy())
-    full = np.empty((len(blocks),) + parts[0].shape[1:], parts[0].dtype)
-    for e in range(k):
-        full[e::k] = parts[e]
+    # entries' walks overlap
+    with span("mesh_wait"):
+        mesh.synchronize()
+    with span("mesh_gather"):
+        parts = []
+        for e in range(k):
+            with mesh.on(e):
+                parts.append(outs[e].cpu().numpy())
+        full = np.empty((len(blocks),) + parts[0].shape[1:], parts[0].dtype)
+        for e in range(k):
+            full[e::k] = parts[e]
+    if timed:
+        if not cards:
+            cards.extend({"rows": 0, "walk_ms": None if s is None else 0.0}
+                         for s in mesh.streams)
+        for card, share, (start, end) in zip(cards, shares, marks):
+            card["rows"] += len(share)
+            if start is not None:
+                card["walk_ms"] += start.elapsed_time(end)
     return full
 
 
 def _walk_words(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                 plan: gray.RyserPlan, device: torch.device, tier: str,
-                mesh: Optional[Mesh] = None) -> np.ndarray:
+                mesh: Optional[Mesh] = None,
+                cards: Optional[list] = None) -> np.ndarray:
     """The (B * L, 2) float64 host array of the chunks' (hi, lo) words."""
     def launch(dev, rows):
         ids = torch.as_tensor(rows.reshape(-1), dtype=torch.int64)
@@ -94,7 +154,7 @@ def _walk_words(ids_blocks: np.ndarray, x0: np.ndarray, cols: np.ndarray,
             n=plan.n, r=plan.r, tier=tier)
         return out.reshape(rows.shape + (2,))
 
-    out = _deal(ids_blocks, mesh, device, launch)
+    out = _deal(ids_blocks, mesh, device, launch, cards)
     check_nan(f"ryser_walk_{tier}", out)
     return out.reshape(-1, 2).astype(np.float64)
 
@@ -166,7 +226,8 @@ def total_words(plan: gray.RyserPlan, tier: str = "df64",
 def _block_words(x0: np.ndarray, cols: np.ndarray, plan: gray.RyserPlan,
                  device: torch.device, tier: str,
                  mesh: Optional[Mesh] = None,
-                 host: tuple = (0, 1)) -> np.ndarray:
+                 host: tuple = (0, 1),
+                 cards: Optional[list] = None) -> np.ndarray:
     """The (blocks, 2) float64 host array of the dense walk's block pairs
     (ryser_blocks): this process's share of the block rows, in their
     order, ceil(lanes / 128) blocks a row."""
@@ -187,7 +248,7 @@ def _block_words(x0: np.ndarray, cols: np.ndarray, plan: gray.RyserPlan,
                            tier=tier)
         return out.reshape(len(rows_e), per_row, 2)
 
-    words = _deal(rows, mesh, device, launch).reshape(-1, 2)
+    words = _deal(rows, mesh, device, launch, cards).reshape(-1, 2)
     check_nan(f"ryser_walk_blocks ({tier})", words)
     return words
 
@@ -195,7 +256,8 @@ def _block_words(x0: np.ndarray, cols: np.ndarray, plan: gray.RyserPlan,
 def _reduced_words(ids: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                    factors, plan: gray.RyserPlan, device: torch.device,
                    tier: str, want: int, mesh: Optional[Mesh] = None,
-                   host: tuple = (0, 1)) -> np.ndarray:
+                   host: tuple = (0, 1),
+                   cards: Optional[list] = None) -> np.ndarray:
     """The (blocks, 2) float64 host array of the block pairs of a pruned,
     factored walk of the live ids, split to at least `want` chunks
     (gray.split_shift): this process's share of the blocks
@@ -214,7 +276,7 @@ def _reduced_words(ids: np.ndarray, x0: np.ndarray, cols: np.ndarray,
                              on(fcols).contiguous(), n=plan.n,
                              r=plan.r - shift, tier=tier)
 
-    words = _deal(rows, mesh, device, launch)
+    words = _deal(rows, mesh, device, launch, cards)
     check_nan(f"ryser_walk_reduced ({tier})", words)
     return words
 
@@ -223,7 +285,7 @@ def compute_total(x0: np.ndarray, cols: np.ndarray, plan: gray.RyserPlan,
                   device: torch.device, tier: str = "df64", *,
                   sparse: Optional[tuple] = None,
                   sms: int = gray.DEFAULT_SMS, mesh: Optional[Mesh] = None,
-                  host: tuple = (0, 1)):
+                  host: tuple = (0, 1), cards: Optional[list] = None):
     """The scaled total of the walk: the sum over all chunks of what
     compute_partials gives each, a float, or for tf96 an np.longdouble
     summed from the words (tf96.sum_words: pairwise as double-doubles).
@@ -238,6 +300,9 @@ def compute_total(x0: np.ndarray, cols: np.ndarray, plan: gray.RyserPlan,
     rows' pack, and the walk goes through ryser_reduced, the list split to
     fill `sms` SMs.
     mesh: deal the blocks over these entries (bitwise the same total).
+    cards: a list (mesh_cards) that takes a dealt walk's per-entry rows
+    and walk ms, the deal then running under the mesh spans; None deals
+    it unspanned.
     host: (index, count) of this process; it walks its interleaved share
     of the blocks (multihost.host_slice) and returns its part of the
     total.  total_words says how many pairs the host sums."""
@@ -246,15 +311,18 @@ def compute_total(x0: np.ndarray, cols: np.ndarray, plan: gray.RyserPlan,
         ids, *factors = sparse
         words = _reduced_words(np.asarray(ids, dtype=np.int64), x0, cols,
                                factors, plan, device, tier,
-                               sms * gray.SPLIT_CHUNKS_PER_SM, mesh, host)
+                               sms * gray.SPLIT_CHUNKS_PER_SM, mesh, host,
+                               cards)
     elif tier == "tf96":
         ids_blocks = host_slice(
             pad_ids(np.arange(plan.num_chunks, dtype=np.int64), plan.lanes),
             *host)
-        words = (_walk_words(ids_blocks, x0, cols, plan, device, tier, mesh)
+        words = (_walk_words(ids_blocks, x0, cols, plan, device, tier, mesh,
+                             cards)
                  if len(ids_blocks) else np.zeros((0, 2)))
     else:
-        words = _block_words(x0, cols, plan, device, tier, mesh, host)
+        words = _block_words(x0, cols, plan, device, tier, mesh, host,
+                             cards)
     if not len(words):
         return zero
     if tier == "tf96":

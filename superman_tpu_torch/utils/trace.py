@@ -28,6 +28,10 @@ The spans, each a leaf (none holds another) but the outer
 * `engine_plan`, `sparse_plan`, `scales`, `pack`, `walk`
   (ops/ryser.py; `pack` and `walk` in ops/glynn.py too): the checks and
   the plan, the sparse planner, the row scales, the pack, the walk;
+* `mesh_launch`, `mesh_wait`, `mesh_gather` (parallel/sharding.py), in
+  place of `walk` where one process deals the walk over several mesh
+  entries itself (no hybrid scheduler): the entries' launches queued,
+  the host's wait for them, their words back in the rows' order;
 * `exact_lift`, `exact_plan`, `exact_pack`, `exact_walk`, `exact_crt`
   (ops/exact.py, ops/modp.py): the dyadic lift and folds, the primes and
   the pruned plan, each prime's residue pack and walk, the CRT and the

@@ -601,3 +601,69 @@ def test_profiler_names_the_dense_block_kernel():
     walks = [k for k in names if "ryser_walk_kernel<" in k]
     assert walks, names
     assert not any("ryser_reduced_kernel" in k for k in names)
+
+
+def _cards(k):
+    """The visible cards, or a skip where there are fewer than k."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < k:
+        pytest.skip(f"needs {k} CUDA cards, found {count}")
+    return count
+
+
+@pytest.mark.cuda
+def test_mesh_over_every_card_is_bitwise_one_card():
+    """permanent(perman_algo="multi", gpu_num=k) over every visible card
+    at n=30 d=0.50 keeps the one-card plan and block order, so its value
+    is the one-card value to the last bit; every card's block rows and
+    walk time are counted, and the caller's current device, the first
+    card or the last, is left as it was."""
+    k = _cards(2)
+    import superman_tpu_torch as spt
+    a = _suite_matrix(30, 0.5, 30)
+    one = spt.permanent(a)
+    for cur in (0, k - 1):
+        with torch.cuda.device(cur):
+            res = spt.permanent(a, perman_algo="multi", gpu_num=k)
+            assert torch.cuda.current_device() == cur
+        assert res.permanent == one.permanent
+        assert res.meta["mesh"] == k
+        cards = res.meta["mesh_cards"]
+        assert len(cards) == k
+        assert sum(c["rows"] for c in cards) == \
+            -(-res.meta["chunks"] // res.meta["lanes"])
+        assert all(c["walk_ms"] > 0 for c in cards)
+
+
+#: a call on `device` through each C entry point: the block-reduced K1
+#: (dense df64), K1 per chunk (tf96), the reduced K1 (the sparse gate),
+#: K2 (the batch) and K3 (calc="exact")
+ENTRY_CALLS = {
+    "ryser_walk_blocks": lambda spt, d: spt.permanent(
+        _suite_matrix(30, 0.5, 3), device=d).permanent,
+    "ryser_walk_tf96": lambda spt, d: spt.permanent(
+        _suite_matrix(30, 0.5, 3), calc="tf96", device=d).permanent,
+    "ryser_walk_reduced": lambda spt, d: spt.permanent(
+        _suite_matrix(36, 0.15, 36), device=d).permanent,
+    "ryser_batch": lambda spt, d: [r.permanent for r in spt.permanent_batch(
+        [_suite_matrix(24, 0.5, s) for s in range(4)], device=d)],
+    "modp_walk": lambda spt, d: spt.permanent(
+        _suite_matrix(24, 0.5, 3), calc="exact", device=d).permanent,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", sorted(ENTRY_CALLS))
+def test_a_launch_on_another_card_leaves_the_current_device(entry):
+    """Each C entry point makes its card current for the launch and gives
+    the caller's device back (csrc/device_guard.cuh): a call on the last
+    card from the first leaves the first current, with the first card's
+    value."""
+    k = _cards(2)
+    import superman_tpu_torch as spt
+    call = ENTRY_CALLS[entry]
+    with torch.cuda.device(0):
+        want = call(spt, "cuda:0")
+        got = call(spt, f"cuda:{k - 1}")
+        assert torch.cuda.current_device() == 0
+    assert got == want

@@ -158,7 +158,7 @@ def test_auto_sparse_gate_engages(monkeypatch):
     seen = []
 
     def half(x0, cols, plan, device, tier="df64", *, sparse=None, sms=0,
-             mesh=None, host=(0, 1)):
+             mesh=None, host=(0, 1), cards=None):
         seen.append((sparse, x0, plan))
         return 0.5
 
