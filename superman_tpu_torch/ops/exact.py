@@ -364,6 +364,8 @@ def perman_exact_fraction(a: np.ndarray, device: torch.device,
             meta.update(engine=tmeta["engine"], nprimes=tmeta["nprimes"],
                         bound_bits=tmeta["bound_bits"],
                         live_frac=tmeta["live_frac"])
+            if "plan_search" in tmeta:
+                meta["plan_search"] = tmeta["plan_search"]
         elif engine in ("host", "native"):
             bits = _log2_bound(core) + 3            # sign + slack headroom
             need = max(1, math.ceil(bits / 61.0))
@@ -390,6 +392,8 @@ def perman_exact_fraction(a: np.ndarray, device: torch.device,
                             nprimes=tmeta["nprimes"],
                             bound_bits=tmeta["bound_bits"],
                             live_frac=tmeta["live_frac"])
+                if "plan_search" in tmeta:
+                    meta["plan_search"] = tmeta["plan_search"]
             else:
                 prs = primes_desc(need + 1)         # +1 held-out verifier
                 if engine == "native":
@@ -452,5 +456,7 @@ def perman_exact(dense, flags, device: torch.device):
             "core_n": meta["core_n"], "nprimes": meta.get("nprimes"),
             "engine": meta.get("engine"), "k": meta["k"],
         }
+        if "plan_search" in meta:
+            res.meta["exact"]["plan_search"] = meta["plan_search"]
         res.meta["exact_fraction"] = frac
     return res

@@ -259,14 +259,15 @@ def core_fingerprint(core) -> str:
 _PLAN_CACHE: dict = {}
 
 
-def core_plan(core, *, giters: float = None):
+def core_plan(core, *, giters: float = None, stats: dict = None):
     """Pruned live-chunk plan for a bigint core.
 
     Plan CHOICE (column order, r) comes from the planner's cost model on
     a float image, priced at the kernel's rate `giters`; the live-id
     mask is then recomputed in exact bigint arithmetic (_live_exact).
     Returns (col_perm, ids, r, live_frac) or None (use the dense index
-    space).  Results are cached by core fingerprint.
+    space).  Results are cached by core fingerprint; on a miss `stats`,
+    a dict, gets the planner's search counts (pruning.plan_sparse).
     """
     from .pruning import plan_sparse
     if giters is None:
@@ -274,7 +275,8 @@ def core_plan(core, *, giters: float = None):
     key = (core_fingerprint(core), giters)
     if key in _PLAN_CACHE:
         return _PLAN_CACHE[key]
-    sp = plan_sparse(_score_float(core), giters=giters, allow_factor=False)
+    sp = plan_sparse(_score_float(core), giters=giters, allow_factor=False,
+                     stats=stats)
     out = None
     if sp is not None:
         a2 = _doubled_object(core)[:, sp.col_perm]
@@ -370,7 +372,8 @@ def crt_perman_core(core, device: torch.device, *, log=None,
             if stale and log:
                 log(f"{engine}: ignoring {stale} checkpoint rows from a "
                     f"different core (fingerprint mismatch)")
-        plan = core_plan(core)
+        search = {}
+        plan = core_plan(core, stats=search)
         if plan is not None:
             col_perm, ids, r, live_frac = plan
             work = [[core[i][j] for j in col_perm] for i in range(n)]
@@ -423,4 +426,6 @@ def crt_perman_core(core, device: torch.device, *, log=None,
         meta = {"engine": engine, "nprimes": len(need_primes),
                 "bound_bits": round(bits, 1), "live_frac": live_frac,
                 "r": r, "wall_s": time.perf_counter() - t0}
+        if search:
+            meta["plan_search"] = search
     return X, meta

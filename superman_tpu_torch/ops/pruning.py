@@ -195,7 +195,7 @@ def plan_from_jax(sp) -> SparsePlan:
 
 
 def plan_sparse(a: np.ndarray, *, giters: float, chunk_log2=None,
-                allow_factor: bool = True):
+                allow_factor: bool = True, stats: dict = None):
     """Choose (column order, chunk length, live set, row split) for the
     sparse exact walk, or None to keep the dense plan.
 
@@ -210,12 +210,24 @@ def plan_sparse(a: np.ndarray, *, giters: float, chunk_log2=None,
     has no default: each caller passes the rate of the kernel that will
     walk the plan (ops/ryser.py for K1's tiers, ops/modp.py for the Z_p
     walk).
+
+    The search does each matrix's work once: prune_order's row supports
+    and zero fractions serve every r, and a constant row's share of zeros
+    is looked up by what alone decides it, its x0 and its values in the
+    candidate's column order, so candidates that share a row build its
+    pattern once.  stats, a dict, gets the search's counts: `candidates`,
+    the (r, ordering) pairs scored, and `patterns_built` and
+    `patterns_reused`, the lookups that built a pattern and those that
+    found it.
     """
     a = np.asarray(a, dtype=np.float64)
     n = a.shape[0]
+    if stats is None:
+        stats = {}
+    stats.update(candidates=0, patterns_built=0, patterns_reused=0)
     if n < 19:
         return None
-    from ..prep.orderings import prune_order
+    from ..prep.orderings import prune_order, prune_rows, zero_frac
     t_iter = 1.0 / (giters * 1e9)
     dense_iters = float(1 << (n - 1))
     dense_cost = dense_iters * t_iter
@@ -231,17 +243,33 @@ def plan_sparse(a: np.ndarray, *, giters: float, chunk_log2=None,
                           for rr in (n - 26, n - 24, n - 22, n - 20,
                                      n - 18, n - 16)
                           if n - 1 - rr <= 26})
+    rows = prune_rows(a)
+    zeros = {}               # (x0, values) -> the row's share of zeros
     best = None              # (cost, r, perm, est_live)
     for r in r_cands:
-        for perm in prune_order(a, r):
-            ap = a[:, perm]
+        for perm in prune_order(a, r, rows=rows):
+            stats["candidates"] += 1
+            inner = sum(1 << int(c) for c in perm[:r])
+            walked = ~(1 << int(perm[-1]))
+            # constant rows (no support in the first r columns) whose
+            # support among columns 0..n-2 is within the estimator's cap;
+            # the exact mask still sees the heavier ones later
+            cr = [z for z, sup in enumerate(rows.support)
+                  if not sup & inner and (sup & walked).bit_count() <= 16]
             live_p = 1.0
-            for z in const_rows(ap, r):
-                cols = np.nonzero(ap[z, : n - 1])[0]
-                if len(cols) > 16:           # estimator cap; exact mask
-                    continue                 # still sees the row later
-                _, pat = _row_pat(ap, int(z), r)
-                live_p *= 1.0 - float((pat == 0.0).mean())
+            if cr:
+                sub = a[np.ix_(cr, perm)]
+                x0 = gray.x0_f64(sub)
+                for x, row in zip(x0.tolist(), sub[:, : n - 1]):
+                    vals = row[row != 0]
+                    key = (x, vals.tobytes())
+                    zf = zeros.get(key)
+                    if zf is None:
+                        zf = zeros[key] = zero_frac(x, vals)
+                        stats["patterns_built"] += 1
+                    else:
+                        stats["patterns_reused"] += 1
+                    live_p *= 1.0 - zf
             chunks = float(1 << (n - 1 - r))
             cost = (live_p * (dense_iters * t_iter + chunks * C_CHUNK_S)
                     + chunks * C_MASK_S)

@@ -341,6 +341,7 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
         factor_rows = None
         alive_rows = None
         sparse_meta = None
+        search = None           # the planner's counts, where it ran
         # auto-sparse: on clearly sparse inputs the pruned engine engages
         # even without flags.sparse (the planner declines when
         # unprofitable, and its candidate evaluation costs tens of
@@ -352,10 +353,11 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
     if chunk_ids is None and (flags.sparse or auto_sparse) \
             and flags.skip_pruning:
         from .pruning import plan_sparse
+        search = {}
         with trace.timer("sparse_plan"):
             sp = plan_sparse(a, chunk_log2=flags.chunk_log2,
                              giters=K1_GITERS[calc],
-                             allow_factor=not scheduler)
+                             allow_factor=not scheduler, stats=search)
     with trace.timer("engine_plan"):
         if sp is not None:
             a = np.ascontiguousarray(a[:, sp.col_perm])
@@ -387,9 +389,11 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
             chunk_ids = np.asarray(chunk_ids, dtype=np.int64)
             live = len(chunk_ids)
             if live == 0:
+                meta = {"reason": "all chunks pruned"}
+                if search is not None:
+                    meta["sparse_search"] = search
                 return Result(0.0, time.perf_counter() - t0,
-                              algo_name=name, iterations=0,
-                              meta={"reason": "all chunks pruned"})
+                              algo_name=name, iterations=0, meta=meta)
         else:
             live = plan.num_chunks
         reduced = pruned and not scheduler
@@ -499,6 +503,8 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
             live, plan.r, sms * gray.SPLIT_CHUNKS_PER_SM)
     if sparse_meta is not None:
         meta["sparse"] = sparse_meta
+    if search is not None:
+        meta["sparse_search"] = search
     if hybrid_stats is not None:
         name = name.replace("ryser_", "ryser_hybrid_", 1)
         meta["hybrid"] = {

@@ -19,7 +19,8 @@ import torch
 import superman_tpu as sp
 import superman_tpu_torch as spt
 from superman_tpu.ops import exact as jexact
-from superman_tpu_torch.ops import exact
+from superman_tpu_torch.ops import exact, modp
+from superman_tpu_torch.tools.corpus import suite_matrix
 from tests.conftest import random_int_matrix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,6 +111,25 @@ def test_permanent_exact_matches_jax_result():
     assert got.meta["exact_fraction"] == want.meta["exact_fraction"]
     for key in ("log2", "core_n", "k"):
         assert got.meta["exact"][key] == want.meta["exact"][key], key
+
+
+def test_exact_meta_reports_the_plan_search(monkeypatch):
+    """On a miss of the plan cache calc="exact" reports the planner's
+    counts as meta["exact"]["plan_search"] (a core of n=20: r 7 alone,
+    3 candidates; below n=19 the planner searches nothing); a hit plans
+    nothing and reports none."""
+    monkeypatch.setattr(modp, "_PLAN_CACHE", {})
+    res = spt.permanent(suite_matrix(1, 20, "0.50", 0), calc="exact",
+                        device="cpu")
+    search = res.meta["exact"]["plan_search"]
+    assert search["candidates"] == 3 and search["patterns_built"] >= 1
+    a = _matrix("int12")
+    first = spt.permanent(a, calc="exact", device="cpu")
+    assert first.meta["exact"]["plan_search"] == {
+        "candidates": 0, "patterns_built": 0, "patterns_reused": 0}
+    again = spt.permanent(a, calc="exact", device="cpu")
+    assert "plan_search" not in again.meta["exact"]
+    assert again.permanent == first.permanent
 
 
 def test_device_engine_matches_jax_tpu_engine():

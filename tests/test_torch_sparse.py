@@ -21,10 +21,14 @@ from superman_tpu.ops import pruning as jpruning
 from superman_tpu.ops.oracle import perman_brute
 from superman_tpu.ops.ryser import colst_pack
 from superman_tpu.parallel import sharding as jsharding
+from superman_tpu.prep import orderings as jorderings
 from superman_tpu_torch.core.flags import Flags
 from superman_tpu_torch.core.matrix import DenseMatrix
-from superman_tpu_torch.ops import gray, pruning, ryser, ryser_cuda, tf96
+from superman_tpu_torch.ops import (exact, gray, modp, pruning, ryser,
+                                    ryser_cuda, tf96)
 from superman_tpu_torch.parallel import sharding
+from superman_tpu_torch.prep import orderings
+from superman_tpu_torch.tools.corpus import suite_matrix
 
 #: reference tier switches of compute_partials
 TIER_KW = {"df64": dict(df=True), "f32k": dict(df=False, kahan=True),
@@ -126,6 +130,170 @@ def test_plan_sparse_equal_reference(n, density, seed, chunk_log2):
         assert plan.est_live == want.est_live
         for key in ("col_perm", "ids", "alive_rows", "factor_rows"):
             assert np.array_equal(getattr(plan, key), getattr(want, key)), key
+
+
+# --------------------------------------------------- the planner's search
+
+def search_matrix(kind):
+    """The int suite's n=36 d=0.15 matrices (as permbench draws them), the
+    float images of n=30 d=0.50 cores (what calc="exact" plans on),
+    quarter-integer, half-thirds and arbitrary float matrices."""
+    rng = np.random.default_rng(21)
+    if kind.startswith("suite36"):
+        return suite_matrix(7, 36, "0.15", int(kind[-1])).astype(np.float64)
+    if kind.startswith("core30"):
+        m = suite_matrix(7, 30, "0.50", int(kind[-1])).astype(np.float64)
+        return modp._score_float(exact._fold_lines(
+            exact.dyadic_int_matrix(m)[0])[0])
+    quarters = (rng.integers(-8, 9, (28, 28))
+                * (rng.random((28, 28)) < 0.25)) / 4.0
+    if kind == "dyadic":
+        return quarters
+    if kind == "thirds":       # every other row off the dyadic grid
+        quarters[::2] /= 3.0
+        return quarters
+    if kind == "float":
+        return rng.standard_normal((28, 28)) * (rng.random((28, 28)) < 0.25)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,giters,chunk_log2,allow_factor", [
+    ("suite36_0", 10.0, None, True), ("suite36_0", 10.0, None, False),
+    ("suite36_1", 10.0, 16, True), ("suite36_1", 10.0, 16, False),
+    ("core30_1", 1.0, None, True), ("core30_0", 1.0, 10, True),
+    ("dyadic", 1.0, None, True), ("dyadic", 1.0, 8, True),
+    ("thirds", 1.0, None, True), ("thirds", 1.0, 8, True),
+    ("float", 1.0, None, True), ("float", 1.0, 8, True)])
+def test_plan_sparse_matches_jax_planner(kind, giters, chunk_log2,
+                                         allow_factor, monkeypatch):
+    """At the reference's per-chunk and per-mask-entry costs the port's
+    search (each matrix's rows once, bit-mask greedy, memoized row
+    patterns) makes the reference's plan bitwise: order, r, live ids, row
+    split, dead fraction and live estimate."""
+    monkeypatch.setattr(pruning, "C_CHUNK_S", 80e-9)
+    monkeypatch.setattr(pruning, "C_MASK_S", 5e-8)
+    a = search_matrix(kind)
+    want = jpruning.plan_sparse(a, giters=giters, chunk_log2=chunk_log2,
+                                allow_factor=allow_factor)
+    got = pruning.plan_sparse(a, giters=giters, chunk_log2=chunk_log2,
+                              allow_factor=allow_factor)
+    assert (got is None) == (want is None)
+    if kind != "float":
+        assert got is not None
+    if got is not None:
+        assert got.r == want.r
+        for f in ("col_perm", "ids", "alive_rows", "factor_rows"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+        assert got.dead_frac == want.dead_frac
+        assert got.est_live == want.est_live
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("r", [10, 14, 20])
+def test_prune_order_matches_jax_at_n36(r, seed):
+    """The orderings of the suite's n=36 matrices, each r alone and from
+    one prune_rows for every r, are the reference's bitwise."""
+    a = search_matrix(f"suite36_{seed}")
+    want = jorderings.prune_order(a, r)
+    rows = orderings.prune_rows(a)
+    for got in (orderings.prune_order(a, r),
+                orderings.prune_order(a, r, rows=rows)):
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["suite36_0", "core30_0", "dyadic",
+                                  "thirds", "float", "pm1", "huge"])
+def test_row_zero_fracs_match_jax(kind):
+    """Each row's share of zeros, counted by meet in the middle where the
+    sums are exact and from the whole pattern elsewhere, is the
+    reference's bitwise: rows of +-1 reach zero often, rows past 2^52 and
+    off the half-integer grid take the pattern."""
+    if kind == "pm1":
+        rng = np.random.default_rng(3)
+        a = rng.choice([-1.0, 1.0], (20, 20)) * (rng.random((20, 20)) < 0.8)
+        a[:, -1] = rng.integers(0, 3, 20)
+    elif kind == "huge":
+        a = search_matrix("core30_0") * 2.0 ** 51
+    else:
+        a = search_matrix(kind)
+    got = orderings.prune_rows(a).zero_frac
+    want = [jorderings._row_zero_frac(a, z) for z in range(a.shape[0])]
+    assert got == want
+    if kind in ("pm1", "core30_0"):
+        assert max(got) > 0
+
+
+@pytest.mark.parametrize("kind", ["int", "half", "pm1", "thirds", "normal",
+                                  "huge"])
+def test_zero_frac_is_the_patterns_mean(kind):
+    """zero_frac, by whichever way it counts (a Python list up to 8
+    values, meet in the middle where the sums are exact, the numpy pattern
+    elsewhere), is the mean of zeros of the whole pattern, bitwise, at
+    every length from 0 to 16."""
+    rng = np.random.default_rng(len(kind))
+    hits = 0
+    for k in range(17):
+        for _ in range(3):
+            if kind in ("int", "half", "thirds", "huge"):
+                vals = rng.integers(-4, 5, k).astype(np.float64)
+                vals[vals == 0] = 1.0
+                scale = {"int": 1.0, "half": 0.5, "thirds": 1 / 3,
+                         "huge": 2.0 ** 50}[kind]
+                vals *= scale
+                x0 = -float(vals[: k // 2].sum()) + (scale if k % 3 else 0)
+            elif kind == "pm1":
+                vals = rng.choice([-1.0, 1.0], k)
+                x0 = float(rng.integers(-2, 3))
+            else:
+                vals = rng.standard_normal(k)
+                x0 = -float(vals[: k // 2].sum())
+            want = float((orderings._subset_sums(x0, vals) == 0.0).mean())
+            got = orderings.zero_frac(x0, vals)
+            assert got == want, (k, x0, vals)
+            hits += got > 0
+    assert hits > 0
+
+
+@pytest.mark.parametrize("chunk_log2,candidates", [(None, 18), (16, 3)])
+def test_search_counts(chunk_log2, candidates):
+    """stats counts the (r, ordering) pairs scored and the constant-row
+    lookups, counted here from the reference's orderings: each either
+    built a pattern or found it, and a suite matrix reuses some."""
+    a = search_matrix("suite36_0")
+    n = a.shape[0]
+    stats = {}
+    pruning.plan_sparse(a, giters=ryser.K1_GITERS["df64"],
+                        chunk_log2=chunk_log2, stats=stats)
+    assert stats["candidates"] == candidates
+    lookups = 0
+    for r in ([10, 12, 14, 16, 18, 20] if chunk_log2 is None
+              else [chunk_log2]):
+        for perm in jorderings.prune_order(a, r):
+            ap = a[:, perm]
+            lookups += sum(np.count_nonzero(ap[z, : n - 1]) <= 16
+                           for z in jpruning.const_rows(ap, r))
+    assert stats["patterns_built"] + stats["patterns_reused"] == lookups
+    assert stats["patterns_built"] >= 1 and stats["patterns_reused"] > 0
+
+
+@pytest.mark.parametrize("n,density,chunk_log2,candidates", [
+    (20, 0.15, None, 3), (22, 0.15, 8, 3), (24, 0.5, None, 6)])
+def test_sparse_search_in_result_meta(n, density, chunk_log2, candidates):
+    """permanent(sparse=True) reports the planner's counts whenever the
+    planner ran, a declined plan too (r 7 alone below n=24, 7 and 8 at
+    24); a call that plans nothing has none."""
+    a = suite_matrix(3, n, str(density), 0)
+    res = spt.permanent(a, sparse=True, chunk_log2=chunk_log2,
+                        device="cpu")
+    search = res.meta["sparse_search"]
+    assert search["candidates"] == candidates
+    assert search["patterns_built"] >= 1
+    assert set(search) == {"candidates", "patterns_built",
+                           "patterns_reused"}
+    assert "sparse_search" not in spt.permanent(a[:19, :19],
+                                                device="cpu").meta
 
 
 # ------------------------------------------------------ the chunk weights
