@@ -15,8 +15,8 @@ under the modular CRT engine), and superman_tpu_torch.permanent_batch
 n=32 and a mixed list; the sparse engine (the pruned, factored walk,
 ryser_walk_reduced) through permanent() on seeded sparse matrices of n=36
 and n=40; calc="tf96" on a matrix whose chunk partials stand 1e7 above
-its permanent; and calc="auto" (the ladder, with the amp walk
-ryser_walk_amp: the amplitude alone on integer matrices, with the
+its permanent; and calc="auto" (the ladder, with the amp walk, the C
+entry ryser_walk at tiers 4 and 5: the amplitude alone on integer matrices, with the
 conditioned term beside it on real-valued ones) at n=32 and on a
 real-valued n=24 matrix built to defeat the float tiers.  Then the
 transform drivers and the estimators: compression=True on the sparse
@@ -76,8 +76,9 @@ times kernels and plain versions, and prints:
 
   * the card's `name, power.limit` (nvidia-smi);
   * one JSON line {"kernels": [...]} with each kernel's launches on one
-    path (ryser_walk_<tier> counts K1's per-chunk launches and
-    ryser_walk_blocks its block-reduced ones; the counts are set to 0 before every path and read after it;
+    path, read from the one counter (csrc/build.py LAUNCHES, keyed by
+    entry and tier: K1's launches are its "walk" and "blocks" entries);
+    the counts are set to 0 before every path and read after it;
     `driver_launches` holds them on the driver paths, `mesh_launches`,
     `mesh_glynn_launches`, `hybrid_launches` and `multihost_launches`
     on the host layer's, `tools_launches` over the tools' phase,
@@ -106,6 +107,7 @@ from fractions import Fraction
 
 import numpy as np
 
+from superman_tpu_torch.csrc.build import LAUNCHES, launches
 from superman_tpu_torch.tools import modp_rate, smc_flagship
 from superman_tpu_torch.tools.kernel_time import (PEAK, random_int_matrix,
                                                 smi, sparse_int_matrix)
@@ -260,6 +262,16 @@ RANGE_HOST_REPS = 3
 #: smc_flagship.Z_LIMIT = 3 of sigma_log2 = stderr_rel / ln 2
 FLAGSHIP = dict(approximation=True, perman_algo="scaling", smc=1,
                 number_of_times=32768, seed=11)
+
+
+def k1_count() -> int:
+    """K1's launches: its per-chunk and its block-reduced entry's."""
+    return launches("walk", "blocks")
+
+
+def tier_counts(*entries: str, tiers=TIERS) -> dict:
+    """The launches of `entries`, tier by tier (csrc/build.py LAUNCHES)."""
+    return {t: launches(*entries, tier=t) for t in tiers}
 
 
 def within_line_landmine(lrng, n):
@@ -580,15 +592,15 @@ import numpy as np
 from superman_tpu_torch.parallel.mesh import init_distributed, process_info
 init_distributed()
 import superman_tpu_torch as spt
-from superman_tpu_torch.ops import ryser_cuda
+from superman_tpu_torch.csrc.build import LAUNCHES, launches
 from superman_tpu_torch.tools.kernel_time import random_int_matrix
 a = random_int_matrix(np.random.default_rng({seed}), {n}, 0.5)
 spt.permanent(a, device={device!r})                # warm-up
-ryser_cuda.LAUNCHES = ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"] = 0
+LAUNCHES.clear()
 res = spt.permanent(a, device={device!r})
 print("RESULT", json.dumps({{"value": res.permanent.hex(),
-                            "launches": ryser_cuda.LAUNCHES,
-                            "blocks": ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"],
+                            "launches": launches("walk", "blocks"),
+                            "blocks": launches("blocks", tier="df64"),
                             "processes": process_info()[1],
                             "wall_s": res.time}}))
 """
@@ -613,8 +625,7 @@ def host_layer_phases(dev, a32, a36, bin32, zero_counts,
     from superman_tpu_torch.core.flags import Flags
     from superman_tpu_torch.core.matrix import DenseMatrix
     from superman_tpu_torch.native import build as native_build
-    from superman_tpu_torch.ops import (approx, exact, gray, modp, modp_cuda,
-                                        ryser_cuda)
+    from superman_tpu_torch.ops import approx, exact, gray, modp
     from superman_tpu_torch.ops.glynn import glynn_exact
     from superman_tpu_torch.ops.ryser import (_center_scales, _row_scales,
                                               _sm_count, ryser_exact)
@@ -673,8 +684,8 @@ def host_layer_phases(dev, a32, a36, bin32, zero_counts,
     k3, k3_wall = timed(lambda: modp.perman_core_mod(core, p, dev))
     print(f"native sup_perman_mod n=24 mod {p}: {got} in "
           f"{walls['native_mod_n24_s']:.3f} s; K3 {k3} in {k3_wall:.4f} s "
-          f"({modp_cuda.LAUNCHES} launch)")
-    if got != k3 or modp_cuda.LAUNCHES != 1:
+          f"({launches('modp')} launch)")
+    if got != k3 or launches("modp") != 1:
         raise AssertionError(f"native residue n=24: {got} != K3 {k3}")
 
     # ---- 5b. the mesh: ryser_exact and glynn_exact over MESH_ENTRIES
@@ -694,24 +705,24 @@ def host_layer_phases(dev, a32, a36, bin32, zero_counts,
         fn(dm, flags, dev, mesh=mesh)
         zero_counts()
         many, many_wall = timed(lambda: fn(dm, flags, dev, mesh=mesh))
-        launches = {"k1": ryser_cuda.LAUNCHES,
-                    "blocks": sum(ryser_cuda.DENSE_BLOCK_LAUNCHES.values()),
-                    "reduced": sum(ryser_cuda.REDUCED_LAUNCHES.values())}
+        counts = {"k1": k1_count(),
+                  "blocks": launches("blocks"),
+                  "reduced": launches("reduced")}
         many_wall = min(many_wall, min(timed(lambda: fn(
             dm, flags, dev, mesh=mesh))[1] for _ in range(2)))
-        out["mesh"][tag] = launches
+        out["mesh"][tag] = counts
         walls[f"mesh {tag}"] = {"one_device_s": one_wall,
                                 "mesh_s": many_wall}
         print(f"mesh of {MESH_ENTRIES} streams, {tag}: {many.permanent!r} "
               f"({many.algo_name}, mesh {many.meta['mesh']}) in "
               f"{many_wall:.4f} s, one device {one.permanent!r} in "
-              f"{one_wall:.4f} s (best of 3 each); launches {launches}")
+              f"{one_wall:.4f} s (best of 3 each); launches {counts}")
         want_key = "reduced" if "sparse" in tag else "k1"
         if many.permanent != one.permanent \
                 or many.meta["mesh"] != MESH_ENTRIES \
-                or launches[want_key] != MESH_ENTRIES:
+                or counts[want_key] != MESH_ENTRIES:
             raise AssertionError(f"mesh {tag}: {many.permanent!r} vs "
-                                 f"{one.permanent!r}, launches {launches}")
+                                 f"{one.permanent!r}, launches {counts}")
     entry_res = spt.permanent(a32, mesh_shape=(MESH_ENTRIES,), device=dev)
     print(f"permanent(a32, mesh_shape=({MESH_ENTRIES},)) on "
           f"{torch.cuda.device_count()} card(s): mesh "
@@ -733,7 +744,7 @@ def host_layer_phases(dev, a32, a36, bin32, zero_counts,
             a32, hybrid=True, cpu=True, checkpoint_path=journal,
             threads=threads, device=dev))
         h = res.meta["hybrid"]
-        out["hybrid"]["permanent"] = ryser_cuda.LAUNCHES
+        out["hybrid"]["permanent"] = k1_count()
         rel = rel_err(res.permanent, exact_value)
         again, again_wall = timed(lambda: spt.permanent(
             a32, hybrid=True, cpu=True, checkpoint_path=journal,
@@ -741,7 +752,7 @@ def host_layer_phases(dev, a32, a36, bin32, zero_counts,
     print(f"hybrid permanent(a32, hybrid=True, cpu=True, checkpoint): "
           f"{res.permanent!r} ({res.algo_name}) in {wall:.4f} s, one device "
           f"{one_wall:.4f} s; units {h}, rel err {rel:.3e} vs the exact "
-          f"integer; {ryser_cuda.LAUNCHES} K1 launches; resumed run "
+          f"integer; {k1_count()} K1 launches; resumed run "
           f"{again.permanent!r} in {again_wall:.4f} s, units "
           f"{again.meta['hybrid']}")
     # on a card no unit may fail over to the CPU: no retry, no hand-off
@@ -765,21 +776,21 @@ def host_layer_phases(dev, a32, a36, bin32, zero_counts,
     (total, stats), wall = timed(lambda: compute_partials_hybrid(
         a_s, ids_blocks, x0, cols, plan, dev, threads=threads,
         unit_blocks=1))
-    out["hybrid"]["unit_blocks=1"] = ryser_cuda.LAUNCHES
+    out["hybrid"]["unit_blocks=1"] = k1_count()
     value = float((4 * (n32 & 1) - 2)
                   * np.ldexp(np.float64(total), int(scales.sum())))
     rel = rel_err(value, exact_value)
     print(f"compute_partials_hybrid, unit_blocks=1 ({len(ids_blocks)} "
           f"blocks of {plan.lanes} chunks of 2^{plan.r}): {value!r} in "
           f"{wall:.4f} s, rel err {rel:.3e}; units {stats}; "
-          f"{ryser_cuda.LAUNCHES} K1 launches")
+          f"{k1_count()} K1 launches")
     walls["hybrid"]["unit_blocks=1_s"] = wall
     walls["hybrid"]["unit_blocks=1_units"] = {
         "device": stats.units_device, "cpu": stats.units_cpu}
     if not rel <= HYBRID_TOL or stats.units_device < 1 \
             or stats.units_cpu < 1 or stats.retries != 0 \
             or stats.handoffs != 0 \
-            or ryser_cuda.LAUNCHES != stats.units_device:
+            or k1_count() != stats.units_device:
         raise AssertionError(f"hybrid unit_blocks=1: {stats}")
 
     # ---- 5d. two processes joined over gloo, each on this card
@@ -868,7 +879,6 @@ def tools_phase(dev, zero_counts) -> dict:
     import os
     import tempfile
 
-    from superman_tpu_torch.ops import modp_cuda, ryser_cuda
     from superman_tpu_torch.tools import (accuracy, corpus, exact_known,
                                           fuzz, real_suite, scaling_measure,
                                           sparse_report, suite_check)
@@ -1014,12 +1024,12 @@ def tools_phase(dev, zero_counts) -> dict:
             raise AssertionError(f"real_suite: {fails} failures")
     walls["phase"] = time.perf_counter() - t_phase
     out["launches"] = {
-        "k1": dict(ryser_cuda.TIER_LAUNCHES),
-        "blocks": dict(ryser_cuda.DENSE_BLOCK_LAUNCHES),
-        "batch": ryser_cuda.BATCH_LAUNCHES,
-        "reduced": dict(ryser_cuda.REDUCED_LAUNCHES),
-        "amp": ryser_cuda.AMP_LAUNCHES - ryser_cuda.AMP_COND_LAUNCHES,
-        "cond": ryser_cuda.AMP_COND_LAUNCHES, "modp": modp_cuda.LAUNCHES}
+        "k1": tier_counts("walk", "blocks"),
+        "blocks": tier_counts("blocks", tiers=BLOCK_TIERS),
+        "batch": launches("batch"),
+        "reduced": tier_counts("reduced"),
+        "amp": launches("amp"),
+        "cond": launches("amp_cond"), "modp": launches("modp")}
     print(f"tools phase: walls (s) {json.dumps(walls)}; launches "
           f"{json.dumps(out['launches'])}")
     return out
@@ -1042,7 +1052,6 @@ def nan_switch_phase(dev, a32, a36, stack_a, card) -> dict:
     import torch
     import superman_tpu_torch as spt
     from superman_tpu_torch.ops import approx, batch, gray, pruning
-    from superman_tpu_torch.ops import modp_cuda, ryser_cuda
     from superman_tpu_torch.ops.ryser import (K1_GITERS, _center_scales,
                                               _row_scales, _sm_count)
     from superman_tpu_torch.ops.ryser_walk import ryser_walk
@@ -1051,13 +1060,14 @@ def nan_switch_phase(dev, a32, a36, stack_a, card) -> dict:
 
     def counts():
         """Every kernel's launch count, by kernel and tier."""
-        return {**{f"k1 {t}": n for t, n in ryser_cuda.TIER_LAUNCHES.items()},
+        return {**{f"k1 {t}": n
+                   for t, n in tier_counts("walk", "blocks").items()},
                 **{f"reduced {t}": n
-                   for t, n in ryser_cuda.REDUCED_LAUNCHES.items()},
-                "batch": ryser_cuda.BATCH_LAUNCHES,
-                "amp": ryser_cuda.AMP_LAUNCHES,
-                "amp cond": ryser_cuda.AMP_COND_LAUNCHES,
-                "modp": modp_cuda.LAUNCHES}
+                   for t, n in tier_counts("reduced").items()},
+                "batch": launches("batch"),
+                "amp": launches("amp", "amp_cond"),
+                "amp cond": launches("amp_cond"),
+                "modp": launches("modp")}
 
     def launched(before):
         """The launches since `before` (a counts()), those not 0."""
@@ -1281,7 +1291,6 @@ def bench_phase(dev, zero_counts) -> dict:
     import subprocess
     import tempfile
 
-    from superman_tpu_torch.ops import ryser_cuda
     from superman_tpu_torch.tools import bench
 
     zero_counts()
@@ -1289,17 +1298,17 @@ def bench_phase(dev, zero_counts) -> dict:
     line = bench.measure(dev, log=lambda s: print(f"  bench: {s}",
                                                   flush=True))
     wall = time.perf_counter() - t
-    launches = {"k1": dict(ryser_cuda.TIER_LAUNCHES),
-                "blocks": dict(ryser_cuda.DENSE_BLOCK_LAUNCHES),
-                "reduced": dict(ryser_cuda.REDUCED_LAUNCHES)}
+    counts = {"k1": tier_counts("walk", "blocks"),
+              "blocks": tier_counts("blocks", tiers=BLOCK_TIERS),
+              "reduced": tier_counts("reduced")}
     print("bench: " + json.dumps(line))
     bad = bench.failures(line)
     if bad:
         raise AssertionError(f"bench: {bad}")
-    if not all(launches["k1"][t] for t in TIERS) \
-            or not launches["reduced"]["df64"]:
+    if not all(counts["k1"][t] for t in TIERS) \
+            or not counts["reduced"]["df64"]:
         raise AssertionError(f"bench: a kernel of its path was not "
-                             f"launched: {launches}")
+                             f"launched: {counts}")
     d = line["detail"]
     print(f"bench: {line['value']:.4f} G iters/s df64 (vs_baseline "
           f"{line['vs_baseline']:.3f}), f32 {d['f32_g_iters_per_sec']:.4f}, "
@@ -1307,7 +1316,7 @@ def bench_phase(dev, zero_counts) -> dict:
           f"{d['tf96_g_iters_per_sec']:.4f}; sparse/dense speedup "
           f"{d['sparse_vs_dense_speedup']:.3f}; errors "
           f"{json.dumps(bench.errors(line))}; {wall:.1f} s; launches "
-          f"{json.dumps(launches)}; {d['card']}")
+          f"{json.dumps(counts)}; {d['card']}")
 
     repo = os.path.dirname(os.path.abspath(__file__))
     t = time.perf_counter()
@@ -1330,7 +1339,7 @@ def bench_phase(dev, zero_counts) -> dict:
     bad = bench.failures(parsed)
     if bad or parsed["metric"] != line["metric"]:
         raise AssertionError(f"capture_bench: {bad or parsed['metric']}")
-    return {"launches": launches, "wall_s": wall,
+    return {"launches": counts, "wall_s": wall,
             "capture_wall_s": capture_wall}
 
 
@@ -1362,7 +1371,7 @@ def walk_range_phase(dev, card, zero_counts) -> dict:
     from superman_tpu_torch.bindings import native as nat
     from superman_tpu_torch.core.matrix import DenseMatrix
     from superman_tpu_torch.io.triplet import write_triplet
-    from superman_tpu_torch.ops import modp_cuda, ryser_cuda, tf96
+    from superman_tpu_torch.ops import tf96
     from superman_tpu_torch.ops.ryser_walk import times_pow2, walk_scales
     from superman_tpu_torch.tools import lane_walls
 
@@ -1525,13 +1534,13 @@ def walk_range_phase(dev, card, zero_counts) -> dict:
         res = spt.permanent(mat(*shape), cpu=True, gpu=False, threads=8)
         hold(f"native {shape}", mat(*shape), res, RANGE_TOL)
         native.append(rows[-1])
-    launches = {"k1": dict(ryser_cuda.TIER_LAUNCHES),
-                "blocks": dict(ryser_cuda.DENSE_BLOCK_LAUNCHES),
-                "batch": ryser_cuda.BATCH_LAUNCHES,
-                "reduced": dict(ryser_cuda.REDUCED_LAUNCHES),
-                "amp": ryser_cuda.AMP_LAUNCHES - ryser_cuda.AMP_COND_LAUNCHES,
-                "cond": ryser_cuda.AMP_COND_LAUNCHES,
-                "modp": modp_cuda.LAUNCHES}
+    counts = {"k1": tier_counts("walk", "blocks"),
+              "blocks": tier_counts("blocks", tiers=BLOCK_TIERS),
+              "batch": launches("batch"),
+              "reduced": tier_counts("reduced"),
+              "amp": launches("amp"),
+              "cond": launches("amp_cond"),
+              "modp": launches("modp")}
 
     # the lane routes through the entry points (their walls before the
     # scales: lane_walls.py --against the tree before them), the host
@@ -1558,7 +1567,7 @@ def walk_range_phase(dev, card, zero_counts) -> dict:
         scales_ms[f"n={n}"] = statistics.median(times) * 1e3
 
     out = {"rows": rows, "walls": walls, "host_walls": host_walls,
-           "scales_ms": scales_ms, "native": native, "launches": launches,
+           "scales_ms": scales_ms, "native": native, "launches": counts,
            "card": card, "phase_s": time.perf_counter() - t_phase}
     print("walk range: " + json.dumps(out))
     on_host = sum(r["route"] == "host" for r in rows)
@@ -1669,11 +1678,11 @@ def mesh_cards_phase(dev, regs: dict) -> dict:
     one_s = time.perf_counter() - t
     dealt()                       # every card's context and library
     current = torch.cuda.current_device()
-    ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"] = 0
+    LAUNCHES.clear()
     t = time.perf_counter()
     many = dealt()
     many_s = time.perf_counter() - t
-    blocks["launches"] = ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"]
+    blocks["launches"] = launches("blocks", tier="df64")
     cards_meta = many.meta["mesh_cards"]
     rows_dealt = [c["rows"] for c in cards_meta]
     ms = [c["walk_ms"] for c in cards_meta]
@@ -1721,14 +1730,7 @@ def main(argv=None) -> int:
     from superman_tpu_torch.tools import sass_count
 
     def zero_counts():
-        ryser_cuda.LAUNCHES = ryser_cuda.BATCH_LAUNCHES = 0
-        ryser_cuda.AMP_LAUNCHES = ryser_cuda.AMP_COND_LAUNCHES = 0
-        for tier in TIERS:
-            ryser_cuda.REDUCED_LAUNCHES[tier] = 0
-            ryser_cuda.TIER_LAUNCHES[tier] = 0
-        for tier in BLOCK_TIERS:
-            ryser_cuda.DENSE_BLOCK_LAUNCHES[tier] = 0
-        modp_cuda.LAUNCHES = 0
+        LAUNCHES.clear()
 
     # ---- 1. probe and build
     t_script = time.perf_counter()
@@ -1940,8 +1942,8 @@ def main(argv=None) -> int:
           f"r={best.meta['r']} chunks={best.meta['chunks']}")
     if best.algo_name != "ryser_cuda_df64" or not rel <= MAIN_TOL:
         raise AssertionError(f"n=32: {best.algo_name} rel {rel:.3e}")
-    k1_launches = {"df64": ryser_cuda.LAUNCHES}
-    k1_blocks = {"df64": ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"]}
+    k1_launches = {"df64": k1_count()}
+    k1_blocks = {"df64": launches("blocks", tier="df64")}
     zero_counts()
     for n, a, want in small:
         res = spt.permanent(a, calc="df64")
@@ -1951,9 +1953,9 @@ def main(argv=None) -> int:
         if res.algo_name != "ryser_cuda_df64" or not rel_n <= SMALL_TOL:
             raise AssertionError(f"n={n}: {res.algo_name} rel {rel_n:.3e}")
     print(f"ryser_walk_df64 launches: {k1_launches['df64']} on the n=32 "
-          f"path (4 calls), {ryser_cuda.LAUNCHES} on the n=20 and n=24 path "
+          f"path (4 calls), {k1_count()} on the n=20 and n=24 path "
           f"(2 calls)")
-    if ryser_cuda.LAUNCHES <= 0:
+    if k1_count() <= 0:
         raise AssertionError("the n=20 and n=24 path did not launch K1")
     tier_vals = {"df64": best.permanent}
     for tier, tol in (("f32", F32_TOL), ("f32k", F32K_TOL),
@@ -1962,8 +1964,8 @@ def main(argv=None) -> int:
         spt.permanent(a32, calc=tier)                     # warm-up
         res = min((spt.permanent(a32, calc=tier) for _ in range(3)),
                   key=lambda res: res.time)
-        k1_launches[tier] = ryser_cuda.LAUNCHES
-        k1_blocks[tier] = ryser_cuda.DENSE_BLOCK_LAUNCHES.get(tier, 0)
+        k1_launches[tier] = k1_count()
+        k1_blocks[tier] = launches("blocks", tier=tier)
         rel_t = rel_err(res.permanent, EXACT_N32)
         print(f"main path n=32 {tier}: {res.permanent!r} in {res.time:.4f} s "
               f"(best of 3), rel err {rel_t:.3e} vs the exact integer "
@@ -2007,8 +2009,8 @@ def main(argv=None) -> int:
         zero_counts()
         res = min((spt.permanent(a32, perman_algo="glynn", calc=tier)
                    for _ in range(2)), key=lambda res: res.time)
-        glynn_launches[tier] = ryser_cuda.LAUNCHES
-        glynn_blocks[tier] = ryser_cuda.DENSE_BLOCK_LAUNCHES.get(tier, 0)
+        glynn_launches[tier] = k1_count()
+        glynn_blocks[tier] = launches("blocks", tier=tier)
         rel_g = rel_err(res.permanent, EXACT_N32)
         vs_ryser = rel_err(res.permanent, tier_vals[tier])
         print(f"Glynn n=32 {tier}: {res.permanent!r} in {res.time:.4f} s "
@@ -2028,7 +2030,7 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         res = spt.permanent(a32, calc="exact")
         ex.append((time.perf_counter() - t, res))
-    mod_launches = modp_cuda.LAUNCHES
+    mod_launches = launches("modp")
     exact_s, res = min(ex, key=lambda e: e[0])
     meta = res.meta["exact"]
     print(f"exact path n=32: {res.meta['exact_fraction']} in {exact_s:.4f} s "
@@ -2076,12 +2078,12 @@ def main(argv=None) -> int:
     k2_paths = {}
     zero_counts()
     vals_a, wall_a, spans = run_batch_path(stack_a, "df64")
-    k2_paths["256 x n=24 df64, 3 calls"] = ryser_cuda.BATCH_LAUNCHES
+    k2_paths["256 x n=24 df64, 3 calls"] = launches("batch")
     print(f"batch path 256 x n=24 df64: {wall_a * 1e3:.2f} ms wall (best of "
           f"3), {256 / wall_a:.0f} matrices/s; spans of the last run {spans}")
     zero_counts()
     vals_b, wall_b, _ = run_batch_path(stack_b, "df64")
-    k2_paths["16 x n=32 df64, 3 calls"] = ryser_cuda.BATCH_LAUNCHES
+    k2_paths["16 x n=32 df64, 3 calls"] = launches("batch")
     rel_b = rel_err(vals_b[0], EXACT_N32)
     print(f"batch path 16 x n=32 df64: {wall_b * 1e3:.2f} ms wall; matrix 0 "
           f"{float(vals_b[0])!r}, rel err {rel_b:.3e} vs the exact integer")
@@ -2092,9 +2094,9 @@ def main(argv=None) -> int:
     out_c = spt.permanent_batch([m for _, m in mixed])
     groups_c = len({m.shape[0] for _, m in mixed if m.shape[0] >= 13})
     k2_paths[f"mixed list df64, 1 call, {groups_c} order groups from "
-             f"n=13"] = ryser_cuda.BATCH_LAUNCHES
-    if ryser_cuda.BATCH_LAUNCHES != groups_c:
-        raise AssertionError(f"mixed list: {ryser_cuda.BATCH_LAUNCHES} "
+             f"n=13"] = launches("batch")
+    if launches("batch") != groups_c:
+        raise AssertionError(f"mixed list: {launches('batch')} "
                              f"launches for {groups_c} order groups")
     # the kernels line reports the path its times are taken at
     k2_launches = {"df64": k2_paths["256 x n=24 df64, 3 calls"]}
@@ -2146,8 +2148,8 @@ def main(argv=None) -> int:
     for tier, tol in (("f32", F32_TOL), ("f32k", F32K_TOL)):
         zero_counts()
         vals_t, wall_t, _ = run_batch_path(stack_a, tier)
-        k2_launches[tier] = ryser_cuda.BATCH_LAUNCHES
-        k2_paths[f"256 x n=24 {tier}, 3 calls"] = ryser_cuda.BATCH_LAUNCHES
+        k2_launches[tier] = launches("batch")
+        k2_paths[f"256 x n=24 {tier}, 3 calls"] = launches("batch")
         tier_err[tier] = float(np.max(np.abs(vals_t - vals_a)
                                       / np.abs(vals_a)))
         print(f"batch path 256 x n=24 {tier}: {wall_t * 1e3:.2f} ms wall, "
@@ -2156,8 +2158,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"batch {tier}: {tier_err[tier]:.3e}")
     zero_counts()
     vals_t, wall_t, _ = run_batch_path(stack_a, "tf96")
-    k2_launches["tf96"] = ryser_cuda.BATCH_LAUNCHES
-    k2_paths["256 x n=24 tf96, 3 calls"] = ryser_cuda.BATCH_LAUNCHES
+    k2_launches["tf96"] = launches("batch")
+    k2_paths["256 x n=24 tf96, 3 calls"] = launches("batch")
     exact_a = [spt.permanent(m, calc="exact").meta["exact_fraction"]
                for m in stack_a[:8]]
     tier_err["tf96"] = max(rel_err(v, want)
@@ -2185,7 +2187,7 @@ def main(argv=None) -> int:
         spt.permanent(a36, calc=tier)                     # warm-up
         res = min((spt.permanent(a36, calc=tier) for _ in range(3)),
                   key=lambda res: res.time)
-        reduced_launches[tier] = ryser_cuda.REDUCED_LAUNCHES[tier]
+        reduced_launches[tier] = launches("reduced", tier=tier)
         rel_s = rel_err(res.permanent, exact36)
         sp36 = sparse36[tier]["sp"]
         want_meta = {"dead_frac": round(sp36.dead_frac, 4),
@@ -2198,11 +2200,11 @@ def main(argv=None) -> int:
                 f"sparse {res.meta.get('sparse')}, spans "
                 f"{ {k: round(v * 1e3, 2) for k, v in res.meta['spans']} }, "
                 f"{reduced_launches[tier]} reduced launches (4 calls), "
-                f"{ryser_cuda.LAUNCHES} dense")
+                f"{k1_count()} dense")
         if res.algo_name != f"ryser_cuda_{tier}" \
                 or res.meta.get("sparse") != want_meta \
                 or res.meta["chunks"] != len(sp36.ids) \
-                or reduced_launches[tier] != 4 or ryser_cuda.LAUNCHES != 0 \
+                or reduced_launches[tier] != 4 or k1_count() != 0 \
                 or not rel_s <= SPARSE_TOL[tier]:
             raise AssertionError(line)
         if tier in ("df64", "tf96"):
@@ -2212,7 +2214,7 @@ def main(argv=None) -> int:
             line += (f"; unpruned {dense.permanent!r} in {dense.time:.4f} s "
                      f"({dense.time / res.time:.1f}x), rel err {rel_d:.3e}, "
                      f"pruned vs unpruned {vs_dense:.3e}")
-            if "sparse" in dense.meta or ryser_cuda.LAUNCHES <= 0 \
+            if "sparse" in dense.meta or k1_count() <= 0 \
                     or not rel_d <= SPARSE_TOL[tier] \
                     or not vs_dense <= 2 * SPARSE_TOL[tier]:
                 raise AssertionError(line)
@@ -2235,9 +2237,9 @@ def main(argv=None) -> int:
               f"{res.meta['chunks']} live chunks of 2^{res.meta['r']} cut "
               f"2^{res.meta['split_log2']} ways, sparse "
               f"{res.meta.get('sparse')}, "
-              f"{ryser_cuda.REDUCED_LAUNCHES[tier]} reduced launches")
+              f"{launches('reduced', tier=tier)} reduced launches")
         if res.meta.get("sparse", {}).get("factored_rows") != 8 \
-                or ryser_cuda.REDUCED_LAUNCHES[tier] != 2:
+                or launches("reduced", tier=tier) != 2:
             raise AssertionError(f"n=40 {tier}: {res.meta}")
     rel40 = rel_err(vals40["df64"], vals40["tf96"])
     print(f"sparse path n=40: df64 vs tf96 rel diff {rel40:.3e} (limit "
@@ -2252,17 +2254,17 @@ def main(argv=None) -> int:
     rel_a = rel_err(res.permanent, EXACT_N32)
     print(f"auto n=32: {res.permanent!r} in {res.time:.4f} s, rel err "
           f"{rel_a:.3e}; {res.algo_name}, auto {res.meta['auto']}, "
-          f"{ryser_cuda.LAUNCHES} K1 launches, {ryser_cuda.AMP_LAUNCHES} amp")
+          f"{k1_count()} K1 launches, {launches('amp', 'amp_cond')} amp")
     if res.meta["auto"].get("probe_only") is not True \
-            or res.algo_name != "ryser_cuda_df64" or ryser_cuda.LAUNCHES != 1 \
-            or ryser_cuda.AMP_LAUNCHES != 0 or not rel_a <= MAIN_TOL:
+            or res.algo_name != "ryser_cuda_df64" or k1_count() != 1 \
+            or launches("amp", "amp_cond") != 0 or not rel_a <= MAIN_TOL:
         raise AssertionError("auto n=32: not the probe-only df64 result")
     # (b) an impossible target: f32k companion, the amp walk over all 2^31
     # indices, then the exact rung, or with no exact budget tf96, flagged
     # (the matrix is integer: the amp walk takes the amplitude alone)
     def amp_counts():
-        return {"amp": ryser_cuda.AMP_LAUNCHES - ryser_cuda.AMP_COND_LAUNCHES,
-                "cond": ryser_cuda.AMP_COND_LAUNCHES}
+        return {"amp": launches("amp"),
+                "cond": launches("amp_cond")}
 
     zero_counts()
     t = time.perf_counter()
@@ -2271,13 +2273,13 @@ def main(argv=None) -> int:
     amp_launches = amp_counts()
     print(f"auto n=32, auto_target=1e-30: {res.meta['exact_fraction']} in "
           f"{wall_b:.4f} s; {res.algo_name}, auto {res.meta['auto']}, "
-          f"{ryser_cuda.LAUNCHES} K1 launches, amp walk launches "
-          f"{amp_launches}, {modp_cuda.LAUNCHES} modp_walk")
+          f"{k1_count()} K1 launches, amp walk launches "
+          f"{amp_launches}, {launches('modp')} modp_walk")
     if res.meta["auto"]["escalated"] != "exact" \
             or res.meta["exact_fraction"] != EXACT_N32 \
-            or ryser_cuda.LAUNCHES != 2 \
+            or k1_count() != 2 \
             or amp_launches != {"amp": 1, "cond": 0} \
-            or modp_cuda.LAUNCHES <= 0:
+            or launches("modp") <= 0:
         raise AssertionError("auto n=32, impossible target: not the exact "
                              "rung")
     zero_counts()
@@ -2289,14 +2291,14 @@ def main(argv=None) -> int:
     print(f"auto n=32, auto_target=1e-30, no exact budget: "
           f"{res.permanent!r} in {wall_b0:.4f} s, rel err {rel_b0:.3e} "
           f"(limit {TF96_TOL:.0e}); {res.algo_name}, auto "
-          f"{res.meta['auto']}, {ryser_cuda.LAUNCHES} K1 launches, amp walk "
+          f"{res.meta['auto']}, {k1_count()} K1 launches, amp walk "
           f"launches {amp_counts()}")
     if res.meta["auto"]["escalated"] != "tf96" \
             or res.meta["auto"].get("low_confidence") is not True \
             or "amp_walk_l2" not in res.meta["auto"] \
-            or ryser_cuda.LAUNCHES != 3 \
+            or k1_count() != 3 \
             or amp_counts() != {"amp": 1, "cond": 0} \
-            or modp_cuda.LAUNCHES != 0 or not rel_b0 <= TF96_TOL:
+            or launches("modp") != 0 or not rel_b0 <= TF96_TOL:
         raise AssertionError("auto n=32, no exact budget: not the flagged "
                              "tf96 rung")
     walls = {}
@@ -2325,7 +2327,7 @@ def main(argv=None) -> int:
     print(f"auto n=24, within-line landmine, no exact budget: "
           f"{res.permanent!r} vs the exact rational {float(truth)!r}: true "
           f"rel err {rel_c:.3e}, err_est {am['err_est']:.3e}; "
-          f"{res.algo_name}, auto {am}, {ryser_cuda.LAUNCHES} K1 launches, "
+          f"{res.algo_name}, auto {am}, {k1_count()} K1 launches, "
           f"amp walk launches {amp_counts()}")
     if am["escalated"] is not None or am.get("ladder") != "df64_max" \
             or am.get("low_confidence") is not True \
@@ -2368,9 +2370,9 @@ def main(argv=None) -> int:
           f"{TF96_TOL:.0e}); a long-double sum of the same words: "
           f"{rel_err(float(ld), exact_c):.3e}; host sum of the "
           f"{words.shape[0]} pairs {sum_ms:.2f} ms (long double "
-          f"{ld_ms:.2f}); {res.algo_name}, {ryser_cuda.LAUNCHES} launches")
+          f"{ld_ms:.2f}); {res.algo_name}, {k1_count()} launches")
     if not ratio >= 1e6 or res.algo_name != "ryser_cuda_tf96" \
-            or ryser_cuda.LAUNCHES <= 0 or not rel_t <= TF96_TOL:
+            or k1_count() <= 0 or not rel_t <= TF96_TOL:
         raise AssertionError("tf96 on the cancelling matrix")
 
     # ---- 3g. the transform drivers.  Each hands a folded, scaled, pruned
@@ -2406,10 +2408,10 @@ def main(argv=None) -> int:
             raise AssertionError(f"{tag}: runner.run_algo recorded no "
                                  f"matrix; the drivers no longer reach it "
                                  f"through the module attribute")
-        got = {"k1": ryser_cuda.LAUNCHES,
-               "blocks": ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"],
-               "reduced": ryser_cuda.REDUCED_LAUNCHES["df64"],
-               "modp": modp_cuda.LAUNCHES}
+        got = {"k1": k1_count(),
+               "blocks": launches("blocks", tier="df64"),
+               "reduced": launches("reduced", tier="df64"),
+               "modp": launches("modp")}
         for k, v in got.items():
             driver_launches[k][tag] = v
         cert = {k: res.meta[k] for k in ("exact_certified_rel",
@@ -2849,8 +2851,9 @@ def main(argv=None) -> int:
 
     # every walk entry carries its instantiation's registers at the path's
     # N_PAD and the SM clock sampled beside its timing; ryser_walk_<tier>
-    # is the per-chunk instantiation <N_PAD, TIER, 0> and its launches,
-    # ryser_walk_blocks the block-reduced <N_PAD, TIER, 1> and its
+    # (the C entry ryser_walk at that tier) is the per-chunk instantiation
+    # <N_PAD, TIER, 0> and its launches, ryser_walk_blocks the
+    # block-reduced <N_PAD, TIER, 1> and its launches
     kernels = [entry(f"ryser_walk_{tier}",
                      "superman_tpu_torch/csrc/ryser_walk.cu",
                      "superman_tpu/ops/ryser_pallas.py:541",

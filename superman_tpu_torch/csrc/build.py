@@ -2,7 +2,9 @@
 
 The sources in this directory are compiled by nvcc for sm_90a, one nvcc
 per source and all at once, and linked into one shared library with a
-plain C interface, loaded with ctypes.  The build runs at first use, goes
+plain C interface, loaded with ctypes.  Every launch goes through call(),
+which takes each entry's signature from one table (SIGNATURES) and counts
+the launch in one counter (LAUNCHES).  The build runs at first use, goes
 to ``build/superman_tpu_torch/<hash>/`` at the root of the checkout, and
 is keyed by a hash of the sources, the headers and the flags, so an edited
 source or header rebuilds.  A failed build or load raises; nothing falls
@@ -14,6 +16,7 @@ and the compiler's register/shared-memory report)
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -22,6 +25,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 HERE = Path(__file__).resolve().parent
 SOURCES = (HERE / "ryser_walk.cu", HERE / "ryser_batch.cu",
@@ -97,42 +102,75 @@ def build() -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build if needed, load once per process, declare the C signatures."""
-    path, _ = build()
-    lib = ctypes.CDLL(path)
-    for fn in (lib.ryser_walk_df64, lib.ryser_walk_f32, lib.ryser_walk_f32k,
-               lib.ryser_walk_tf96, lib.ryser_walk_amp,
-               lib.ryser_walk_amp_cond):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    fn = lib.ryser_walk_blocks
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.ryser_walk_reduced
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.ryser_batch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.modp_walk
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    """Build if needed, load once per process."""
+    return ctypes.CDLL(build()[0])
+
+
+_P, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_uint)
+
+#: each C entry's arguments before the (device, stream) that every entry
+#: takes last; every entry returns an int, cudaGetLastError() of its launch
+SIGNATURES = {
+    # ids, num_chunks, x0, cols, n, n_pad, r, tier, out
+    "ryser_walk": (_P, _LL, _P, _P, _I, _I, _I, _I, _P),
+    # rows, num_rows, num_chunks, lanes, x0, cols, n, n_pad, r, tier, out
+    "ryser_walk_blocks": (_P, _LL, _LL, _I, _P, _P, _I, _I, _I, _I, _P),
+    # ids, num_chunks, x0, cols, fx0, fcols, nf, n, n_pad, r, tier, out
+    "ryser_walk_reduced": (_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P),
+    # x0s, colss, batch, n, n_pad, r, tier, out
+    "ryser_batch": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # ids, num_chunks, x0, cols, n, n_pad, r, p, pinv, r2, out
+    "modp_walk": (_P, _LL, _P, _P, _I, _I, _I, _U, _U, _U, _P),
+}
+
+#: kernel launches by (entry, tier): entries "walk" (ryser_partials),
+#: "blocks" (ryser_blocks), "reduced", "amp", "amp_cond", "batch" and
+#: "modp"; tier None where the entry has none (amp, amp_cond, modp).  A run
+#: reads it to show that a path went through the kernels
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def launches(*entries: str, tier=None) -> int:
+    """The launches of `entries` (every entry if none is named), of `tier`
+    alone unless it is None."""
+    return sum(k for (e, t), k in LAUNCHES.items()
+               if (not entries or e in entries) and tier in (None, t))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(symbol: str):
+    fn = getattr(load(), symbol)
+    fn.argtypes = [*SIGNATURES[symbol], _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True where `t` is on a CUDA device, so the kernel runs; False on
+    the CPU, where its plain version runs; ValueError on any other
+    device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def call(symbol: str, *args, device: torch.device, count: tuple) -> None:
+    """Launch the C entry `symbol` on `device`'s current stream: `args` (a
+    tensor as its data pointer), then the device's index and the stream.
+    Raises RuntimeError on a nonzero return code; counts the launch in
+    LAUNCHES under count, an (entry, tier) key."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _entry(symbol)(*(a.data_ptr() if isinstance(a, torch.Tensor)
+                          else a for a in args), device.index, stream)
+    if rc != 0:
+        entry, tier = count
+        label = f"{symbol} ({entry}{'' if tier is None else ', ' + tier})"
+        raise RuntimeError(f"{label} launch failed: CUDA error {rc}")
+    LAUNCHES[count] += 1
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@
 // What it computes: one thread walks one aligned chunk of 2^r Gray steps
 // (walk.cuh, which also says what bounds the walk on this card and what
 // the design does about it).  ryser_walk_kernel has two outputs.  Per
-// chunk (ryser_walk_<tier>: the per-chunk partials, the tf96 tier, the
+// chunk (ryser_walk: the per-chunk partials, the tf96 tier, the
 // hybrid scheduler's units), each thread writes its chunk's partial sum as
 // a (hi, lo) pair of the tier's type, and chunk ids < 0 are sentinels that
 // write 0.  Block-reduced (ryser_walk_blocks: the dense walk's total in
@@ -236,95 +236,57 @@ cudaError_t launch_reduced(const long long* ids, long long num_chunks,
   return cudaGetLastError();
 }
 
-// Launches on `stream` of `device`, allocates nothing, does not
-// synchronise, leaves the caller's current device as it was
+}  // namespace
+
+// C entry points, bound with ctypes (csrc/build.py SIGNATURES, launched by
+// build.call).  Each launches on `stream` of `device`, allocates nothing,
+// does not synchronise, leaves the caller's current device as it was
 // (device_guard.cuh), and returns cudaGetLastError() of the launch (0 on
 // success).
-template <int TIER>
-int run(const long long* ids, long long num_chunks, const void* x0,
-        const void* cols, int n, int n_pad, int r, void* out, int device,
-        void* stream) {
+//
+// The walk of a list of chunk ids.  tier is walk.cuh's Tier: 0 (df64), 1
+// (f32), 2 (f32k), 3 (tf96), 4 (amp) or 5 (amp with the conditioned
+// term); x0 (n_pad,) and cols (n-1, n_pad), double for tiers 0, 3, 4 and 5
+// and float for 1 and 2; out (num_chunks, 2) of the same type, (hi, lo) a
+// chunk, or for tier 5 (num_chunks, 4) double.
+extern "C" int ryser_walk(const long long* ids, long long num_chunks,
+                          const void* x0, const void* cols, int n, int n_pad,
+                          int r, int tier, void* out, int device,
+                          void* stream) {
   DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();
-  if (n < 3 || n > n_pad || r < 1 || r > n - 2 || num_chunks < 0 ||
-      (num_chunks + kThreads - 1) / kThreads > 0x7fffffffLL)
+  if (n < 3 || n > n_pad || r < 1 || r > n - 2 || tier < 0 || tier > 5 ||
+      num_chunks < 0 || (num_chunks + kThreads - 1) / kThreads > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (num_chunks == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define WALK_CASE(NP) \
-  case NP:            \
+#define WALK_CASE(NP, TIER)                                                  \
+  case NP * 8 + TIER:                                                        \
     return (int)launch<NP, TIER>(ids, num_chunks, x0, cols, n, r, out, s);
-  switch (n_pad) {
-    WALK_CASE(8)
-    WALK_CASE(16)
-    WALK_CASE(24)
-    WALK_CASE(32)
-    WALK_CASE(40)
-    WALK_CASE(48)
-    WALK_CASE(56)
-    WALK_CASE(64)
+#define WALK_TIERS(NP)        \
+  WALK_CASE(NP, walk::kDf64)  \
+  WALK_CASE(NP, walk::kF32)   \
+  WALK_CASE(NP, walk::kF32k)  \
+  WALK_CASE(NP, walk::kTf96)  \
+  WALK_CASE(NP, walk::kAmp)   \
+  WALK_CASE(NP, walk::kAmpCond)
+  switch (n_pad * 8 + tier) {
+    WALK_TIERS(8)
+    WALK_TIERS(16)
+    WALK_TIERS(24)
+    WALK_TIERS(32)
+    WALK_TIERS(40)
+    WALK_TIERS(48)
+    WALK_TIERS(56)
+    WALK_TIERS(64)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef WALK_TIERS
 #undef WALK_CASE
 }
 
-}  // namespace
-
-// C entry points, bound with ctypes (ops/ryser_cuda.py): x0 is (n_pad,),
-// cols (n-1, n_pad), out (num_chunks, 2), all double for df64 and tf96
-// and float for f32 and f32k.
-extern "C" int ryser_walk_df64(const long long* ids, long long num_chunks,
-                               const double* x0, const double* cols, int n,
-                               int n_pad, int r, double* out, int device,
-                               void* stream) {
-  return run<walk::kDf64>(ids, num_chunks, x0, cols, n, n_pad, r, out, device,
-                          stream);
-}
-
-extern "C" int ryser_walk_f32(const long long* ids, long long num_chunks,
-                              const float* x0, const float* cols, int n,
-                              int n_pad, int r, float* out, int device,
-                              void* stream) {
-  return run<walk::kF32>(ids, num_chunks, x0, cols, n, n_pad, r, out, device,
-                         stream);
-}
-
-extern "C" int ryser_walk_f32k(const long long* ids, long long num_chunks,
-                               const float* x0, const float* cols, int n,
-                               int n_pad, int r, float* out, int device,
-                               void* stream) {
-  return run<walk::kF32k>(ids, num_chunks, x0, cols, n, n_pad, r, out, device,
-                          stream);
-}
-
-extern "C" int ryser_walk_tf96(const long long* ids, long long num_chunks,
-                               const double* x0, const double* cols, int n,
-                               int n_pad, int r, double* out, int device,
-                               void* stream) {
-  return run<walk::kTf96>(ids, num_chunks, x0, cols, n, n_pad, r, out, device,
-                          stream);
-}
-
-// The amp walk: x0 and cols double, out (num_chunks, 2) double; with the
-// conditioned term (_cond) out (num_chunks, 4).
-extern "C" int ryser_walk_amp(const long long* ids, long long num_chunks,
-                              const double* x0, const double* cols, int n,
-                              int n_pad, int r, double* out, int device,
-                              void* stream) {
-  return run<walk::kAmp>(ids, num_chunks, x0, cols, n, n_pad, r, out, device,
-                         stream);
-}
-
-extern "C" int ryser_walk_amp_cond(const long long* ids, long long num_chunks,
-                                   const double* x0, const double* cols,
-                                   int n, int n_pad, int r, double* out,
-                                   int device, void* stream) {
-  return run<walk::kAmpCond>(ids, num_chunks, x0, cols, n, n_pad, r, out,
-                             device, stream);
-}
-
 // The dense walk's total, block by block.  tier is 0 (df64), 1 (f32) or 2
-// (f32k); x0 (n_pad,) and cols (n-1, n_pad) as for ryser_walk_<tier>,
+// (f32k); x0 (n_pad,) and cols (n-1, n_pad) as for ryser_walk,
 // double for tier 0 and float for 1 and 2; rows (num_rows,) the block rows
 // walked, row q holding chunk ids q * lanes .. q * lanes + lanes - 1, ids
 // outside [0, num_chunks) sentinels; out (num_rows * ceil(lanes / 128), 2)

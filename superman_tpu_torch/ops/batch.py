@@ -24,6 +24,7 @@ from . import gray
 from .oracle import gray_init_lanes
 from .ryser import _row_scales
 from .ryser_walk import brute_scaled, times_pow2, walk_lanes, walk_scales
+from .scaled_walk import empty_line, exact_f32
 
 #: largest order the serving batch groups
 BATCH_MAX_N = 32
@@ -37,8 +38,7 @@ def exact_storage_mask(mats: np.ndarray) -> np.ndarray:
     """(B,) bool: which matrices of a (B, n, n) float64 stack hold integers
     whose rows keep the half-integer x walk exact in float32
     (ryser._exact_storage, decided matrix by matrix)."""
-    ints = np.all(mats == np.round(mats), axis=(1, 2))
-    return ints & (np.abs(mats).sum(axis=2).max(axis=1) < 2 ** 22)
+    return exact_f32(mats)
 
 
 def permanent_batch_same_n(mats: np.ndarray, device: torch.device,
@@ -79,8 +79,7 @@ def pack_stack(mats: np.ndarray):
     B, n, _ = mats.shape
     s = _row_scales(mats)
     a_s = np.ldexp(mats, -s[:, :, None])
-    zero = (((mats != 0).sum(axis=2) == 0).any(axis=1)
-            | ((mats != 0).sum(axis=1) == 0).any(axis=1))
+    zero = empty_line(mats)
     n_pad = gray.pad_n(n)
     x0p = np.ones((B, n_pad), dtype=np.float64)
     x0p[:, :n] = a_s[:, :, -1] - a_s.sum(axis=2) / 2

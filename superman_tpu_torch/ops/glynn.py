@@ -20,8 +20,10 @@ card.  The Gray walk over delta maps exactly onto the Ryser walk kernel
 
 Column scaling by powers of two is exact and keeps every |x_j| <~ 1, as
 row scaling does on the Ryser path.  The engine runs every tier of the
-kernel (df64, f32, f32k, tf96) and shares none of the Ryser engine's
-host code: that is its value.
+kernel (df64, f32, f32k, tf96).  Of the Ryser engine's host code it
+shares only the rules of a scaled walk (ops/scaled_walk.py: the line
+exponents, the exact-storage and empty-line tests, the underflow retry);
+its formula and its pack are its own: that is its value.
 """
 
 from __future__ import annotations
@@ -36,16 +38,15 @@ from ..core.matrix import DenseMatrix
 from ..core.result import Result
 from ..utils import trace
 from . import gray
+from .scaled_walk import (empty_line, exact_f32, line_exponents,
+                          retry_scaled)
 
 
 def _col_scales(a: np.ndarray) -> np.ndarray:
     """Integer exponents s_j bounding |x_j| <= ~1 along the whole walk:
     |x_j| <= sum_i |a_ij| always."""
     ab = np.abs(np.asarray(a, dtype=np.float64))
-    xmax = ab.sum(axis=0)
-    with np.errstate(divide="ignore"):
-        s = np.ceil(np.log2(np.maximum(xmax, 1e-300)))
-    return np.clip(s, -980, 980).astype(np.int64)
+    return line_exponents(ab.sum(axis=0))
 
 
 def _pack_glynn(a_s: np.ndarray, n_pad: int):
@@ -133,8 +134,7 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
     where = "cuda" if device.type == "cuda" else "plain"
     # trivial zero: an empty row or column zeroes every Glynn term, and
     # the scale-retry heuristic would rerun 3 full walks on pure zeros
-    if (np.count_nonzero(a, axis=1) == 0).any() or \
-       (np.count_nonzero(a, axis=0) == 0).any():
+    if empty_line(a):
         return Result(0.0, time.perf_counter() - t0,
                       algo_name=f"glynn_{where}_{calc}", iterations=0,
                       meta={"reason": "empty row/col"})
@@ -144,15 +144,13 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
     # the column abs-sums fit in 24-bit mantissas (the mirror of
     # ryser._exact_storage's row test, decided on the values likewise)
     a64 = a.astype(np.float64)
-    exact_storage = bool(
-        (dense.type == "int" or np.all(a64 == np.round(a64)))
-        and np.max(np.abs(a64).sum(axis=0), initial=0.0) < 2 ** 22)
+    exact_storage = bool(exact_f32(a64, -2,
+                                   declared_int=dense.type == "int"))
     if calc == "tf96" and not exact_storage:
         import warnings
         warnings.warn("tf96 requires exact-f32 storage; falling back to "
                       "df64")
         calc = "df64"
-    tf = calc == "tf96"
 
     from ..parallel.sharding import (compute_total, mesh_cards,
                                      total_words, walk_span)
@@ -160,35 +158,18 @@ def glynn_exact(dense: DenseMatrix, flags, device: torch.device,
     plan = gray.make_plan(n, flags.lanes, flags.chunk_log2,
                           sms=_sm_count(device),
                           grid_multip=int(flags.grid_multip))
-
-    scales = _col_scales(a)
     cards = mesh_cards(mesh)
-    best = None
-    shifted = 0
-    shift_cap = max(1, 100 // n)
-    for attempt in range(3):
-        a_s = np.ldexp(a64, -scales[None, :])
+
+    def walk(a_s):
         with trace.timer("pack"):
             x0, cols = _pack_glynn(a_s, plan.n_pad)
         with walk_span(cards):
-            total = compute_total(x0, cols, plan, device, tier=calc,
-                                  mesh=mesh, cards=cards)
-        # bounded cumulative shifts and a finite fallback (see ops/ryser.py)
-        if not np.isfinite(total):
-            break
-        best = (total, int(scales.sum()))
-        if total != 0.0 and abs(total) > 2.0 ** -40:
-            break
-        room = shift_cap - shifted
-        if room <= 0:
-            break
-        bump = 120 if total == 0.0 else int(-np.log2(abs(total)) // n + 1)
-        per_row = max(1, min(bump, room))
-        scales = scales - per_row
-        shifted += per_row
-    total, E = best if best is not None else (total, int(scales.sum()))
+            return compute_total(x0, cols, plan, device, tier=calc,
+                                 mesh=mesh, cards=cards)
+
+    total, E = retry_scaled(a64, _col_scales(a), -2, walk)
     with np.errstate(over="ignore"):
-        acc = np.longdouble(total) if tf else np.float64(total)
+        acc = np.longdouble(total) if calc == "tf96" else np.float64(total)
         p = float(np.ldexp(acc, E + 1 - n)) + 0.0
     dt = time.perf_counter() - t0
     iters = plan.num_chunks << plan.r

@@ -18,11 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..csrc.build import call, on_card
 from . import gray
-
-#: kernel launches made by mod_partials; a run reads it to show that the
-#: exact path went through the kernel
-LAUNCHES = 0
 
 #: the kernel is instantiated for n_pad = 8, 16, ..., MAX_N_PAD
 MAX_N_PAD = 64
@@ -86,29 +83,13 @@ def mod_partials(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
     tensor runs the plain version.
     """
     _check(ids, x0, cols, p, n, r)
-    if ids.device.type == "cpu":
+    if not on_card(ids):
         return mod_partials_ref(ids, x0, cols, p, n=n, r=r)
-    if ids.device.type != "cuda":
-        raise ValueError(f"unsupported device {ids.device}")
-    return _launch(ids, x0, cols, p, n, r)
-
-
-def _launch(ids, x0, cols, p: int, n: int, r: int) -> torch.Tensor:
-    global LAUNCHES
-    from ..csrc.build import load
-    lib = load()
     out = torch.empty(ids.shape[0], dtype=torch.int64, device=ids.device)
-    if ids.shape[0] == 0:
-        return out
-    pinv, r2 = montgomery_constants(p)
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    rc = lib.modp_walk(
-        ids.data_ptr(), ids.shape[0], x0.data_ptr(), cols.data_ptr(),
-        n, x0.shape[0], r, p, pinv, r2, out.data_ptr(), ids.device.index,
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"modp_walk launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    if ids.shape[0]:
+        call("modp_walk", ids, ids.shape[0], x0, cols, n, x0.shape[0], r, p,
+             *montgomery_constants(p), out, device=ids.device,
+             count=("modp", None))
     return out
 
 

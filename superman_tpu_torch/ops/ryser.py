@@ -13,6 +13,7 @@ processes (parallel/multihost.py).
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -23,6 +24,8 @@ from ..core.matrix import DenseMatrix
 from ..core.result import Result
 from ..utils import trace
 from . import gray
+from .scaled_walk import (empty_line, exact_f32, line_exponents,
+                          retry_scaled)
 
 
 def _exact_storage(dense: DenseMatrix) -> bool:
@@ -39,10 +42,7 @@ def _exact_storage(dense: DenseMatrix) -> bool:
     a = np.asarray(dense.mat)
     if a.dtype == np.longdouble:
         return False                  # -v storage keeps long-double bits
-    a = a.astype(np.float64)
-    if dense.type != "int" and not np.all(a == np.round(a)):
-        return False
-    return bool(np.max(np.abs(a).sum(axis=1), initial=0.0) < 2 ** 22)
+    return bool(exact_f32(a, declared_int=dense.type == "int"))
 
 
 def _row_scales(a: np.ndarray) -> np.ndarray:
@@ -56,13 +56,7 @@ def _row_scales(a: np.ndarray) -> np.ndarray:
     stack, the (B, n) exponents of every matrix.
     """
     ab = np.abs(np.asarray(a, dtype=np.float64))
-    xmax = ab[..., -1] + ab.sum(axis=-1) / 2
-    with np.errstate(divide="ignore"):
-        s = np.ceil(np.log2(np.maximum(xmax, 1e-300)))
-    # wide clip: compression drivers can concentrate magnitude into rows
-    # far beyond 2^+-60; the scale is applied with exact ldexp so any
-    # exponent in double range is fine
-    return np.clip(s, -980, 980).astype(np.int64)
+    return line_exponents(ab[..., -1] + ab.sum(axis=-1) / 2)
 
 
 def _log2_perm_estimate(a: np.ndarray, trials: int = 6,
@@ -262,12 +256,118 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
     rows fall back there, as in the reference.
     """
     a = np.asarray(dense.mat)
-    n = a.shape[0]
     calc = flags.resolved_calc()
     if calc not in ("df64", "f32", "f32k", "tf96", "f64", "quad"):
         raise ValueError(f"ryser_exact has no {calc!r} tier")
     t0 = time.perf_counter()
+    res = _host_route(a, calc, device, t0)
+    if res is not None:
+        return res
+    kp = _kernel_plan(dense, a, calc, flags, device, chunk_ids, mesh, t0)
+    if isinstance(kp, Result):
+        return kp
 
+    from ..parallel.multihost import combine_host_totals, host_slice
+    from ..parallel.sharding import (compute_total, mesh_cards, total_words,
+                                     walk_span)
+    n, plan, nprocs = a.shape[0], kp.plan, kp.procs[1]
+    # the deal's spans and per-entry counters stand in for `walk` where one
+    # process deals the walk itself; the scheduler's device worker and
+    # several processes keep `walk`
+    cards = mesh_cards(mesh) if not kp.scheduler and nprocs == 1 else None
+    hybrid = []                 # the hybrid scheduler's stats, once it ran
+
+    def walk(a_s):
+        factors, a_pack = None, a_s
+        with trace.timer("pack"):
+            if kp.factor_rows is not None:
+                # factored constant rows: the kernel walks only
+                # alive_rows and weights each chunk by the product of the
+                # factored rows, which it rebuilds from this small pack;
+                # both packs come from the matrix as this attempt scales it
+                factors = gray.pack_matrix(a_s[kp.factor_rows],
+                                           len(kp.factor_rows))
+                a_pack = a_s[kp.alive_rows]
+            elif kp.reduced:
+                factors = (np.empty(0), np.empty((n - 1, 0)))
+            x0, cols = gray.pack_matrix(a_pack, plan.n_pad)
+        with walk_span(cards):
+            if kp.scheduler:
+                from ..parallel.scheduler import compute_partials_hybrid
+                total, stats = compute_partials_hybrid(
+                    a_s, host_slice(kp.ids_blocks, *kp.procs), x0,
+                    cols, plan, device, tier=kp.calc, mesh=mesh,
+                    threads=flags.threads, cpu_helper=flags.cpu,
+                    checkpoint_path=flags.checkpoint_path)
+                hybrid[:] = [stats]
+            else:
+                # a float; np.longdouble for tf96, kept until the last
+                # rounding
+                total = compute_total(
+                    x0, cols, plan, device, tier=kp.calc,
+                    sparse=None if factors is None else (kp.chunk_ids,
+                                                         *factors),
+                    sms=kp.sms, mesh=mesh, host=kp.procs, cards=cards)
+            if nprocs > 1:
+                # one (hi, lo) pair a process; also keeps the underflow
+                # retry's decision below the same in every process
+                total = combine_host_totals(total)
+        return total
+
+    with trace.timer("scales"):
+        a64 = kp.a.astype(np.float64)
+        scales = _center_scales(kp.a, _row_scales(kp.a))
+    total, E = retry_scaled(a64, scales, -1, walk)
+    # ldexp multiplies by 2**E exactly; out-of-range RESULTS become the
+    # honest double inf/0 rather than raising
+    with np.errstate(over="ignore"):
+        acc = np.longdouble(total) if kp.calc == "tf96" else np.float64(total)
+        p = float((4 * (n & 1) - 2) * np.ldexp(acc, E)) + 0.0
+    dt = time.perf_counter() - t0
+    iters = kp.live << plan.r
+    meta = {"calc": kp.calc, "chunks": kp.live, "r": plan.r,
+            "lanes": plan.lanes, "scale_log2": E,
+            "iters_per_sec": iters / dt, "device": str(device),
+            "exact_storage": kp.exact_storage,
+            "mesh": None if mesh is None else len(mesh)}
+    if cards is not None:
+        # each entry's block rows and walk ms over the attempts
+        meta["mesh_cards"] = cards
+    if nprocs > 1:
+        meta["processes"] = nprocs
+    if not kp.scheduler:
+        # the (hi, lo) pairs the host summed an attempt
+        meta["walk_words"] = total_words(plan, kp.calc, kp.live if
+                                         kp.reduced else None, kp.sms,
+                                         kp.procs)
+    if kp.reduced:
+        # the walked list: each live chunk cut into 2^split_log2 pieces
+        meta["split_log2"] = gray.split_shift(
+            kp.live, plan.r, kp.sms * gray.SPLIT_CHUNKS_PER_SM)
+    if kp.sparse_meta is not None:
+        meta["sparse"] = kp.sparse_meta
+    if kp.search is not None:
+        meta["sparse_search"] = kp.search
+    name = kp.name
+    if hybrid:
+        stats, = hybrid
+        name = name.replace("ryser_", "ryser_hybrid_", 1)
+        meta["hybrid"] = {
+            "units": stats.units_total,
+            "device": stats.units_device,
+            "cpu": stats.units_cpu,
+            "resumed": stats.units_resumed,
+            "retries": stats.retries,
+            "handoffs": stats.handoffs}
+    return Result(p, dt, algo_name=name, iterations=iters, meta=meta)
+
+
+def _host_route(a: np.ndarray, calc: str, device: torch.device,
+                t0: float) -> Optional[Result]:
+    """ryser_exact's routes that walk no kernel: orders 1-2, the host
+    long-double walk (quad, and tf96 below n=19) and the lane walk (f64,
+    and any tier below n=19); None where the kernel path walks."""
+    n = a.shape[0]
     if n <= 2:
         from .ryser_walk import brute_scaled
         return Result(brute_scaled(a), time.perf_counter() - t0,
@@ -300,9 +400,45 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                       algo_name=f"ryser_walk_{calc}",
                       iterations=1 << (n - 1),
                       meta={"calc": calc, "device": str(device)})
+    return None
 
-    # the kernel path's checks and plan, up to the row scales: two
-    # spans on either side of the sparse planner's
+
+@dataclasses.dataclass
+class _KernelPlan:
+    """What ryser_exact's kernel path walks: the matrix `a` (its columns
+    in the sparse planner's order), the tier, the plan, the list of live
+    chunk ids (None: every chunk), the factored and alive rows (None: no
+    row factored), and which walk runs (the hybrid scheduler's, the
+    reduced walk of a pruned list, or the dense walk)."""
+    a: np.ndarray
+    calc: str
+    name: str                       # the Result's algo_name
+    exact_storage: bool
+    plan: gray.RyserPlan
+    chunk_ids: Optional[np.ndarray]
+    live: int                       # the chunks walked
+    factor_rows: Optional[np.ndarray]
+    alive_rows: Optional[np.ndarray]
+    scheduler: bool
+    sms: int
+    procs: tuple                    # (this process's index, processes)
+    ids_blocks: Optional[np.ndarray]    # the scheduler's (B, L) ids
+    sparse_meta: Optional[dict]
+    search: Optional[dict]          # the planner's counts, where it ran
+
+    @property
+    def reduced(self) -> bool:
+        return self.chunk_ids is not None and not self.scheduler
+
+
+def _kernel_plan(dense: DenseMatrix, a: np.ndarray, calc: str, flags,
+                 device: torch.device, chunk_ids: Optional[np.ndarray],
+                 mesh, t0: float):
+    """The kernel path's checks and plan, up to the row scales, in two
+    spans on either side of the sparse planner's: a _KernelPlan, or the
+    Result of a matrix whose permanent is 0 on its face (an empty row or
+    column, every chunk pruned)."""
+    n = a.shape[0]
     with trace.timer("engine_plan"):
         exact_storage = _exact_storage(dense)
         # the hybrid scheduler (and a checkpoint journal, which routes
@@ -316,32 +452,22 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
             warnings.warn("tf96 requires exact-f32 storage and the "
                           "non-hybrid path; falling back to df64")
             calc = "df64"
-        tf = calc == "tf96"
 
         # the kernel on a card, its plain version on the CPU
         name = (f"ryser_{'cuda' if device.type == 'cuda' else 'plain'}"
                 f"_{calc}")
         # trivial zero: an empty row or column makes the permanent 0 and
         # also breaks the row-scaling heuristic, so dispose of it here
-        if (np.count_nonzero(a, axis=1) == 0).any() or \
-           (np.count_nonzero(a, axis=0) == 0).any():
+        if empty_line(a):
             return Result(0.0, time.perf_counter() - t0, algo_name=name,
                           iterations=0, meta={"reason": "empty row/col"})
 
         from ..parallel.mesh import process_info
-        from ..parallel.multihost import combine_host_totals, host_slice
-        from ..parallel.sharding import (compute_total, mesh_cards, pad_ids,
-                                         total_words, walk_span)
+        from ..parallel.sharding import pad_ids
         sms = _sm_count(device)
-        num_shards = 1 if mesh is None else len(mesh)
         # several processes: each walks its interleaved share of the
         # blocks and the totals are combined (parallel/multihost.py)
         proc_index, nprocs = process_info()
-        plan = None
-        factor_rows = None
-        alive_rows = None
-        sparse_meta = None
-        search = None           # the planner's counts, where it ran
         # auto-sparse: on clearly sparse inputs the pruned engine engages
         # even without flags.sparse (the planner declines when
         # unprofitable, and its candidate evaluation costs tens of
@@ -349,7 +475,7 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
         # skip_pruning=False forces the pure dense walk.
         density = np.count_nonzero(a) / max(1, a.size)
         auto_sparse = n >= 28 and density < 0.30
-    sp = None
+    sp = search = None
     if chunk_ids is None and (flags.sparse or auto_sparse) \
             and flags.skip_pruning:
         from .pruning import plan_sparse
@@ -358,6 +484,7 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
             sp = plan_sparse(a, chunk_log2=flags.chunk_log2,
                              giters=K1_GITERS[calc],
                              allow_factor=not scheduler, stats=search)
+    plan = factor_rows = alive_rows = sparse_meta = ids_blocks = None
     with trace.timer("engine_plan"):
         if sp is not None:
             a = np.ascontiguousarray(a[:, sp.col_perm])
@@ -384,8 +511,7 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
         # which masks its own sentinels; the dense walk makes its ids on
         # the card; the scheduler keeps per-chunk partials of real ids,
         # on the pruned list too
-        pruned = chunk_ids is not None
-        if pruned:
+        if chunk_ids is not None:
             chunk_ids = np.asarray(chunk_ids, dtype=np.int64)
             live = len(chunk_ids)
             if live == 0:
@@ -396,122 +522,16 @@ def ryser_exact(dense: DenseMatrix, flags, device: torch.device,
                               algo_name=name, iterations=0, meta=meta)
         else:
             live = plan.num_chunks
-        reduced = pruned and not scheduler
         if scheduler:
-            ids_blocks = pad_ids(chunk_ids if pruned
+            ids_blocks = pad_ids(chunk_ids if chunk_ids is not None
                                  else np.arange(live, dtype=np.int64),
                                  plan.lanes)
         trace.log(f"plan: n={n} n_pad={plan.n_pad} r={plan.r} "
                   f"lanes={plan.lanes} chunks={live}/{plan.num_chunks} "
-                  f"calc={calc} device={device} shards={num_shards} "
+                  f"calc={calc} device={device} "
+                  f"shards={1 if mesh is None else len(mesh)} "
                   f"processes={nprocs}", level=2)
+    return _KernelPlan(a, calc, name, exact_storage, plan, chunk_ids, live,
+                       factor_rows, alive_rows, scheduler, sms,
+                       (proc_index, nprocs), ids_blocks, sparse_meta, search)
 
-    with trace.timer("scales"):
-        scales = _center_scales(a, _row_scales(a))
-    hybrid_stats = None
-    # the deal's spans and per-entry counters stand in for `walk` where one
-    # process deals the walk itself; the scheduler's device worker and
-    # several processes keep `walk`
-    cards = mesh_cards(mesh) if not scheduler and nprocs == 1 else None
-    best = None                 # (total, E) of the last FINITE attempt
-    shifted = 0                 # cumulative per-row downshift (log2)
-    shift_cap = max(1, 100 // n)   # total growth <= 2^100 across attempts
-    for attempt in range(3):
-        # ldexp applies the per-row exponent exactly even when 2**-s
-        # alone would overflow double (rows at 2^-500 scale fine)
-        with trace.timer("scales"):
-            a_s = np.ldexp(a.astype(np.float64), -scales[:, None])
-        factors = None
-        with trace.timer("pack"):
-            if factor_rows is not None:
-                # factored constant rows: the kernel walks only
-                # alive_rows and weights each chunk by the product of the
-                # factored rows, which it rebuilds from this small pack;
-                # both packs come from the matrix as this attempt scales it
-                factors = gray.pack_matrix(a_s[factor_rows],
-                                           len(factor_rows))
-                a_pack = a_s[alive_rows]
-            else:
-                if reduced:
-                    factors = (np.empty(0), np.empty((n - 1, 0)))
-                a_pack = a_s
-            x0, cols = gray.pack_matrix(a_pack, plan.n_pad)
-        with walk_span(cards):
-            if scheduler:
-                from ..parallel.scheduler import compute_partials_hybrid
-                total, hybrid_stats = compute_partials_hybrid(
-                    a_s, host_slice(ids_blocks, proc_index, nprocs), x0,
-                    cols, plan, device, tier=calc, mesh=mesh,
-                    threads=flags.threads, cpu_helper=flags.cpu,
-                    checkpoint_path=flags.checkpoint_path)
-            else:
-                # a float; np.longdouble for tf96, kept until the last
-                # rounding
-                total = compute_total(
-                    x0, cols, plan, device, tier=calc,
-                    sparse=None if factors is None else (chunk_ids,
-                                                         *factors),
-                    sms=sms, mesh=mesh, host=(proc_index, nprocs),
-                    cards=cards)
-            if nprocs > 1:
-                # one (hi, lo) pair a process; also keeps the underflow
-                # retry's decision below the same in every process
-                total = combine_host_totals(total)
-        # scaled sums far below 1 may have lost underflowed terms; shift
-        # the row scales to center the result near 2^0 and rerun (scaling
-        # is exact, so a rerun is a pure exponent adjustment).  Shifts are
-        # bounded CUMULATIVELY, and a non-finite rerun falls back to the
-        # last finite attempt.
-        if not np.isfinite(total):
-            break
-        best = (total, int(scales.sum()))
-        if total != 0.0 and abs(total) > 2.0 ** -40:
-            break
-        room = shift_cap - shifted
-        if room <= 0:
-            break
-        bump = 120 if total == 0.0 else int(-np.log2(abs(total)) // n + 1)
-        per_row = max(1, min(bump, room))
-        scales = scales - per_row
-        shifted += per_row
-    total, E = best if best is not None else (total, int(scales.sum()))
-    # ldexp multiplies by 2**E exactly; out-of-range RESULTS become the
-    # honest double inf/0 rather than raising
-    with np.errstate(over="ignore"):
-        acc = np.longdouble(total) if tf else np.float64(total)
-        p = float((4 * (n & 1) - 2) * np.ldexp(acc, E)) + 0.0
-    dt = time.perf_counter() - t0
-    iters = live << plan.r
-    meta = {"calc": calc, "chunks": live, "r": plan.r,
-            "lanes": plan.lanes, "scale_log2": E,
-            "iters_per_sec": iters / dt, "device": str(device),
-            "exact_storage": exact_storage,
-            "mesh": None if mesh is None else num_shards}
-    if cards is not None:
-        # each entry's block rows and walk ms over the attempts
-        meta["mesh_cards"] = cards
-    if nprocs > 1:
-        meta["processes"] = nprocs
-    if not scheduler:
-        # the (hi, lo) pairs the host summed an attempt
-        meta["walk_words"] = total_words(plan, calc, live if reduced
-                                         else None, sms,
-                                         (proc_index, nprocs))
-    if reduced:
-        # the walked list: each live chunk cut into 2^split_log2 pieces
-        meta["split_log2"] = gray.split_shift(
-            live, plan.r, sms * gray.SPLIT_CHUNKS_PER_SM)
-    if sparse_meta is not None:
-        meta["sparse"] = sparse_meta
-    if search is not None:
-        meta["sparse_search"] = search
-    if hybrid_stats is not None:
-        name = name.replace("ryser_", "ryser_hybrid_", 1)
-        meta["hybrid"] = {
-            "units": hybrid_stats.units_total,
-            "device": hybrid_stats.units_device,
-            "cpu": hybrid_stats.units_cpu,
-            "resumed": hybrid_stats.units_resumed,
-            "retries": hybrid_stats.retries,
-            "handoffs": hybrid_stats.handoffs}
-    return Result(p, dt, algo_name=name, iterations=iters, meta=meta)

@@ -46,27 +46,10 @@ from __future__ import annotations
 
 import torch
 
+from ..csrc.build import call, on_card
 from . import gray
 from .df64 import df_add_f64, quick_two_sum, two_sum
 from .tf96 import dd_mul, tree_prod_dd
-
-#: launches of K1 (ryser_walk_kernel) made by ryser_partials and
-#: ryser_blocks; a run reads it to show that the main path went through
-#: the kernel
-LAUNCHES = 0
-#: the same launches, per tier
-TIER_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0, "tf96": 0}
-#: kernel launches made by batch_partials
-BATCH_LAUNCHES = 0
-#: kernel launches made by ryser_reduced, per tier
-REDUCED_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0, "tf96": 0}
-#: of the K1 launches (LAUNCHES), the block-reduced ones (ryser_blocks),
-#: per tier
-DENSE_BLOCK_LAUNCHES = {"df64": 0, "f32": 0, "f32k": 0}
-#: kernel launches made by ryser_amp, both variants; AMP_COND_LAUNCHES
-#: counts those with the conditioned term
-AMP_LAUNCHES = 0
-AMP_COND_LAUNCHES = 0
 
 #: the amp walk's within-line clamp (csrc/walk.cuh kAmpEps)
 AMP_EPS = 2.0 ** -45
@@ -83,15 +66,21 @@ GROUP_LOG2 = 3
 #: most matrices of one batch launch (the grid's second dimension)
 MAX_BATCH = 65535
 
-#: tier -> (working dtype, the batch kernel's tier number)
+#: tier -> (working dtype, csrc/walk.cuh's Tier number)
 TIERS = {"df64": (torch.float64, 0), "f32": (torch.float32, 1),
          "f32k": (torch.float32, 2), "tf96": (torch.float64, 3)}
+#: the tiers of the block-reduced dense walk (ryser_blocks)
+BLOCK_TIERS = ("df64", "f32", "f32k")
+#: walk.cuh's Tier numbers of the amp walk, without and with the
+#: conditioned term
+AMP_TIERS = (4, 5)
 
 
-def _tier_dtype(tier: str) -> torch.dtype:
+def _tier(tier: str) -> tuple:
+    """(working dtype, Tier number) of `tier`, one of TIERS."""
     if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r} (one of {sorted(TIERS)})")
-    return TIERS[tier][0]
+    return TIERS[tier]
 
 
 def _check(ids, x0, cols, n: int, r: int, factors=None) -> None:
@@ -158,31 +147,14 @@ def ryser_partials(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
     tensor runs the plain version.
     """
     _check(ids, x0, cols, n, r)
-    _tier_dtype(tier)
-    if ids.device.type == "cpu":
+    dtype, tier_no = _tier(tier)
+    if not on_card(ids):
         return ryser_partials_ref(ids, x0, cols, n=n, r=r, tier=tier)
-    if ids.device.type != "cuda":
-        raise ValueError(f"unsupported device {ids.device}")
-    return _launch(ids, x0, cols, n, r, tier)
-
-
-def _launch(ids, x0, cols, n: int, r: int, tier: str) -> torch.Tensor:
-    global LAUNCHES
-    from ..csrc.build import load
-    lib = load()
-    dtype = _tier_dtype(tier)
     out = torch.empty((ids.shape[0], 2), dtype=dtype, device=ids.device)
-    if ids.shape[0] == 0:
-        return out
-    x0, cols = x0.to(dtype), cols.to(dtype)
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    rc = getattr(lib, f"ryser_walk_{tier}")(
-        ids.data_ptr(), ids.shape[0], x0.data_ptr(), cols.data_ptr(),
-        n, x0.shape[0], r, out.data_ptr(), ids.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"ryser_walk_{tier} launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    TIER_LAUNCHES[tier] += 1
+    if ids.shape[0]:
+        call("ryser_walk", ids, ids.shape[0], x0.to(dtype), cols.to(dtype),
+             n, x0.shape[0], r, tier_no, out, device=ids.device,
+             count=("walk", tier))
     return out
 
 
@@ -308,7 +280,7 @@ def ryser_partials_ref(ids: torch.Tensor, x0: torch.Tensor,
                        tier: str = "df64") -> torch.Tensor:
     """Plain PyTorch version of the chunk kernel: vectorised over chunks,
     the tier's dtype, fold order and accumulator."""
-    dtype = _tier_dtype(tier)
+    dtype = _tier(tier)[0]
     x0, cols = x0.to(dtype), cols.to(dtype)
     x, sign_mid = gray.chunk_init(ids, x0, cols, n, r)
     hi, lo = _walk_ref(x, sign_mid, cols, r, tier)
@@ -348,30 +320,17 @@ def ryser_reduced(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
     tensor runs the plain version.
     """
     _check(ids, x0, cols, n, r, factors=(fx0, fcols))
-    _tier_dtype(tier)
+    dtype, tier_no = _tier(tier)
     ids = _pad_to_block(ids)
-    if ids.device.type == "cpu":
+    if not on_card(ids):
         return ryser_reduced_ref(ids, x0, cols, fx0, fcols, n=n, r=r,
                                  tier=tier)
-    if ids.device.type != "cuda":
-        raise ValueError(f"unsupported device {ids.device}")
-    from ..csrc.build import load
-    lib = load()
-    dtype, tier_no = TIERS[tier]
     out = torch.empty((ids.shape[0] // BLOCK, 2), dtype=torch.float64,
                       device=ids.device)
-    if ids.shape[0] == 0:
-        return out
-    x0, cols = x0.to(dtype), cols.to(dtype)
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    rc = lib.ryser_walk_reduced(
-        ids.data_ptr(), ids.shape[0], x0.data_ptr(), cols.data_ptr(),
-        fx0.data_ptr(), fcols.data_ptr(), fx0.shape[0], n, x0.shape[0], r,
-        tier_no, out.data_ptr(), ids.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"ryser_walk_reduced ({tier}) launch failed: "
-                           f"CUDA error {rc}")
-    REDUCED_LAUNCHES[tier] += 1
+    if ids.shape[0]:
+        call("ryser_walk_reduced", ids, ids.shape[0], x0.to(dtype),
+             cols.to(dtype), fx0, fcols, fx0.shape[0], n, x0.shape[0], r,
+             tier_no, out, device=ids.device, count=("reduced", tier))
     return out
 
 
@@ -410,37 +369,22 @@ def ryser_blocks(rows: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor,
     A CUDA tensor launches the kernel (and raises if it cannot); a CPU
     tensor runs the plain version.
     """
-    global LAUNCHES
     _check(rows, x0, cols, n, r)
-    if tier not in DENSE_BLOCK_LAUNCHES:
+    if tier not in BLOCK_TIERS:
         raise ValueError(f"ryser_blocks has no tier {tier!r} (one of "
-                         f"{sorted(DENSE_BLOCK_LAUNCHES)})")
+                         f"{sorted(BLOCK_TIERS)})")
     if lanes < 1:
         raise ValueError(f"lanes={lanes} must be at least 1")
-    if rows.device.type == "cpu":
+    if not on_card(rows):
         return ryser_blocks_ref(rows, x0, cols, n=n, r=r, lanes=lanes,
                                 num_chunks=num_chunks, tier=tier)
-    if rows.device.type != "cuda":
-        raise ValueError(f"unsupported device {rows.device}")
-    from ..csrc.build import load
-    lib = load()
     dtype, tier_no = TIERS[tier]
     out = torch.empty((rows.shape[0] * -(-lanes // BLOCK), 2),
                       dtype=torch.float64, device=rows.device)
-    if rows.shape[0] == 0:
-        return out
-    x0, cols = x0.to(dtype), cols.to(dtype)
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
-    rc = lib.ryser_walk_blocks(
-        rows.data_ptr(), rows.shape[0], num_chunks, lanes, x0.data_ptr(),
-        cols.data_ptr(), n, x0.shape[0], r, tier_no, out.data_ptr(),
-        rows.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"ryser_walk_blocks ({tier}) launch failed: "
-                           f"CUDA error {rc}")
-    LAUNCHES += 1
-    TIER_LAUNCHES[tier] += 1
-    DENSE_BLOCK_LAUNCHES[tier] += 1
+    if rows.shape[0]:
+        call("ryser_walk_blocks", rows, rows.shape[0], num_chunks, lanes,
+             x0.to(dtype), cols.to(dtype), n, x0.shape[0], r, tier_no, out,
+             device=rows.device, count=("blocks", tier))
     return out
 
 
@@ -463,7 +407,7 @@ def ryser_weighted_ref(ids: torch.Tensor, x0: torch.Tensor,
     PyTorch, the kernel's operations in its order: the tier's walk, the
     f32 tiers' pair widened to one double (hi + lo), then a dd_mul by the
     chunk's weight unless there is no factored row."""
-    dtype = _tier_dtype(tier)
+    dtype = _tier(tier)[0]
     x0_t, cols_t = x0.to(dtype), cols.to(dtype)
     x, sign_mid = gray.chunk_init(ids, x0_t, cols_t, n, r)
     hi, lo = _walk_ref(x, sign_mid, cols_t, r, tier)
@@ -503,27 +447,15 @@ def ryser_amp(ids: torch.Tensor, x0: torch.Tensor, cols: torch.Tensor, *,
     A CUDA tensor launches the kernel (and raises if it cannot); a CPU
     tensor runs the plain version.
     """
-    global AMP_LAUNCHES, AMP_COND_LAUNCHES
     _check(ids, x0, cols, n, r)
-    if ids.device.type == "cpu":
+    if not on_card(ids):
         return ryser_amp_ref(ids, x0, cols, n=n, r=r, cond=cond)
-    if ids.device.type != "cuda":
-        raise ValueError(f"unsupported device {ids.device}")
-    from ..csrc.build import load
-    lib = load()
-    name = "ryser_walk_amp_cond" if cond else "ryser_walk_amp"
     out = torch.empty((ids.shape[0], 4 if cond else 2), dtype=torch.float64,
                       device=ids.device)
-    if ids.shape[0] == 0:
-        return out
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    rc = getattr(lib, name)(
-        ids.data_ptr(), ids.shape[0], x0.data_ptr(), cols.data_ptr(),
-        n, x0.shape[0], r, out.data_ptr(), ids.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    AMP_LAUNCHES += 1
-    AMP_COND_LAUNCHES += cond
+    if ids.shape[0]:
+        call("ryser_walk", ids, ids.shape[0], x0, cols, n, x0.shape[0], r,
+             AMP_TIERS[cond], out, device=ids.device,
+             count=("amp_cond" if cond else "amp", None))
     return out
 
 
@@ -618,30 +550,14 @@ def batch_partials(x0s: torch.Tensor, colss: torch.Tensor, *, n: int, r: int,
     tensor runs the plain version.
     """
     _check_batch(x0s, colss, n, r)
-    _tier_dtype(tier)
-    if x0s.device.type == "cpu":
+    dtype, tier_no = _tier(tier)
+    if not on_card(x0s):
         return batch_partials_ref(x0s, colss, n=n, r=r, tier=tier)
-    if x0s.device.type != "cuda":
-        raise ValueError(f"unsupported device {x0s.device}")
-    return _launch_batch(x0s, colss, n, r, tier)
-
-
-def _launch_batch(x0s, colss, n: int, r: int, tier: str) -> torch.Tensor:
-    global BATCH_LAUNCHES
-    from ..csrc.build import load
-    lib = load()
-    dtype, tier_no = TIERS[tier]
     batch, n_pad = x0s.shape
-    blocks = (1 << (n - 1 - r)) // BLOCK
-    out = torch.empty((batch, blocks, 2), dtype=dtype, device=x0s.device)
-    x0s, colss = x0s.to(dtype), colss.to(dtype)
-    stream = torch.cuda.current_stream(x0s.device).cuda_stream
-    rc = lib.ryser_batch(
-        x0s.data_ptr(), colss.data_ptr(), batch, n, n_pad, r, tier_no,
-        out.data_ptr(), x0s.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"ryser_batch launch failed: CUDA error {rc}")
-    BATCH_LAUNCHES += 1
+    out = torch.empty((batch, (1 << (n - 1 - r)) // BLOCK, 2), dtype=dtype,
+                      device=x0s.device)
+    call("ryser_batch", x0s.to(dtype), colss.to(dtype), batch, n, n_pad, r,
+         tier_no, out, device=x0s.device, count=("batch", tier))
     return out
 
 
@@ -650,7 +566,7 @@ def batch_chunk_partials_ref(x0s: torch.Tensor, colss: torch.Tensor, *,
     """The batch walk before its block reduction: (hi, lo), each
     (B, 2^(n-1-r)), equal bit for bit to ryser_partials_ref of matrix b
     on all its chunk ids at the same r."""
-    dtype = _tier_dtype(tier)
+    dtype = _tier(tier)[0]
     x0s, colss = x0s.to(dtype), colss.to(dtype)
     ids = torch.arange(1 << (n - 1 - r), dtype=torch.int64,
                        device=x0s.device)

@@ -21,6 +21,7 @@ from superman_tpu.ops import gray as jgray
 from superman_tpu.ops import ryser as jryser
 from superman_tpu.ops.oracle import perman64, perman_brute
 from superman_tpu.parallel import sharding as jsharding
+from superman_tpu_torch.csrc.build import launches
 from superman_tpu_torch.drivers import runner
 from superman_tpu_torch.ops import exact, gray, modp, ryser, ryser_cuda
 from tests.conftest import random_float_matrix, random_int_matrix
@@ -349,9 +350,9 @@ def test_amp_cond_walk_kernel_route_tracks_reference(kind):
     scales: -1 / +2 bits)."""
     a = (random_float_matrix(np.random.default_rng(20), 20, 0.6)
          if kind == "real" else landmine(902))
-    before = ryser_cuda.AMP_LAUNCHES
+    before = launches("amp", "amp_cond")
     amp, cond = ryser.amp_cond_walk_log2(a, CPU)
-    assert ryser_cuda.AMP_LAUNCHES == before       # counts launches only
+    assert launches("amp", "amp_cond") == before   # counts launches only
     jamp, jcond = jryser.amp_cond_walk_log2(a)
     assert amp == pytest.approx(jamp, abs=1e-4)
     assert amp == pytest.approx(amp_brute_log2(a), abs=1e-4)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from superman_tpu_torch.csrc.build import launches
 from superman_tpu_torch.ops import (batch, gray, modp, modp_cuda, pruning,
                                     ryser, ryser_cuda)
 
@@ -36,10 +37,10 @@ def test_kernel_matches_plain_on_card(n, r, tier):
     ids = torch.cat([torch.arange(min(nchunks, 4096)), torch.full((5,), -1),
                      torch.arange(nchunks - min(nchunks, 512), nchunks)]
                     ).to(dev)
-    before = ryser_cuda.LAUNCHES
+    before = launches("walk", "blocks")
     got = ryser_cuda.ryser_partials(ids, x0, cols, n=n, r=r, tier=tier)
     torch.cuda.synchronize()
-    assert ryser_cuda.LAUNCHES == before + 1
+    assert launches("walk", "blocks") == before + 1
     want = ryser_cuda.ryser_partials_ref(ids, x0, cols, n=n, r=r, tier=tier)
     assert got.dtype == want.dtype
     assert torch.equal(got, want)
@@ -67,10 +68,10 @@ def test_batch_kernel_matches_plain_on_card(n, count, r, tier):
     dev = torch.device("cuda", 0)
     x0p, colsT, _, _ = batch.pack_stack(stack)
     x0s, colss = torch.as_tensor(x0p).to(dev), torch.as_tensor(colsT).to(dev)
-    before = ryser_cuda.BATCH_LAUNCHES
+    before = launches("batch")
     got = ryser_cuda.batch_partials(x0s, colss, n=n, r=r, tier=tier)
     torch.cuda.synchronize()
-    assert ryser_cuda.BATCH_LAUNCHES == before + 1
+    assert launches("batch") == before + 1
     want = ryser_cuda.batch_partials_ref(x0s, colss, n=n, r=r, tier=tier)
     assert tuple(got.shape) == (count, (1 << (n - 1 - r)) // 128, 2)
     assert got.dtype == want.dtype
@@ -114,10 +115,10 @@ def test_tiers_and_glynn_on_card(algo, calc, rel):
     rng = np.random.default_rng(22)
     a = (rng.random((22, 22)) < 0.5) * rng.integers(1, 5, (22, 22))
     want = spt.permanent(a, calc="exact").meta["exact_fraction"]
-    before = ryser_cuda.LAUNCHES
+    before = launches("walk", "blocks")
     overrides = {"perman_algo": "glynn"} if algo == "glynn" else {}
     got = spt.permanent(a, calc=calc, **overrides)
-    assert ryser_cuda.LAUNCHES > before
+    assert launches("walk", "blocks") > before
     assert got.algo_name == f"{algo}_cuda_{calc}"
     assert abs(got.permanent - want) <= rel * abs(want)
 
@@ -156,10 +157,10 @@ def test_tf96_batch_on_card_matches_exact():
     mats = [(rng.random((n, n)) < 0.6) * rng.integers(1, 4, (n, n))
             for n in (14, 9, 14, 20)]
     mats.insert(2, rng.random((14, 14)))
-    before = ryser_cuda.BATCH_LAUNCHES
+    before = launches("batch")
     with pytest.warns(UserWarning, match="tf96 requires"):
         got = spt.permanent_batch(mats, calc="tf96")
-    assert ryser_cuda.BATCH_LAUNCHES == before + 3
+    assert launches("batch") == before + 3
     assert [g.algo_name for g in got] == [
         "ryser_cuda_batch_tf96", "ryser_tf96_host", "ryser_cuda_batch_df64",
         "ryser_cuda_batch_tf96", "ryser_cuda_batch_tf96"]
@@ -189,10 +190,10 @@ def test_modp_kernel_matches_plain_on_card(n, r, p):
     ids = torch.cat([torch.arange(min(nchunks, 4096)), torch.full((5,), -1),
                      torch.arange(nchunks - min(nchunks, 512), nchunks)]
                     ).to(dev)
-    before = modp_cuda.LAUNCHES
+    before = launches("modp")
     got = modp_cuda.mod_partials(ids, x0, cols, p, n=n, r=r)
     torch.cuda.synchronize()
-    assert modp_cuda.LAUNCHES == before + 1
+    assert launches("modp") == before + 1
     want = modp_cuda.mod_partials_ref(ids, x0, cols, p, n=n, r=r)
     assert torch.equal(got, want)
     assert bool(((got >= 0) & (got < p)).all())
@@ -261,11 +262,11 @@ def test_reduced_kernel_matches_plain_on_card(n, density, seed, chunk_log2,
     if n == 36:
         ids, r = gray.split_chunks(ids[:5], r, 640)
     ids = torch.cat([ids[:300], ids.new_full((3,), -1), ids[300:]])
-    before = ryser_cuda.REDUCED_LAUNCHES[tier]
+    before = launches("reduced", tier=tier)
     got = ryser_cuda.ryser_reduced(ids, x0, cols, fx0, fcols, n=n, r=r,
                                    tier=tier)
     torch.cuda.synchronize()
-    assert ryser_cuda.REDUCED_LAUNCHES[tier] == before + 1
+    assert launches("reduced", tier=tier) == before + 1
     want = ryser_cuda.ryser_reduced_ref(ids, x0, cols, fx0, fcols, n=n, r=r,
                                         tier=tier)
     assert tuple(got.shape) == (-(-ids.shape[0] // 128), 2)
@@ -297,10 +298,10 @@ def test_amp_kernel_matches_plain_on_card(n, r, kind, cond):
     ids = torch.cat([torch.arange(min(nchunks, 4096)), torch.full((5,), -1),
                      torch.arange(nchunks - min(nchunks, 512), nchunks)]
                     ).to(dev)
-    before = (ryser_cuda.AMP_LAUNCHES, ryser_cuda.AMP_COND_LAUNCHES)
+    before = (launches("amp", "amp_cond"), launches("amp_cond"))
     got = ryser_cuda.ryser_amp(ids, x0, cols, n=n, r=r, cond=cond)
     torch.cuda.synchronize()
-    assert (ryser_cuda.AMP_LAUNCHES, ryser_cuda.AMP_COND_LAUNCHES) == (
+    assert (launches("amp", "amp_cond"), launches("amp_cond")) == (
         before[0] + 1, before[1] + cond)
     want = ryser_cuda.ryser_amp_ref(ids, x0, cols, n=n, r=r, cond=cond)
     words = 4 if cond else 2
@@ -370,9 +371,9 @@ def test_sparse_permanent_on_card_matches_exact(calc, rel):
     a = _sparse_matrix(26, 0.2, 26)
     want = spt.permanent(a, calc="exact").meta["exact_fraction"]
     assert want != 0
-    before = ryser_cuda.REDUCED_LAUNCHES[calc]
+    before = launches("reduced", tier=calc)
     got = spt.permanent(a, calc=calc, sparse=True, chunk_log2=10)
-    assert ryser_cuda.REDUCED_LAUNCHES[calc] > before
+    assert launches("reduced", tier=calc) > before
     assert got.algo_name == f"sparyser_cuda_{calc}"
     assert got.meta["sparse"]["dead_frac"] > 0
     assert abs(got.permanent - want) <= rel * abs(want)
@@ -396,10 +397,10 @@ def test_auto_ladder_on_card():
     res = spt.permanent(a, calc="auto")
     assert res.meta["auto"]["probe_only"] is True
     assert abs(res.permanent - want) <= 1e-11 * abs(want)
-    before = (ryser_cuda.AMP_LAUNCHES, ryser_cuda.AMP_COND_LAUNCHES)
+    before = (launches("amp", "amp_cond"), launches("amp_cond"))
     res = spt.permanent(a, calc="auto", auto_target=1e-30)
     # an integer matrix: the amplitude-only variant
-    assert (ryser_cuda.AMP_LAUNCHES, ryser_cuda.AMP_COND_LAUNCHES) == (
+    assert (launches("amp", "amp_cond"), launches("amp_cond")) == (
         before[0] + 1, before[1])
     assert res.meta["auto"]["escalated"] == "exact"
     assert res.meta["exact_fraction"] == want
@@ -457,10 +458,10 @@ def test_walk_loop_edges_match_plain_on_card(n, r, tier):
     x0, cols = (torch.as_tensor(v).to(dev)
                 for v in _edge_pack(n, gray.pad_n(n)))
     ids = _edge_ids(n, r, dev)
-    before = ryser_cuda.LAUNCHES
+    before = launches("walk", "blocks")
     got = ryser_cuda.ryser_partials(ids, x0, cols, n=n, r=r, tier=tier)
     torch.cuda.synchronize()
-    assert ryser_cuda.LAUNCHES == before + 1
+    assert launches("walk", "blocks") == before + 1
     want = ryser_cuda.ryser_partials_ref(ids, x0, cols, n=n, r=r, tier=tier)
     assert got.dtype == want.dtype
     assert torch.equal(got, want)
@@ -481,11 +482,11 @@ def test_reduced_loop_edges_match_plain_on_card(n, alive, r, tier):
     x0, cols, fx0, fcols = (torch.as_tensor(v).to(dev).contiguous()
                             for v in _edge_pack(n, gray.pad_n(alive), alive))
     ids = _edge_ids(n, r, dev)
-    before = ryser_cuda.REDUCED_LAUNCHES[tier]
+    before = launches("reduced", tier=tier)
     got = ryser_cuda.ryser_reduced(ids, x0, cols, fx0, fcols, n=n, r=r,
                                    tier=tier)
     torch.cuda.synchronize()
-    assert ryser_cuda.REDUCED_LAUNCHES[tier] == before + 1
+    assert launches("reduced", tier=tier) == before + 1
     want = ryser_cuda.ryser_reduced_ref(ids, x0, cols, fx0, fcols, n=n, r=r,
                                         tier=tier)
     assert torch.equal(got, want)
@@ -504,10 +505,10 @@ def test_batch_loop_edges_match_plain_on_card(n, r, tier):
     packs = [_edge_pack(n, gray.pad_n(n), seed=b) for b in range(2)]
     x0s = torch.as_tensor(np.stack([p[0] for p in packs])).to(dev)
     colss = torch.as_tensor(np.stack([p[1] for p in packs])).to(dev)
-    before = ryser_cuda.BATCH_LAUNCHES
+    before = launches("batch")
     got = ryser_cuda.batch_partials(x0s, colss, n=n, r=r, tier=tier)
     torch.cuda.synchronize()
-    assert ryser_cuda.BATCH_LAUNCHES == before + 1
+    assert launches("batch") == before + 1
     want = ryser_cuda.batch_partials_ref(x0s, colss, n=n, r=r, tier=tier)
     assert torch.equal(got, want)
 
@@ -543,11 +544,11 @@ def test_dense_block_kernel_matches_plain_on_card(lanes, tier):
     x0, cols = (torch.as_tensor(v, device=dev)
                 for v in gray.pack_matrix(a_s, n))
     rows = torch.tensor([0, 1, last // 2, last, -1], device=dev)
-    before = ryser_cuda.DENSE_BLOCK_LAUNCHES[tier]
+    before = launches("blocks", tier=tier)
     got = ryser_cuda.ryser_blocks(rows, x0, cols, n=n, r=r, lanes=lanes,
                                   num_chunks=nchunks, tier=tier)
     torch.cuda.synchronize()
-    assert ryser_cuda.DENSE_BLOCK_LAUNCHES[tier] == before + 1
+    assert launches("blocks", tier=tier) == before + 1
     want = ryser_cuda.ryser_blocks_ref(rows, x0, cols, n=n, r=r, lanes=lanes,
                                        num_chunks=nchunks, tier=tier)
     per_row = -(-lanes // 128)
@@ -569,18 +570,18 @@ def test_dense_block_route_engages_on_dense_totals_only():
     a32 = _suite_matrix(32, 0.5, 1)
     spt.permanent(a32)                                   # warm-up
     for _ in range(2):
-        before = ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"]
+        before = launches("blocks", tier="df64")
         res = spt.permanent(a32)
-        assert ryser_cuda.DENSE_BLOCK_LAUNCHES["df64"] == before + 1
+        assert launches("blocks", tier="df64") == before + 1
         assert res.meta["walk_words"] == 1024 and "sparse" not in res.meta
-    before = dict(ryser_cuda.DENSE_BLOCK_LAUNCHES)
-    reduced = ryser_cuda.REDUCED_LAUNCHES["df64"]
+    before = launches("blocks")
+    reduced = launches("reduced", tier="df64")
     res = spt.permanent(_suite_matrix(36, 0.15, 36))
     assert "sparse" in res.meta
-    assert ryser_cuda.REDUCED_LAUNCHES["df64"] > reduced
+    assert launches("reduced", tier="df64") > reduced
     spt.permanent_batch([_suite_matrix(24, 0.5, s) for s in range(8)])
     spt.permanent(_suite_matrix(24, 0.5, 24), calc="exact")
-    assert ryser_cuda.DENSE_BLOCK_LAUNCHES == before
+    assert launches("blocks") == before
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ from superman_tpu.ops.oracle import perman_brute
 from superman_tpu.ops.ryser_pallas import ryser_partials as jax_partials
 import superman_tpu_torch as spt
 from superman_tpu_torch.ops import gray, ryser, ryser_cuda
+from superman_tpu_torch.ops.scaled_walk import empty_line
 from superman_tpu_torch.parallel import mesh as pmesh
 from superman_tpu_torch.parallel import sharding
 from tests.conftest import random_float_matrix, random_int_matrix
@@ -335,14 +336,51 @@ def test_default_plan_fills_the_card():
     assert gray.make_plan(19).r == 1
 
 
-@pytest.mark.parametrize("kind", ["int", "real", "sparse"])
+def _jax_empty_line(a) -> bool:
+    """The JAX package's inline test of one matrix for an empty row or
+    column (ryser.py, glynn.py)."""
+    return bool((np.count_nonzero(a, axis=1) == 0).any()
+                or (np.count_nonzero(a, axis=0) == 0).any())
+
+
+@pytest.mark.parametrize("kind", ["int", "real", "sparse", "empty_row",
+                                  "empty_col", "stack"])
 def test_host_helpers_match_jax(kind):
-    """Row scales, centring, pack and the exact-storage decision equal the
-    reference's outputs."""
-    rng = np.random.default_rng({"int": 1, "real": 2, "sparse": 3}[kind])
+    """Row scales, centring, pack, the exact-storage decision and the
+    empty-line test equal the reference's outputs.  On a (B, n, n) stack,
+    pack_stack's input, the row scales equal the reference's matrix by
+    matrix and the empty-line test its batch's inline test."""
+    rng = np.random.default_rng({"int": 1, "real": 2, "sparse": 3,
+                                 "empty_row": 4, "empty_col": 5,
+                                 "stack": 6}[kind])
+    if kind == "stack":
+        stack = np.stack([random_int_matrix(rng, 22, 0.5),
+                          random_float_matrix(rng, 22, 0.5),
+                          random_int_matrix(rng, 22, 0.3),
+                          random_int_matrix(rng, 22, 0.5),
+                          random_int_matrix(rng, 22, 0.5)])
+        stack[3, 5] = 0
+        stack[4, :, 7] = 0
+        assert np.array_equal(ryser._row_scales(stack),
+                              np.stack([jryser._row_scales(m)
+                                        for m in stack]))
+        # superman_tpu/ops/batch.py's test of a stack
+        zero = (((stack != 0).sum(axis=2) == 0).any(axis=1)
+                | ((stack != 0).sum(axis=1) == 0).any(axis=1))
+        assert list(empty_line(stack)) == list(zero) == \
+            [_jax_empty_line(m) for m in stack] == [False] * 3 + [True] * 2
+        return
     a = {"int": lambda: random_int_matrix(rng, 22, 0.5),
          "real": lambda: random_float_matrix(rng, 22, 0.5),
-         "sparse": lambda: random_int_matrix(rng, 30, 0.15)}[kind]()
+         "sparse": lambda: random_int_matrix(rng, 30, 0.15),
+         "empty_row": lambda: random_int_matrix(rng, 22, 0.5),
+         "empty_col": lambda: random_int_matrix(rng, 22, 0.5)}[kind]()
+    if kind == "empty_row":
+        a[3] = 0
+    elif kind == "empty_col":
+        a[:, 3] = 0
+    assert bool(empty_line(a)) == _jax_empty_line(a) == kind.startswith(
+        "empty")
     from superman_tpu.core.matrix import DenseMatrix as JDense
     from superman_tpu_torch.core.matrix import DenseMatrix
     tname = "int" if kind != "real" else "double"
