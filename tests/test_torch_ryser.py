@@ -403,6 +403,113 @@ def test_host_helpers_match_jax(kind):
         assert np.array_equal(x0, jx0) and np.array_equal(cols, jcols)
 
 
+# ---- the row-scale probe: bit masks and one block of words
+
+PROBE_SUITE = [(n, d) for n in (20, 24, 30, 32, 36, 38, 40)
+               for d in (0.10, 0.15, 0.50, 0.90)]
+PROBE_OTHER = ["float22", "float32", "one_live", "some_die", "all_die",
+               "runner", "compress", "keywords"]
+
+
+def _probe_matrices(case):
+    """(matrix, keywords) pairs of one case of the probe test."""
+    from permbench.gen import suite_matrix
+    if isinstance(case, tuple):
+        n, d = case
+        return [(suite_matrix(np.random.default_rng([n, int(d * 100), s]),
+                              n, d), {}) for s in range(3)]
+    rng = np.random.default_rng(PROBE_OTHER.index(case))
+
+    def signed(n):
+        a = random_float_matrix(rng, n, 0.5)
+        return a * rng.choice([-1.0, 1.0], size=a.shape)
+
+    def dense_rest(n):
+        a = random_int_matrix(rng, n, 0.9)
+        np.fill_diagonal(a, 1)
+        return a
+
+    if case in ("float22", "float32"):
+        return [(signed(int(case[-2:])), {}) for _ in range(3)]
+    if case == "one_live":
+        # the sparsest rows have one live column: integers(1) takes no word
+        a = dense_rest(24)
+        for r in range(4):
+            a[r] = 0
+            a[r, 2 * r + 1] = 3
+        return [(a, {})]
+    if case == "some_die":
+        # rows 0-2 on a 3-cycle of columns 0-2: a trial dies where row 0
+        # takes column 0 and row 1 column 2
+        a = dense_rest(24)
+        a[:3] = 0
+        a[:, :3] = 0
+        a[0, [0, 1]] = [1, 2]
+        a[1, [1, 2]] = [3, 1]
+        a[2, [0, 2]] = [2, 4]
+        first = [ryser._log2_perm_estimate_plain(a, trials=1, seed=s)
+                 for s in range(16)]
+        assert None in first and any(f is not None for f in first)
+        return [(a, {}), *((a, {"trials": 1, "seed": s}) for s in range(4))]
+    if case == "all_die":
+        # rows 12-23 share the 11 columns 13-23: every trial dies
+        a = dense_rest(24)
+        a[12:, :13] = 0
+        return [(a, {})]
+    if case == "runner":
+        # the runner's magnitude check after compression passes |A|
+        return [(np.abs(signed(30)), {})]
+    if case == "compress":
+        # the compression route passes the matrix it compresses:
+        # rows and columns scaled over many orders of magnitude
+        a = random_int_matrix(rng, 32, 0.5).astype(np.float64)
+        np.fill_diagonal(a, 2.0)
+        return [(a * np.exp2(rng.integers(-40, 40, 32))[:, None]
+                 * np.exp2(rng.integers(-40, 40, 32))[None, :], {})]
+    a = random_int_matrix(rng, 32, 0.5)
+    np.fill_diagonal(a, 1)
+    return [(a, kw) for kw in ({"trials": 6, "seed": 12345},
+                               {"trials": 1, "seed": 0},
+                               {"trials": 9, "seed": 2 ** 31 + 17},
+                               {"trials": 6, "seed": 2 ** 40 + 3})]
+
+
+@pytest.mark.parametrize("case", PROBE_SUITE + PROBE_OTHER, ids=str)
+def test_log2_perm_estimate_is_the_plain_loop_and_jax(case):
+    """The probe on bit masks and one block of words returns the same
+    float (None for None) as the plain loop kept beside it and as the
+    reference's, and the centred scales equal the reference's."""
+    for a, kw in _probe_matrices(case):
+        est = ryser._log2_perm_estimate(a, **kw)
+        plain = ryser._log2_perm_estimate_plain(a, **kw)
+        ref = jryser._log2_perm_estimate(a, **kw)
+        assert (est is None) == (plain is None) == (ref is None)
+        assert est is None or est == plain == ref
+        if case == "all_die":
+            assert est is None
+        s = ryser._row_scales(a)
+        assert np.array_equal(ryser._center_scales(a, s),
+                              jryser._center_scales(a, s))
+
+
+def test_log2_perm_estimate_falls_back_when_the_words_run_short(
+        monkeypatch):
+    """A block too short for the draws runs the plain loop: the same
+    estimate, counted under "plain"; a normal call counts under
+    "masks"."""
+    a = random_int_matrix(np.random.default_rng(11), 24, 0.5)
+    np.fill_diagonal(a, 1)
+    want = ryser._log2_perm_estimate_plain(a)
+    before = dict(ryser.ESTIMATE_PATHS)
+    assert ryser._log2_perm_estimate(a) == want
+    assert ryser.ESTIMATE_PATHS["masks"] == before.get("masks", 0) + 1
+    assert ryser.ESTIMATE_PATHS["plain"] == before.get("plain", 0)
+    monkeypatch.setattr(ryser, "_ESTIMATE_SLACK", 5 - 6 * 24)
+    assert ryser._log2_perm_estimate(a) == want
+    assert ryser.ESTIMATE_PATHS["plain"] == before.get("plain", 0) + 1
+    assert ryser.ESTIMATE_PATHS["masks"] == before.get("masks", 0) + 1
+
+
 # ---- the dense walk's total, summed block by block (ryser_blocks)
 
 #: (n, chunk_log2): the card's plan at n=19 (2^17 chunks of 2 steps) and
