@@ -466,12 +466,13 @@ def _host_route(a: np.ndarray, calc: str, device: torch.device,
     if calc == "f64" or n < 19:
         from .ryser_walk import ryser_walk
         # the small-n route walks float32 for calc="f32" only
-        p = ryser_walk(a, device,
-                       torch.float32 if calc == "f32" else torch.float64)
-        return Result(float(p), time.perf_counter() - t0,
+        p, walk = ryser_walk(
+            a, device, torch.float32 if calc == "f32" else torch.float64)
+        return Result(p, time.perf_counter() - t0,
                       algo_name=f"ryser_walk_{calc}",
                       iterations=1 << (n - 1),
-                      meta={"calc": calc, "device": str(device)})
+                      meta={"calc": calc, "device": str(device),
+                            "lane_walk": walk})
     return None
 
 

@@ -13,19 +13,92 @@ underflows, ryser_xla.py:45-73), each row is scaled by an exact power of
 two first (walk_scales), as the kernel route scales its rows: a permanent
 that a double holds comes back finite, one beyond its range as +-inf,
 one below it as +0.0.
+
+`ryser_walk` records two leaf spans (utils/trace.timer): `lane_init`,
+the row scales and the lanes' set-up on the host and their copies to the
+device, and `lane_walk`, the walk, the lane sums' copy back, their host
+sum and the scale multiplied back; and counts each walk in LANE_WALKS by
+the dtype it walked in.
+
+The lanes' start is oracle.gray_init_lanes' X, bit for bit, built with no
+BLAS call (lane_x): numpy's product there wakes OpenBLAS's pool of
+threads on every call, which on an H100's 8-core host stalled calls of
+~2 ms for up to 27 ms.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
+import threading
+
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.debug import check_nan
 from .oracle import gray_init_lanes, perman_brute
 
 
 #: lanes of the walk (the reference's ryser_xla default)
 MAX_LANES = 1 << 13
+
+#: ryser_walk's walks by the dtype they walked in, "float64" or "float32"
+LANE_WALKS: collections.Counter = collections.Counter()
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_rows(C: int) -> np.ndarray:
+    """Row of each of C lanes in lane_x's table of subset sums: gray(l * 2^r)
+    >> (r - 1), whose bit 0 is the parity of l and whose bits from 1 are
+    those of gray(l) (oracle._lane_bits)."""
+    l = np.arange(C, dtype=np.int64)
+    return ((l ^ (l >> 1)) << 1) | (l & 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sign_mid(C: int, device: torch.device, dtype: torch.dtype):
+    """gray_init_lanes' sign_mid of C lanes, on `device` in `dtype`."""
+    l = np.arange(C, dtype=np.int64)
+    return torch.as_tensor(1.0 - 2.0 * (l & 1), device=device).to(dtype)
+
+
+#: this thread's host arrays of the newest order's lane walk
+_ARRAYS = threading.local()
+
+
+def _host_arrays(n: int, C: int):
+    """(lane_x's table, the lanes and columns that go up to the device) of
+    an order-n walk of C lanes, kept from call to call in each thread: a
+    fresh array of a few MB faults its pages in on every call."""
+    got = getattr(_ARRAYS, "got", None)
+    if got is None or got[0] != (n, C):
+        got = _ARRAYS.got = ((n, C), np.empty((2 * C, n)),
+                             np.empty((C + n - 1, n)))
+    return got[1], got[2]
+
+
+def lane_x(a: np.ndarray, C: int, r: int, out: np.ndarray,
+           t: np.ndarray) -> np.ndarray:
+    """oracle.gray_init_lanes(a, arange(C), r)'s X, bit for bit, into out
+    (C, n), for a finite float64 (n, n) matrix a with C * 2^r = 2^(n-1);
+    t a (2C, n) array to build the sums in.
+
+    Lane l's start is x0 plus the columns r-1 .. n-2 that gray(l * 2^r)
+    sets.  The 2C sums of those columns' subsets are built by doubling,
+    each column added in increasing order to the sums without it, which
+    is the order a BLAS product sums them in (0/1 times a column is exact,
+    and adding a zero to a sum changes nothing); each lane takes its row.
+    A non-finite entry would make 0 times it NaN in the product and not
+    here, so such a matrix is not passed."""
+    n = a.shape[0]
+    t[0] = 0.0
+    for j in range(n - r):
+        h = 1 << j
+        np.add(t[:h], a[:, r - 1 + j], out=t[h:2 * h])
+    np.take(t, _lane_rows(C), axis=0, out=out)
+    out += a[:, n - 1] - a.sum(axis=1) / 2
+    return out
 
 
 def walk_lanes(X: torch.Tensor, sign_mid: torch.Tensor, cols: torch.Tensor,
@@ -106,26 +179,40 @@ def brute_scaled(a: np.ndarray) -> float:
 
 
 def ryser_walk(a: np.ndarray, device: torch.device,
-               dtype: torch.dtype = torch.float64) -> float:
-    """Exact permanent via the walk on `device`.  The rows are scaled by
-    walk_scales, the lanes set up in float64 and walked in `dtype`; the
-    lane sums are added in float64 on the host and multiplied back by
-    2^E, E the sum of the row exponents."""
+               dtype: torch.dtype = torch.float64
+               ) -> tuple[float, dict | None]:
+    """Exact permanent via the walk on `device`: (the permanent, the
+    walk's counter), the counter {"lanes": C, "r": r, "steps": 2^r - 1,
+    "dtype": "float64" or "float32"} (None for orders 1-2, which
+    brute_scaled multiplies out).  The rows are scaled by walk_scales, the
+    lanes set up in float64 and walked in `dtype`; the lane sums are added
+    in float64 on the host and multiplied back by 2^E, E the sum of the
+    row exponents."""
     a = np.asarray(a, dtype=np.float64)
     n = a.shape[0]
     if n <= 2:
-        return brute_scaled(a)
-    s = walk_scales(a)
-    a = np.ldexp(a, -s[:, None])
+        return brute_scaled(a), None
     total = 1 << (n - 1)
     C = min(total >> 1, MAX_LANES)
     r = (total // C).bit_length() - 1
-    X, sign_mid = gray_init_lanes(a, np.arange(C, dtype=np.int64), r,
-                                  dtype=np.float64)
-    X = torch.as_tensor(X, device=device).to(dtype)
-    sign_mid = torch.as_tensor(sign_mid, device=device).to(dtype)
-    cols = torch.as_tensor(np.ascontiguousarray(a[:, : n - 1].T),
-                           device=device).to(dtype)
-    acc = walk_lanes(X, sign_mid, cols, r)
-    total_sum = float(np.sum(acc.cpu().numpy().astype(np.float64)))
-    return float(times_pow2((4 * (n & 1) - 2) * total_sum, int(s.sum())))
+    with trace.timer("lane_init"):
+        s = walk_scales(a)
+        a = np.ldexp(a, -s[:, None])
+        # the lanes' X and the columns go up as one array
+        t, host = _host_arrays(n, C)
+        if np.isfinite(a).all():
+            lane_x(a, C, r, host[:C], t)
+        else:
+            host[:C] = gray_init_lanes(a, np.arange(C, dtype=np.int64), r,
+                                       dtype=np.float64)[0]
+        host[C:] = a[:, : n - 1].T
+        both = torch.as_tensor(host, device=device).to(dtype)
+        X, cols = both[:C], both[C:]
+        sign_mid = _sign_mid(C, device, dtype)
+    with trace.timer("lane_walk"):
+        acc = walk_lanes(X, sign_mid, cols, r)
+        total_sum = float(np.sum(acc.cpu().numpy().astype(np.float64)))
+        p = float(times_pow2((4 * (n & 1) - 2) * total_sum, int(s.sum())))
+    name = str(dtype).removeprefix("torch.")
+    LANE_WALKS[name] += 1
+    return p, {"lanes": C, "r": r, "steps": (1 << r) - 1, "dtype": name}

@@ -16,15 +16,16 @@ host walk) and permanent(a, cpu=True, gpu=False, threads=8) on
 chip_smoke.py's n=32 matrix (random_int_matrix(default_rng(32), 32,
 0.5); the native engine's double walk, seconds a call, so --reps
 defaults to 3 there).  Every route is called once to warm up, then
---reps times; the median host wall in ms.
+--reps times; the median host wall in ms, beside the route's lanes,
+steps and dtype (Result.meta["lane_walk"]) where it records them.
 
 --against DIR loads the superman_tpu_torch of another checkout (say an
 unpacked `git archive` of an earlier commit) beside this one, under
 another module name, and calls the two in turns in one process, each
 first in every other turn: a before/after pair on one card with no
 process-to-process spread.  Prints one JSON line: the card's name and
-power limit, and for each route and tree the algo it took and its
-median.
+power limit, and for each route and tree the algo it took, its lanes
+and its median.
 """
 
 from __future__ import annotations
@@ -93,16 +94,23 @@ def load_tree(root: str, name: str = "superman_tpu_torch_against"):
 
 
 def walls(pkgs: dict, device, reps: int, host: bool = False) -> dict:
-    """route -> {label: {"algo", "ms"}} for each package of `pkgs`
-    ({label: superman_tpu_torch module}): one warm-up call each, then
-    `reps` turns in which every package is called once, the order turned
-    round every other turn; "ms" the median wall.  `host`: the host
-    routes (routes())."""
+    """route -> {label: {"algo", "lanes", "ms"}} for each package of
+    `pkgs` ({label: superman_tpu_torch module}): one warm-up call each,
+    then `reps` turns in which every package is called once, the order
+    turned round every other turn; "lanes" the warm-up's
+    Result.meta["lane_walk"] (the lane walk's lanes, r, steps and dtype;
+    None where the route or the package records none), "ms" the median
+    wall.
+    `host`: the host routes (routes())."""
     calls = {label: routes(spt, device, host) for label, spt in pkgs.items()}
     out = {}
     for name in calls[next(iter(pkgs))]:
         turn = [(label, calls[label][name]) for label in pkgs]
-        res = {label: {"algo": call().algo_name} for label, call in turn}
+        res = {}
+        for label, call in turn:
+            warm = call()
+            res[label] = {"algo": warm.algo_name,
+                          "lanes": warm.meta.get("lane_walk")}
         times = {label: [] for label in pkgs}
         for i in range(reps):
             for label, call in turn[::1 - 2 * (i & 1)]:

@@ -28,6 +28,10 @@ The spans, each a leaf (none holds another) but the outer
 * `engine_plan`, `sparse_plan`, `scales`, `pack`, `walk`
   (ops/ryser.py; `pack` and `walk` in ops/glynn.py too): the checks and
   the plan, the sparse planner, the row scales, the pack, the walk;
+* `lane_init`, `lane_walk` (ops/ryser_walk.ryser_walk), where ryser_exact
+  takes the lane walk (below n=19, and calc="f64"): the row scales, the
+  lanes' set-up and their copies to the device; the walk's steps, the
+  lane sums back, their host sum and the scale multiplied back;
 * `mesh_launch`, `mesh_wait`, `mesh_gather` (parallel/sharding.py), in
   place of `walk` where one process deals the walk over several mesh
   entries itself (no hybrid scheduler): the entries' launches queued,

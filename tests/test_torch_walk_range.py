@@ -214,9 +214,18 @@ def test_lane_walls_times_every_lane_route():
             "float32 walk n=18": "ryser_walk_f32",
             "glynn float64 n=18": "glynn_host",
             "batch walk 64 x n=12": "ryser_walk_batch"}
+    # the lane walks' counter beside each wall; Glynn and the batch keep
+    # none
+    lanes = {"float64 walk n=12": (1024, 1, "float64"),
+             "float32 walk n=12": (1024, 1, "float32"),
+             "float64 walk n=18": (8192, 4, "float64"),
+             "float32 walk n=18": (8192, 4, "float32")}
     for label in ("this", "other"):
         assert {k: v[label]["algo"] for k, v in got.items()} == want
         assert all(v[label]["ms"] > 0 for v in got.values())
+        assert {k: (v[label]["lanes"]["lanes"], v[label]["lanes"]["r"],
+                    v[label]["lanes"]["dtype"])
+                for k, v in got.items() if v[label]["lanes"]} == lanes
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA card"):
             lane_walls.main([])
